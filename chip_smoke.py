@@ -1,0 +1,435 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``uit_mobile_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device  - the card (nvidia-smi name and power limit), torch/CUDA versions,
+               TF32 flags (off);
+  2. build   - nvcc builds every kernel source in uit_mobile_tpu_torch/csrc;
+  3. kernel checks - each variant of the fused mel kernel at the shapes the
+               serving and exact paths give it, against its plain PyTorch
+               version, the rfft reference, the fast/exact gates, int16 ==
+               f32/32768 and transposed == row (bitwise); timed beside its
+               plain version and a torch.stft composite;
+  4. serve   - the main path: uit_xs (random weights from a seed) behind
+               TaggingService(ServiceConfig(dtype="int16")) on the card,
+               ~300 one-second and 20 three-second clips, each result held
+               within 1e-3 of the plain path on the CPU;
+  5. exact   - make_forward_fn(precision="exact") at B=4 and B=256 against the
+               CPU plain path, and the inference CLI with --kernel on the card
+               against the CPU run;
+  6. forward - device and host-enqueue time of one serving forward at each
+               serving shape, beside the mel kernel's share of it.
+Then the `kernels` line, and as the last line
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+Launch counters are set to 0 just before the serve and exact paths and read
+just after; comparison launches do not count. Any failure exits non-zero
+without that last line, as does a machine with no CUDA GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+REPO = Path(__file__).resolve().parent
+OUT_DIR = REPO / "uit_mobile_tpu_torch" / "_build" / "chip_smoke"  # gitignored
+
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, FP32 non-tensor, bf16 tensor
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_FLOP_S = 67e12
+PEAK_BF16_FLOP_S = 989e12
+KERNEL_SOURCE = "uit_mobile_tpu_torch/csrc/mel.cu"
+REPLACES = {
+    "row_exact": "uit_mobile_tpu/ops/pallas_mel.py:101",
+    "row_fast": "uit_mobile_tpu/ops/pallas_mel.py:142",
+    "tfb_exact": "uit_mobile_tpu/ops/pallas_mel.py:180",
+    "tfb_fast": "uit_mobile_tpu/ops/pallas_mel.py:192",
+}
+SR = 16000
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(ok: bool, msg: str) -> None:
+    if not ok:
+        raise RuntimeError(f"chip_smoke gate failed: {msg}")
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 25) -> float:
+    """Median device time of fn() in ms, CUDA events around each call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def real_clip(n: int) -> np.ndarray:
+    """The GSC keyword sample, tiled to n samples (float32 from int16 PCM)."""
+    from uit_mobile_tpu_torch.data import read_wav
+
+    wav, _ = read_wav(REPO / "samples" / "85b877b5_nohash_0.wav")
+    return np.resize(wav[0], n)
+
+
+def pcm_batch(rng, B: int, n: int) -> np.ndarray:
+    """(B, n) int16: seeded noise at 0.1 amplitude, row 0 the real sample."""
+    from uit_mobile_tpu_torch.frontend import quantize_pcm16
+
+    wav = rng.standard_normal((B, n)).astype(np.float32) * 0.1
+    wav[0] = real_clip(n)
+    return quantize_pcm16(wav)
+
+
+def bound(B: int, n_samples: int, precision: str, int16: bool):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations /
+    peak rate, for one call at this shape."""
+    from uit_mobile_tpu_torch.frontend import FrontendConfig
+
+    fe = FrontendConfig()
+    n_frames = fe.num_frames(n_samples)
+    rows = B * n_frames
+    flops = rows * (2 * 512 * 512 + 2 * 512 * 64)
+    if precision == "fast":  # 3 bf16 passes per product, on the tensor cores
+        op_s = 3 * flops / PEAK_BF16_FLOP_S
+        mat_bytes = 2 * 2 * (512 * 512 + 512 * 64)
+    else:
+        op_s = flops / PEAK_FP32_FLOP_S
+        mat_bytes = 4 * (512 * 512 + 512 * 64)
+    nbytes = B * (n_samples + 512) * (2 if int16 else 4) + mat_bytes + rows * 64 * 4
+    byte_s = nbytes / PEAK_BYTES_S
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
+
+
+def library_composite(wav_f: torch.Tensor, fb: torch.Tensor, window: torch.Tensor):
+    """Nearest PyTorch yardstick (a composite, no single call computes the
+    fused function): torch.stft -> power -> @ fb -> 10*log10."""
+    spec = torch.stft(wav_f, n_fft=512, hop_length=160, win_length=512, window=window,
+                      center=True, pad_mode="reflect", return_complex=True)
+    power = spec.real ** 2 + spec.imag ** 2                 # (B, 257, T)
+    mel = power.transpose(-1, -2) @ fb                      # (B, T, 64)
+    return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
+
+
+def phase_device() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    info = {"phase": "device", "nvidia_smi": smi, "name": torch.cuda.get_device_name(0),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                     "cudnn": torch.backends.cudnn.allow_tf32}}
+    check(not any(info["tf32"].values()), "TF32 must be off")
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from uit_mobile_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    paths = build.build_all()
+    seconds = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = []
+    for stem, log in build.build_logs.items():
+        (OUT_DIR / f"nvcc_{stem}.log").write_text(log)
+        ptxas += [ln.strip() for ln in log.splitlines()
+                  if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(seconds, 3),
+          "libraries": {k: str(v.relative_to(REPO)) for k, v in paths.items()},
+          "ptxas": ptxas[:16]})
+
+
+def phase_kernels(dev) -> dict:
+    """Every variant vs its plain version and the gates; -> timing records."""
+    from uit_mobile_tpu_torch.frontend import FrontendConfig, log_mel_spectrogram, reflect_pad
+    from uit_mobile_tpu_torch.frontend.mel import mel_filterbank, padded_window
+    from uit_mobile_tpu_torch.ops import mel as mel_ops
+
+    fe = FrontendConfig()
+    rng = np.random.default_rng(0)
+    # (variant, B, seconds, timed): the shapes the serve and exact paths use
+    cases = [("row_fast", 8, 3, False), ("row_fast", 85, 3, True),
+             ("tfb_fast", 256, 1, True), ("row_exact", 8, 1, True),
+             ("tfb_exact", 256, 1, True)]
+    records, worst = {}, {}
+    fb257 = torch.from_numpy(mel_filterbank(fe)).to(dev)
+    window = torch.from_numpy(padded_window(512, 512)).to(dev)
+    for variant, B, secs, timed in cases:
+        layout, precision = variant.split("_")
+        transposed = layout == "tfb"
+        pcm = pcm_batch(rng, B, secs * SR)
+        wav_i = torch.from_numpy(pcm).to(dev)
+        wav_f = torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev)
+        wp_i = reflect_pad(wav_i, 256).contiguous()
+        wp_f = reflect_pad(wav_f, 256).contiguous()
+        mats_i = mel_ops._matrices(fe, True, precision, dev)
+        mats_f = mel_ops._matrices(fe, False, precision, dev)
+
+        def run(wp, mats, t=transposed):
+            return mel_ops.cuda_log_mel_rows(wp, mats, precision, fe.hop_length, t)
+
+        out_f, out_i = run(wp_f, mats_f), run(wp_i, mats_i)
+        plain = mel_ops.plain_log_mel_rows(wp_f, mats_f, precision, fe.hop_length)
+        if transposed:
+            plain = plain.permute(1, 2, 0)
+        torch.cuda.synchronize()
+        err = (out_f - plain).abs()
+        # row 0 is the real sample, rows 1.. the noise (batch is the last
+        # dim of the transposed layout)
+        err_real, err_noise = (err[..., 0], err[..., 1:]) if transposed else (err[0], err[1:])
+        rec = {"phase": "kernel", "variant": variant, "B": B, "seconds": secs,
+               "max_abs_err_db": err.max().item(), "mean_abs_err_db": err.mean().item(),
+               "max_abs_err_noise_db": err_noise.max().item(),
+               "max_abs_err_real_db": err_real.max().item()}
+        check(torch.isfinite(out_f).all().item(), f"{variant}: non-finite output")
+        # kernel vs its plain version: the same products in another
+        # summation order, held to 1e-3 dB on every row
+        check(rec["max_abs_err_db"] <= 1e-3,
+              f"{variant} B={B}: kernel vs plain {rec['max_abs_err_noise_db']} dB (noise), "
+              f"{rec['max_abs_err_real_db']} dB (real sample)")
+        rec["int16_bitwise"] = torch.equal(out_f, out_i)
+        check(rec["int16_bitwise"], f"{variant} B={B}: int16 != f32/32768")
+        if transposed:
+            rec["transposed_bitwise"] = torch.equal(out_f, run(wp_f, mats_f, False).permute(1, 2, 0))
+            check(rec["transposed_bitwise"], f"{variant} B={B}: tfb != row transposed")
+        # gates through the wrapper (top_db clamp included)
+        exact = mel_ops.log_mel(wav_f, fe, precision="exact", layout="btf")
+        if precision == "exact":
+            ref = log_mel_spectrogram(wav_f, fe).transpose(-1, -2)
+            truth = log_mel_spectrogram(wav_f.double(), fe).transpose(-1, -2)
+            d = (exact - ref).abs()
+            rec["vs_rfft_max_db_noise"] = d[1:].max().item()
+            rec["vs_rfft_max_db_real"] = d[0].max().item()
+            rec["vs_f64_max_db_real"] = (exact[0] - truth[0]).abs().max().item()
+            rec["rfft_vs_f64_max_db_real"] = (ref[0] - truth[0]).abs().max().item()
+            # the JAX gate (tests/test_pallas_mel.py:23) on its own kind of
+            # input, noise at 0.1 amplitude. On the real sample's deep
+            # valleys two float32 evaluations differ by ~1e-3 dB, so there
+            # the kernel is held to a float64 evaluation of the frontend.
+            check(rec["vs_rfft_max_db_noise"] <= 5e-4 and rec["vs_f64_max_db_real"] <= 2e-3,
+                  f"{variant}: exact kernel vs rfft {rec['vs_rfft_max_db_noise']} dB "
+                  f"(noise), vs float64 {rec['vs_f64_max_db_real']} dB (real sample)")
+        else:
+            d = (mel_ops.log_mel(wav_f, fe, precision="fast", layout="btf") - exact).abs()
+            rec["fast_vs_exact_max_db"] = d.max().item()
+            rec["fast_vs_exact_mean_db"] = d.mean().item()
+            check(rec["fast_vs_exact_max_db"] < 1.0 and rec["fast_vs_exact_mean_db"] < 0.02,
+                  f"{variant}: fast vs exact {d.max().item()} / {d.mean().item()} dB")
+        if timed:
+            # the serve path feeds int16 (fast), the exact path float32
+            wp, mats = (wp_i, mats_i) if precision == "fast" else (wp_f, mats_f)
+            rec["input"] = "int16" if precision == "fast" else "float32"
+            rec["kernel_ms"] = time_ms(lambda: run(wp, mats))
+            rec["plain_ms"] = time_ms(
+                lambda: mel_ops.plain_log_mel_rows(wp, mats, precision, fe.hop_length))
+            rec["library_ms"] = time_ms(lambda: library_composite(wav_f, fb257, window))
+            rec["bound_ms"], rec["bound_by"] = bound(B, secs * SR, precision,
+                                                     rec["input"] == "int16")
+            records[variant] = rec
+        worst[variant] = max(worst.get(variant, 0.0), rec["max_abs_err_db"])
+        emit(rec)
+    for variant, rec in records.items():
+        rec["max_abs_err_all_shapes_db"] = worst[variant]
+    return records
+
+
+def reset_launches():
+    from uit_mobile_tpu_torch.ops import launches
+
+    for k in launches:
+        launches[k] = 0
+
+
+def cpu_reference(cfg, cpu_model, pcm: np.ndarray, precision: str, top_db_mode,
+                  chunk: int = 64) -> np.ndarray:
+    """The plain path on the CPU: make_forward_fn with the kernel's plain version."""
+    from uit_mobile_tpu_torch.ops import make_forward_fn
+
+    fwd = make_forward_fn(cfg, cpu_model, use_kernel=True, precision=precision,
+                          top_db_mode=top_db_mode)
+    return np.concatenate([fwd(pcm[i:i + chunk]).numpy() for i in range(0, len(pcm), chunk)])
+
+
+def phase_serve(cfg, cpu_model, info) -> dict:
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
+
+    rng = np.random.default_rng(1)
+    one = pcm_batch(rng, 300, SR)
+    three = pcm_batch(rng, 20, 3 * SR)
+    clips = [c for c in one] + [c for c in three]
+    order = rng.permutation(len(clips))
+    svc = TaggingService(cfg, cpu_model, ServiceConfig(dtype="int16"), device="cuda")
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        submitted, finished, futs = {}, {}, {}
+        t0 = time.perf_counter()
+        for i in order:
+            submitted[i] = time.perf_counter()
+            fut = svc.submit(clips[i])
+            fut.add_done_callback(lambda f, i=i: finished.__setitem__(i, time.perf_counter()))
+            futs[i] = fut
+        got = {i: f.result(timeout=300) for i, f in futs.items()}
+        t1 = time.perf_counter()
+        counts = dict(launches)
+    finally:
+        svc.close()
+    probs = np.stack([got[i] for i in range(len(clips))])
+    check(probs.shape == (len(clips), cfg.outputdim), f"serve shape {probs.shape}")
+    check(bool(np.isfinite(probs).all() and (probs >= 0).all() and (probs <= 1).all()),
+          "serve probabilities outside [0, 1]")
+    want = np.concatenate([cpu_reference(cfg, cpu_model, one, "fast", "per_sample"),
+                           cpu_reference(cfg, cpu_model, three, "fast", "per_sample")])
+    drift = float(np.abs(probs - want).max())
+    check(drift <= 1e-3, f"serve vs CPU plain path drift {drift} > 1e-3")
+    check(counts["tfb_fast"] > 0 and counts["row_fast"] > 0,
+          f"serving did not launch both fast kernels: {counts}")
+    lat = sorted(finished[i] - submitted[i] for i in range(len(clips)))
+    rec = {"phase": "serve", "model": "uit_xs", "requests": len(clips),
+           "clips_1s": len(one), "clips_3s": len(three), "max_abs_drift_vs_cpu": drift,
+           "launches": counts, "clips_per_s": len(clips) / (t1 - t0),
+           "p50_latency_ms": 1e3 * lat[len(lat) // 2], "p99_latency_ms": 1e3 * lat[-max(1, len(lat) // 100)],
+           "wall_s": t1 - t0, "card": info["nvidia_smi"]}
+    emit(rec)
+    return counts
+
+
+def phase_forward(cfg, gpu_model, records, info) -> None:
+    """One serving forward per bucket shape on a device-resident batch: its
+    device time (CUDA events) beside its host enqueue time and the mel
+    kernel's time. Enqueue close to device time means the eager encoder is
+    bound by the host issuing its launches."""
+    from uit_mobile_tpu_torch.ops import make_forward_fn
+
+    fwd = make_forward_fn(cfg, gpu_model, precision="fast", top_db_mode="per_sample")
+    rng = np.random.default_rng(3)
+    for variant, B, secs in (("tfb_fast", 256, 1), ("row_fast", 85, 3)):
+        x = torch.from_numpy(pcm_batch(rng, B, secs * SR)).to(gpu_model.head.kernel.device)
+        forward_ms = time_ms(lambda: fwd(x))
+        enqueue = []
+        for _ in range(25):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(x)
+            enqueue.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        mel_ms = records[variant]["kernel_ms"]
+        emit({"phase": "forward", "model": "uit_xs", "B": B, "seconds": secs,
+              "input": "int16", "mel_variant": variant, "forward_ms": forward_ms,
+              "enqueue_ms": statistics.median(enqueue), "mel_kernel_ms": mel_ms,
+              "mel_share": mel_ms / forward_ms,
+              "forward_clips_per_s": B * 1e3 / forward_ms, "card": info["nvidia_smi"]})
+
+
+def cli_ranking(npz: Path, device: str) -> list:
+    wavs = sorted(str(p.relative_to(REPO)) for p in (REPO / "samples").glob("*.wav"))
+    out = subprocess.run(
+        [sys.executable, "-m", "uit_mobile_tpu_torch.cli.infer", "--kernel",
+         "--device", device, "-m", str(npz), "-k", "5", *wavs],
+        cwd=REPO, capture_output=True, text=True, timeout=600)
+    check(out.returncode == 0, f"cli.infer --device {device} failed:\n{out.stderr[-4000:]}")
+    rows = [ln.rsplit(None, 1) for ln in out.stdout.splitlines()
+            if ln.strip() and not ln.startswith("=====")]
+    return [(name.strip(), float(p)) for name, p in rows]
+
+
+def phase_exact(cfg, cpu_model, gpu_model) -> dict:
+    from uit_mobile_tpu_torch.ckpt import save_checkpoint
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+
+    rng = np.random.default_rng(2)
+    fwd = make_forward_fn(cfg, gpu_model, precision="exact")
+    batches = [pcm_batch(rng, B, SR).astype(np.float32) / 32768.0 for B in (4, 256)]
+    torch.cuda.synchronize()
+    reset_launches()
+    outs = [fwd(b).cpu().numpy() for b in batches]
+    counts = dict(launches)
+    drifts = []
+    for b, got in zip(batches, outs):
+        want = cpu_reference(cfg, cpu_model, b, "exact", None)
+        drifts.append(float(np.abs(got - want).max()))
+    check(max(drifts) <= 1e-3, f"exact path vs CPU plain path drift {drifts} > 1e-3")
+    check(counts["row_exact"] > 0 and counts["tfb_exact"] > 0,
+          f"exact path did not launch both exact kernels: {counts}")
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    npz = OUT_DIR / "uit_xs_seed1234.npz"
+    save_checkpoint(npz, cpu_model, cfg)
+    gpu_rank, cpu_rank = cli_ranking(npz, "cuda"), cli_ranking(npz, "cpu")
+    check([n for n, _ in gpu_rank] == [n for n, _ in cpu_rank],
+          "cli --kernel ranking on the card differs from the CPU run")
+    cli_drift = max(abs(a - b) for (_, a), (_, b) in zip(gpu_rank, cpu_rank))
+    emit({"phase": "exact", "batches": [4, 256], "max_abs_drift_vs_cpu": drifts,
+          "launches": counts, "cli_rows": len(gpu_rank), "cli_ranking_equal": True,
+          "cli_max_printed_prob_diff": cli_drift})
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA GPU available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.utils import resolve_device
+
+    dev = resolve_device("cuda")  # also switches TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = phase_device()
+    phase_build()
+    records = phase_kernels(dev)
+
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
+    cpu_model = models.build(cfg, torch.Generator().manual_seed(1234), device="cpu")
+    gpu_model = models.build(cfg, torch.Generator().manual_seed(1234), device="cuda")
+    serve_counts = phase_serve(cfg, cpu_model, info)
+    exact_counts = phase_exact(cfg, cpu_model, gpu_model)
+    phase_forward(cfg, gpu_model, records, info)
+
+    kernels = []
+    for variant in ("row_exact", "row_fast", "tfb_exact", "tfb_fast"):
+        rec = records[variant]
+        path_counts = serve_counts if variant.endswith("fast") else exact_counts
+        kernels.append({
+            "name": f"mel_{variant}", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES[variant], "launches": path_counts[variant],
+            "path": "serve" if variant.endswith("fast") else "exact",
+            "max_abs_err": rec["max_abs_err_all_shapes_db"],
+            "mean_abs_err": rec["mean_abs_err_db"], "ms": rec["kernel_ms"],
+            "kernel_ms": rec["kernel_ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "library": "torch.stft -> power -> @ fb -> log10 (composite)",
+            "shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",
+            "card": info["nvidia_smi"]})
+    emit({"kernels": kernels})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,120 @@
+"""Port mel kernel module (uit_mobile_tpu_torch.ops.mel) on the CPU, where the
+wrapper takes each kernel's plain PyTorch version, vs the JAX Pallas kernels
+run in interpret mode (as tests/test_pallas_mel.py runs them).
+
+Measured (CPU): plain exact vs Pallas exact <= 1.4e-4 dB, plain fast vs
+Pallas fast <= 6.1e-5 dB; held to 5e-4 dB (exact) and 1e-3 dB (fast).
+The CUDA kernel itself runs only on the card: chip_smoke.py and
+tests/test_torch_mel_gpu.py hold it against the plain version there."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from uit_mobile_tpu.frontend import FrontendConfig as JaxFrontendConfig
+from uit_mobile_tpu.ops import pallas_log_mel
+from uit_mobile_tpu_torch.frontend import FrontendConfig, log_mel_spectrogram
+from uit_mobile_tpu_torch.ops import mel as mel_ops
+from uit_mobile_tpu_torch.ops.mel import TFB_MIN_BATCH, log_mel, make_frontend_fn
+
+torch.set_num_threads(1)
+
+TOL = {"exact": 5e-4, "fast": 1e-3}
+
+
+def _wav(B, T=16000, seed=0):
+    wav = (np.random.default_rng(seed).standard_normal((B, T)) * 0.1).astype(np.float32)
+    pcm = np.clip(np.rint(wav * 32768), -32768, 32767).astype(np.int16)
+    return pcm.astype(np.float32) / 32768.0, pcm
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("layout", ["bft", "btf", "tfb"])
+@pytest.mark.parametrize("dtype", ["float32", "int16"])
+def test_plain_versions_match_pallas(precision, layout, dtype):
+    f32, pcm = _wav(3, seed=1)
+    x = f32 if dtype == "float32" else pcm
+    want = np.asarray(pallas_log_mel(jnp.asarray(x), JaxFrontendConfig(),
+                                     precision=precision, layout=layout))
+    got = log_mel(torch.from_numpy(x), FrontendConfig(), precision=precision,
+                  layout=layout).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=TOL[precision], rtol=0)
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_transposed_route_matches_pallas_at_batch_128(precision):
+    """B=128 takes the transposed ('tfb') kernel in both packages."""
+    f32, _ = _wav(TFB_MIN_BATCH, seed=2)
+    want = np.asarray(pallas_log_mel(jnp.asarray(f32), JaxFrontendConfig(),
+                                     precision=precision, layout="tfb"))
+    got = log_mel(torch.from_numpy(f32), FrontendConfig(), precision=precision,
+                  layout="tfb").numpy()
+    assert got.shape == (101, 64, TFB_MIN_BATCH)
+    np.testing.assert_allclose(got, want, atol=TOL[precision], rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["torch", "per_sample"])
+def test_exact_matches_reference_frontend(mode):
+    f32, _ = _wav(2, T=40000, seed=3)
+    cfg = FrontendConfig(top_db_mode=mode)
+    ref = log_mel_spectrogram(torch.from_numpy(f32), cfg)
+    got = log_mel(torch.from_numpy(f32), cfg)
+    torch.testing.assert_close(got, ref, atol=5e-4, rtol=0)
+
+
+def test_fast_vs_exact_gates():
+    f32, _ = _wav(2, seed=4)
+    exact = log_mel(torch.from_numpy(f32), precision="exact")
+    fast = log_mel(torch.from_numpy(f32), precision="fast")
+    d = (exact - fast).abs()
+    assert d.max() < 1.0 and d.mean() < 0.02  # tests/test_pallas_mel.py:54-55
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+@pytest.mark.parametrize("B", [2, TFB_MIN_BATCH])
+def test_transposed_equals_row_transposed(precision, B):
+    f32, pcm = _wav(B, seed=5)
+    row = log_mel(torch.from_numpy(pcm), precision=precision, layout="btf")
+    tfb = log_mel(torch.from_numpy(pcm), precision=precision, layout="tfb")
+    assert torch.equal(tfb, row.permute(1, 2, 0))
+    # int16 input is bitwise the normalized float input
+    assert torch.equal(tfb, log_mel(torch.from_numpy(f32), precision=precision, layout="tfb"))
+
+
+@pytest.mark.parametrize("precision", ["exact", "fast"])
+def test_framing_values_identical(precision):
+    f32, _ = _wav(2, seed=6)
+    outs = [log_mel(torch.from_numpy(f32), precision=precision, framing=f)
+            for f in ("auto", "slices", "gather")]
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    with pytest.raises(ValueError, match="framing"):
+        log_mel(torch.from_numpy(f32), framing="nope")
+
+
+def test_make_frontend_fn_layouts():
+    f32, _ = _wav(2, seed=7)
+    wav = torch.from_numpy(f32)
+    bft = make_frontend_fn(use_kernel=False)(wav)
+    torch.testing.assert_close(make_frontend_fn(use_kernel=False, layout="tfb")(wav),
+                               bft.permute(2, 1, 0))
+    torch.testing.assert_close(make_frontend_fn(use_kernel=True, layout="btf")(wav),
+                               bft.transpose(-1, -2), atol=5e-4, rtol=0)
+    with pytest.raises(ValueError, match="layout"):
+        make_frontend_fn(layout="tfb_to_bft")
+
+
+def test_cuda_launcher_refuses_cpu_tensors():
+    """The launcher never falls back: a CPU tensor is refused, not run plain."""
+    mats = mel_ops._matrices(FrontendConfig(), False, "exact", torch.device("cpu"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        mel_ops.cuda_log_mel_rows(torch.zeros(1, 1024), mats, "exact", 160, False)
+
+
+def test_bf16_split_is_exact_for_pcm():
+    """int16 samples split exactly into bf16 hi + lo (the fast path's premise)."""
+    x = torch.arange(-32768, 32768, dtype=torch.float32)
+    hi, lo = mel_ops._bf16_split(x)
+    assert torch.equal(hi.float() + lo.float(), x)
+

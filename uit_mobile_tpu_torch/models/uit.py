@@ -1,0 +1,510 @@
+"""UiT audio transformer family (eval), counterpart of
+``uit_mobile_tpu/models/uit.py``.
+
+The model is a ``UiT`` ``nn.Module`` whose parameter names mirror the JAX
+pytree (``blocks.3.attn.qkv.kernel`` <-> ``blocks/3/attn/qkv/kernel``; the
+init_bn running stats are buffers ``init_bn.mean`` / ``init_bn.var``, the
+JAX ``state``). The forward functions take ``(cfg, model, ...)`` where the
+JAX ones take ``(cfg, params, state, ...)``.
+
+Checkpoint-parity quirks kept:
+- BNeckAttention's softmax scale uses the FULL-dim head size (uit.py:99-101);
+- block/final LayerNorms use eps=1e-6, the head LayerNorm eps=1e-5;
+- the head emits sigmoid probabilities;
+- pooling='dm' does freq-mean -> head -> sigmoid -> time-mean;
+- long clips are cut into target_length windows, the short tail replaced by
+  the last full window, and scores reduced by ``eval_avg``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from ..frontend import FrontendConfig, log_mel_spectrogram
+from .common import (
+    BatchNorm,
+    LayerNorm,
+    LayerScale,
+    Linear,
+    batch_norm_inference,
+    conv2d_torch_default_init,
+    layer_norm,
+    linear,
+    linear_init,
+    mlp,
+    multihead_attention,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UITConfig:
+    outputdim: int = 527
+    patch_size: int = 16
+    patch_stride: int = 16
+    embed_dim: int = 768
+    depth: int = 12
+    num_heads: int = 12
+    mlp_ratio: float = 4.0
+    qkv_bias: bool = True
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    drop_path_rate: float = 0.0
+    init_bn: bool = True
+    init_values: Optional[float] = None
+    target_length: int = 1012
+    pooling: str = "token"  # 'token' | 'mean' | 'dm'
+    attention_type: str = "Attention"  # 'Attention' | 'BNeckAttention'
+    act: str = "gelu"
+    eval_avg: str = "mean"  # long-clip score reduction: 'mean' | 'max'
+    time_patch_out: Optional[float] = None
+    freq_patch_out: Optional[float] = None
+    n_mels: int = 64
+    causal: bool = False
+    use_length_mask: bool = False
+    compute_dtype: str = "float32"
+    # mel orientation the frontend_fn delivers: 'bft' (B, n_mels, T),
+    # 'btf' (B, T, n_mels) or 'tfb' (T, n_mels, B); btf/tfb fold init_bn
+    # into the patch embed (eval only)
+    mel_layout: str = "bft"
+    frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
+
+    def __post_init__(self):
+        def check(ok, msg):
+            if not ok:
+                raise ValueError(msg)
+
+        check(self.pooling in ("mean", "token", "dm"),
+              f"unknown pooling {self.pooling!r}")
+        check(self.attention_type in ("Attention", "BNeckAttention"),
+              f"unknown attention_type {self.attention_type!r}")
+        check(self.embed_dim % self.num_heads == 0,
+              f"embed_dim {self.embed_dim} % num_heads {self.num_heads}")
+        check(self.eval_avg in ("mean", "max"),
+              f"unknown eval_avg {self.eval_avg!r}")
+        check(self.mel_layout in ("bft", "btf", "tfb"),
+              f"unknown mel_layout {self.mel_layout!r}")
+        check(self.patch_stride == self.patch_size,
+              f"patch_stride {self.patch_stride} != patch_size "
+              f"{self.patch_size}: the reshape patch embed cannot express "
+              f"overlapping patches")
+        check(not (self.pooling == "dm" and self.freq_patch_out),
+              "pooling='dm' is incompatible with freq_patch_out")
+
+    @property
+    def grid_size(self):  # (freq, time) patch grid
+        return (
+            self.n_mels // self.patch_stride,
+            self.target_length // self.patch_stride,
+        )
+
+    @property
+    def inner_dim(self) -> int:
+        if self.attention_type == "BNeckAttention":
+            return self.embed_dim // 4
+        return self.embed_dim
+
+    @property
+    def attn_scale(self) -> float:
+        # Reference quirk (uit.py:99-100, 136-137): always the FULL-dim head.
+        return float((self.embed_dim // self.num_heads) ** -0.5)
+
+
+# ------------------------------------------------------------------- modules
+
+class Attention(nn.Module):
+    def __init__(self, cfg: UITConfig):
+        super().__init__()
+        self.qkv = Linear(cfg.embed_dim, 3 * cfg.inner_dim, bias=cfg.qkv_bias)
+        self.proj = Linear(cfg.inner_dim, cfg.embed_dim)
+
+
+class MLP(nn.Module):
+    def __init__(self, cfg: UITConfig):
+        super().__init__()
+        hidden = int(cfg.embed_dim * cfg.mlp_ratio)
+        self.fc1 = Linear(cfg.embed_dim, hidden)
+        self.fc2 = Linear(hidden, cfg.embed_dim)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: UITConfig):
+        super().__init__()
+        D = cfg.embed_dim
+        self.norm1 = LayerNorm(D)
+        self.attn = Attention(cfg)
+        self.norm2 = LayerNorm(D)
+        self.mlp = MLP(cfg)
+        if cfg.init_values is not None:
+            self.ls1 = LayerScale(D, cfg.init_values)
+            self.ls2 = LayerScale(D, cfg.init_values)
+
+
+class UiT(nn.Module):
+    """Parameter container of one UiT model (zeros/ones; ``init`` fills it).
+    The forward is the function ``forward(cfg, model, wav)`` below."""
+
+    def __init__(self, cfg: UITConfig):
+        super().__init__()
+        self.cfg = cfg
+        D = cfg.embed_dim
+        fg, tg = cfg.grid_size
+        if cfg.init_bn:
+            self.init_bn = BatchNorm(cfg.n_mels)
+        self.patch_embed = Linear(cfg.patch_size * cfg.patch_size, D)
+        self.cls_token = nn.Parameter(torch.zeros(1, 1, D))
+        self.token_pos_embed = nn.Parameter(torch.zeros(1, D))
+        self.time_pos_embed = nn.Parameter(torch.zeros(tg, D))
+        self.freq_pos_embed = nn.Parameter(torch.zeros(fg, D))
+        self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
+        self.norm = LayerNorm(D)
+        self.head_norm = LayerNorm(D)
+        self.head = Linear(D, cfg.outputdim)
+
+
+# ---------------------------------------------------------------------- init
+
+@torch.no_grad()
+def init(cfg: UITConfig, generator: torch.Generator) -> UiT:
+    """A CPU UiT with the reference init (uit.py:361-376), drawn from
+    ``generator`` in the JAX package's order."""
+    model = UiT(cfg)
+    D, ps = cfg.embed_dim, cfg.patch_size
+    kernel, bias = conv2d_torch_default_init(generator, (ps, ps, 1, D))
+    model.patch_embed.kernel.copy_(kernel.reshape(ps * ps, D))
+    model.patch_embed.bias.copy_(bias)
+    g = dict(generator=generator)
+    model.cls_token.copy_(1e-6 * torch.randn(model.cls_token.shape, **g))
+    model.token_pos_embed.copy_(0.02 * torch.randn(model.token_pos_embed.shape, **g))
+    model.time_pos_embed.copy_(0.02 * torch.randn(model.time_pos_embed.shape, **g))
+    model.freq_pos_embed.copy_(0.02 * torch.randn(model.freq_pos_embed.shape, **g))
+    for blk in model.blocks:
+        for lin in (blk.attn.qkv, blk.attn.proj, blk.mlp.fc1, blk.mlp.fc2):
+            linear_init(generator, lin)
+    linear_init(generator, model.head)
+    return model
+
+
+# ------------------------------------------------------------------- encoder
+
+def _too_few_frames(cfg: UITConfig, T: int):
+    ps = cfg.patch_size
+    return ValueError(
+        f"input has {T} mel frames but one {ps}x{ps} patch needs at least "
+        f"{ps}; feed clips of >= {ps * cfg.frontend.hop_length} samples "
+        f"(~{ps * cfg.frontend.hop_length / cfg.frontend.sample_rate:.2f}s)"
+    )
+
+
+def patch_embed(cfg: UITConfig, p: Linear, x: torch.Tensor) -> torch.Tensor:
+    """(B, n_mels, T) mel -> (B, fg, tg, D) patch tokens via reshape+matmul
+    (the reference's Conv2d(1, D, 16, stride 16), valid windows only)."""
+    B, F, T = x.shape
+    ps = cfg.patch_size
+    fg, tg = F // ps, T // ps
+    if tg < 1:
+        raise _too_few_frames(cfg, T)
+    x = x[:, : fg * ps, : tg * ps]
+    # (B, fg, ps, tg, ps) -> (B, fg, tg, ps, ps): patch rows are the freq
+    # axis of the conv kernel (torch's (D, 1, kh, kw) row-major flatten)
+    x = x.reshape(B, fg, ps, tg, ps).permute(0, 1, 3, 2, 4).reshape(B, fg, tg, ps * ps)
+    return linear(p, x)
+
+
+def _folded_patch_kernel(cfg: UITConfig, model: UiT, F: int, fg: int, dtype):
+    """init_bn's inference affine y = a*m + b folded into the linear patch
+    embed: Kf = a . K (per frequency patch), bias_f = b @ K + c.
+    Returns (Kf (fg, mel_p, time_p, D), bias_f (fg, D))."""
+    ps = cfg.patch_size
+    pe = model.patch_embed
+    if cfg.init_bn:
+        bn = model.init_bn
+        a = bn.scale * torch.rsqrt(bn.var + 1e-5)       # (n_mels,)
+        b = bn.bias - bn.mean * a
+    else:  # GlobalNormer(-10, 20, fac=2): (m + 10) / 40
+        a = torch.full((F,), 1.0 / 40.0, dtype=dtype, device=pe.kernel.device)
+        b = torch.full((F,), 0.25, dtype=dtype, device=pe.kernel.device)
+    K = pe.kernel.reshape(ps, ps, -1)                  # (mel_p, time_p, D)
+    a4 = a.reshape(fg, ps)
+    b4 = b.reshape(fg, ps)
+    Kf = a4[:, :, None, None] * K[None]
+    bias_f = torch.einsum("fu,uvd->fd", b4, K) + pe.bias
+    return Kf, bias_f
+
+
+def patch_embed_btf(cfg: UITConfig, model: UiT, x: torch.Tensor) -> torch.Tensor:
+    """(B, T, n_mels) clamped log-mel dB -> (B, fg, tg, D) tokens, with
+    init_bn folded into the patch-embed matmul (eval only)."""
+    B, T, F = x.shape
+    ps = cfg.patch_size
+    fg, tg = F // ps, T // ps
+    if tg < 1:
+        raise _too_few_frames(cfg, T)
+    x = x[:, : tg * ps, : fg * ps]
+    Kf, bias_f = _folded_patch_kernel(cfg, model, F, fg, x.dtype)
+    x5 = x.reshape(B, tg, ps, fg, ps)  # [b, t, v(time-in-patch), f, u(mel-in-patch)]
+    tokens = torch.einsum("btvfu,fuvd->btfd", x5, Kf) + bias_f[None, None]
+    return tokens.permute(0, 2, 1, 3)                   # (B, fg, tg, D)
+
+
+def patch_embed_tfb(cfg: UITConfig, model: UiT, x: torch.Tensor) -> torch.Tensor:
+    """(T, n_mels, B) clamped log-mel dB -> (B, fg, tg, D) tokens, same
+    init_bn fold as patch_embed_btf, consuming the transposed kernel's
+    output directly (eval only)."""
+    T, F, B = x.shape
+    ps = cfg.patch_size
+    fg, tg = F // ps, T // ps
+    if tg < 1:
+        raise _too_few_frames(cfg, T)
+    x = x[: tg * ps, : fg * ps, :]
+    Kf, bias_f = _folded_patch_kernel(cfg, model, F, fg, x.dtype)
+    x5 = x.reshape(tg, ps, fg, ps, B)  # [t, v, f, u, b]
+    tokens = torch.einsum("tvfub,fuvd->bftd", x5, Kf)
+    return tokens + bias_f[None, :, None]               # (B, fg, tg, D)
+
+
+def token_validity_mask(cfg: UITConfig, lengths: torch.Tensor, tg: int) -> torch.Tensor:
+    """lengths (B,) samples -> (B, fg*tg) bool: which patch tokens lie fully
+    inside real (non-padded) audio; the first time patch is always kept."""
+    fg = cfg.grid_size[0]
+    n_frames = 1 + lengths // cfg.frontend.hop_length
+    t_idx = torch.arange(tg, device=lengths.device)
+    t_valid = (t_idx + 1) * cfg.patch_stride <= n_frames[:, None]
+    t_valid = t_valid | (t_idx == 0)[None, :]
+    return t_valid[:, None, :].expand(-1, fg, -1).reshape(lengths.shape[0], -1)
+
+
+def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
+    """(B, fg, tg, D) patch tokens -> (B, N, D) block-ready sequence (pos
+    embeds, f-major flatten, cls token). Returns (x, token_mask)."""
+    tg = x.shape[2]
+    if tg > model.time_pos_embed.shape[0]:
+        raise ValueError(
+            f"input spans {tg} time patches but target_length="
+            f"{cfg.target_length} provides only "
+            f"{model.time_pos_embed.shape[0]} positional embeddings"
+        )
+    x = x + model.time_pos_embed[None, None, :tg, :]
+    x = x + model.freq_pos_embed[None, :, None, :]
+    B = x.shape[0]
+    x = x.reshape(B, -1, cfg.embed_dim)  # 'b f t c -> b (f t) c'
+    if cfg.pooling == "token":
+        cls = (model.cls_token + model.token_pos_embed).expand(B, 1, cfg.embed_dim)
+        x = torch.cat([cls, x], dim=1)
+        if token_mask is not None:
+            ones = torch.ones(B, 1, dtype=torch.bool, device=x.device)
+            token_mask = torch.cat([ones, token_mask], dim=1)
+    return x, token_mask
+
+
+def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor,
+                  token_mask=None) -> torch.Tensor:
+    """One pre-LN transformer block (eval): (B, N, D) -> (B, N, D)."""
+    h = layer_norm(blk.norm1, x, eps=1e-6)
+    h = multihead_attention(blk.attn, h, num_heads=cfg.num_heads,
+                            scale=cfg.attn_scale, inner_dim=cfg.inner_dim,
+                            causal=cfg.causal, key_mask=token_mask)
+    if hasattr(blk, "ls1"):
+        h = h * blk.ls1.gamma
+    x = x + h
+    h = mlp(blk.mlp, layer_norm(blk.norm2, x, eps=1e-6), act=cfg.act)
+    if hasattr(blk, "ls2"):
+        h = h * blk.ls2.gamma
+    return x + h
+
+
+def _finish_features(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
+    """(B, fg, tg, D) patch tokens -> (B, N, D) encoded tokens."""
+    x, token_mask = _prepare_tokens(cfg, model, x, token_mask=token_mask)
+    for blk in model.blocks:
+        x = block_forward(cfg, blk, x, token_mask=token_mask)
+    return layer_norm(model.norm, x, eps=1e-6)
+
+
+def forward_features(cfg: UITConfig, model: UiT, mel: torch.Tensor, token_mask=None):
+    """(B, n_mels, T<=target_length) normalized mel -> (B, N, D) tokens."""
+    return _finish_features(cfg, model, patch_embed(cfg, model.patch_embed, mel),
+                            token_mask=token_mask)
+
+
+def forward_head(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
+    """(B, N, D) tokens -> (B, outputdim) sigmoid probabilities."""
+
+    def head(t):
+        # output head LN uses torch default eps=1e-5 (uit.py:358-360)
+        return torch.sigmoid(linear(model.head, layer_norm(model.head_norm, t, eps=1e-5)))
+
+    if cfg.pooling == "token":
+        return head(x[:, 0])
+    if cfg.pooling == "mean":
+        if token_mask is not None:
+            w = token_mask.to(x.dtype)[:, :, None]
+            return head((x * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0))
+        return head(x.mean(dim=1))
+    # 'dm': freq-mean -> per-timestep head+sigmoid -> time-mean
+    fg = cfg.grid_size[0]
+    B, N, D = x.shape
+    probs_t = head(x.reshape(B, fg, N // fg, D).mean(dim=1))  # (B, tg, C)
+    if token_mask is not None:
+        tmask = token_mask.reshape(B, fg, N // fg)[:, 0, :]
+        w = tmask.to(probs_t.dtype)[:, :, None]
+        return (probs_t * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
+    return probs_t.mean(dim=1)
+
+
+def apply_init_bn(cfg: UITConfig, model: UiT, mel: torch.Tensor) -> torch.Tensor:
+    if not cfg.init_bn:
+        # reference GlobalNormer(-10, 20, fac=2): (x+10)/40 (uit.py:33-41)
+        return (mel + 10.0) / 40.0
+    return batch_norm_inference(model.init_bn, mel, axis=-2)
+
+
+def _window_starts(T: int, L: int) -> list[int]:
+    """Crop-window start frames: full windows tile from t=0; a short tail
+    is REPLACED by the last full window (reference uit.py:474-480)."""
+    n_crops = -(-T // L)
+    starts = [i * L for i in range(n_crops)]
+    if T % L != 0:
+        starts[-1] = T - L
+    return starts
+
+
+def chunk_long_mel(cfg: UITConfig, mel: torch.Tensor):
+    """(B, F, T>target) -> ((B*n_crops, F, target), n_crops), sample-major."""
+    B, F, T = mel.shape
+    L = cfg.target_length
+    starts = _window_starts(T, L)
+    crops = torch.stack([mel[..., s:s + L] for s in starts], dim=1)
+    return crops.reshape(B * len(starts), F, L), len(starts)
+
+
+def chunk_long_mel_btf(cfg: UITConfig, mel: torch.Tensor):
+    """(B, T>target, F) -> ((B*n_crops, target, F), n_crops), sample-major."""
+    B, T, F = mel.shape
+    L = cfg.target_length
+    starts = _window_starts(T, L)
+    crops = torch.stack([mel[:, s:s + L] for s in starts], dim=1)
+    return crops.reshape(B * len(starts), L, F), len(starts)
+
+
+def chunk_long_mel_tfb(cfg: UITConfig, mel: torch.Tensor):
+    """(T>target, F, B) -> ((target, F, n_crops*B), n_crops), crop-major:
+    column c*B+b is crop c of sample b."""
+    T, F, B = mel.shape
+    L = cfg.target_length
+    starts = _window_starts(T, L)
+    crops = torch.cat([mel[s:s + L] for s in starts], dim=-1)
+    return crops, len(starts)
+
+
+def _reduce_crops(cfg: UITConfig, probs: torch.Tensor, dim: int) -> torch.Tensor:
+    return probs.mean(dim=dim) if cfg.eval_avg == "mean" else probs.amax(dim=dim)
+
+
+def forward(cfg: UITConfig, model: UiT, wav: torch.Tensor, *, train: bool = False,
+            lengths=None, frontend_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Eval forward: (B, T_wav) waveform -> (B, outputdim) probabilities.
+
+    ``frontend_fn`` swaps in the fused mel kernel (ops.mel.make_frontend_fn);
+    mel_layout 'btf'/'tfb' need one of the matching layout. With
+    cfg.use_length_mask and ``lengths`` (samples per clip), padded patches
+    are excluded from attention and pooling (single-window 'bft' only)."""
+    if train:
+        raise NotImplementedError("training is a later slice")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
+    masked = cfg.use_length_mask and lengths is not None
+    if masked and cfg.mel_layout != "bft":
+        raise ValueError(
+            f"use_length_mask is only implemented on the canonical 'bft' "
+            f"layout; the {cfg.mel_layout!r} serving layout would silently "
+            f"score padding as audio — drop lengths or use 'bft'"
+        )
+    if cfg.mel_layout in ("btf", "tfb") and frontend_fn is None:
+        raise ValueError(
+            f"mel_layout={cfg.mel_layout!r} needs a frontend_fn built with "
+            f"make_frontend_fn(..., layout={cfg.mel_layout!r})"
+        )
+    if cfg.mel_layout == "tfb":
+        mel = frontend_fn(wav)  # (T, F, B)
+        if mel.shape[0] > cfg.target_length:
+            crops, n_crops = chunk_long_mel_tfb(cfg, mel)
+            feats = _finish_features(cfg, model, patch_embed_tfb(cfg, model, crops))
+            probs = forward_head(cfg, model, feats)
+            return _reduce_crops(cfg, probs.reshape(n_crops, -1, cfg.outputdim), 0)
+        feats = _finish_features(cfg, model, patch_embed_tfb(cfg, model, mel))
+        return forward_head(cfg, model, feats)
+
+    if cfg.mel_layout == "btf":
+        mel = frontend_fn(wav)  # (B, T, F)
+        if mel.shape[1] > cfg.target_length:
+            crops, n_crops = chunk_long_mel_btf(cfg, mel)
+            feats = _finish_features(cfg, model, patch_embed_btf(cfg, model, crops))
+            probs = forward_head(cfg, model, feats)
+            return _reduce_crops(cfg, probs.reshape(-1, n_crops, cfg.outputdim), 1)
+        feats = _finish_features(cfg, model, patch_embed_btf(cfg, model, mel))
+        return forward_head(cfg, model, feats)
+
+    if frontend_fn is None:
+        frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
+    x = apply_init_bn(cfg, model, frontend_fn(wav))  # (B, n_mels, T)
+    T = x.shape[-1]
+    if T > cfg.target_length:
+        if masked:
+            raise ValueError(
+                "use_length_mask is not supported on the long-clip crop "
+                "path (per-window masks are not built) — score windows "
+                "upstream or drop lengths"
+            )
+        crops, n_crops = chunk_long_mel(cfg, x)
+        probs = forward_head(cfg, model, forward_features(cfg, model, crops))
+        return _reduce_crops(cfg, probs.reshape(-1, n_crops, cfg.outputdim), 1)
+    token_mask = None
+    if masked:
+        tg = min(T, cfg.target_length) // cfg.patch_stride
+        token_mask = token_validity_mask(
+            cfg, torch.as_tensor(lengths, device=x.device), tg)
+    feats = forward_features(cfg, model, x, token_mask=token_mask)
+    return forward_head(cfg, model, feats, token_mask=token_mask)
+
+
+# ------------------------------------------------------------------ factories
+
+def _factory(name: str, **base):
+    def make(**overrides) -> UITConfig:
+        kw = dict(base)
+        kw.update(overrides)
+        return UITConfig(**kw)
+
+    make.__name__ = name
+    return make
+
+
+# Reference factory configs (uit.py:514-635). All: D=128, 2 heads, mlp x3,
+# mean pooling, init_bn, patch 16/16.
+_H128 = dict(patch_size=16, embed_dim=128, num_heads=2, mlp_ratio=3.0,
+             pooling="mean", init_bn=True, drop_path_rate=0.0)
+
+uit_xs = _factory("uit_xs", depth=12, act="relu", attention_type="BNeckAttention", **_H128)
+uit_xxs = _factory("uit_xxs", depth=6, act="relu", attention_type="BNeckAttention", **_H128)
+uit_xxxs = _factory("uit_xxxs", depth=4, act="relu", attention_type="BNeckAttention", **_H128)
+audio_transformer_h128_d4_m3 = _factory("audio_transformer_h128_d4_m3", depth=4, **_H128)
+audio_transformer_h128_d4_m3_relu = _factory(
+    "audio_transformer_h128_d4_m3_relu", depth=4, act="relu", **_H128)
+audio_transformer_h128_d6_m3 = _factory("audio_transformer_h128_d6_m3", depth=6, **_H128)
+audio_transformer_h128_d6_m3_relu = _factory(
+    "audio_transformer_h128_d6_m3_relu", depth=6, act="relu", **_H128)
+
+# Local pretrained checkpoints: ``checkpoints/<name>.npz`` in the repo (the
+# port never downloads). The factory kwargs are the published heads.
+CHECKPOINT_DIR = Path(__file__).resolve().parent.parent.parent / "checkpoints"
+PRETRAINED_CHECKPOINTS = {
+    name: {"factory": factory, "model_kwargs": dict(outputdim=537, target_length=102),
+           "path": CHECKPOINT_DIR / f"{name}.npz"}
+    for name, factory in (("uit_xs", uit_xs), ("uit_xxs", uit_xxs), ("uit_xxxs", uit_xxxs))
+}

@@ -1,0 +1,269 @@
+"""Fused log-mel frontend: the CUDA kernel's wrapper and its plain versions.
+
+Counterpart of ``uit_mobile_tpu/ops/pallas_mel.py``. One CUDA kernel
+(``csrc/mel.cu``) replaces its four Pallas kernels:
+
+=============  ===========================================  ==================
+variant        Pallas kernel replaced                       output
+=============  ===========================================  ==================
+``row_exact``  ``_mel_kernel`` (pallas_mel.py:101)          (B, n_frames, 64)
+``row_fast``   ``_mel_kernel_fast`` (pallas_mel.py:142)     (B, n_frames, 64)
+``tfb_exact``  ``_mel_kernel_t`` (pallas_mel.py:180)        (n_frames, 64, B)
+``tfb_fast``   ``_mel_kernel_fast_t`` (pallas_mel.py:192)   (n_frames, 64, B)
+=============  ===========================================  ==================
+
+The wrapper reflect-pads the wave (a torch op) and hands the padded
+(B, T + n_fft) wave to the kernel, which reads hop-strided frames from it
+directly. Precision ``exact`` runs both products in float32; ``fast`` runs
+both as 3-pass bf16 hi/lo splits. A tensor on the CPU takes the plain
+PyTorch version of the same computation; a CUDA tensor launches the kernel
+or raises. The top_db clamp stays outside the kernel: it needs a max over
+frames (per sample) or over the batch (``top_db_mode='torch'``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import numpy as np
+import torch
+
+from ..frontend.mel import (FrontendConfig, log_mel_spectrogram, mel_filterbank,
+                            padded_window, reflect_pad)
+
+# Batch floor of the transposed ('tfb') kernel, as in the JAX package:
+# below it a 'tfb' request takes the row kernel and transposes its output.
+TFB_MIN_BATCH = 128
+# the kernel is compiled for these sizes (csrc/mel.cu N_FFT, LANES, N_MELS)
+KERNEL_N_FFT = 512
+KERNEL_N_MELS = 64
+
+# Launch counters, one per kernel variant: each is incremented exactly where
+# the wrapper launches that variant on the card.
+launches = {"row_exact": 0, "row_fast": 0, "tfb_exact": 0, "tfb_fast": 0}
+
+_DB = 10.0 / math.log(10.0)
+_AMIN = 1e-10
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@functools.lru_cache(maxsize=4)
+def _dft_matrices(n_fft: int, win_length: int, n_freqs: int):
+    """Window-folded packed DFT matrix + matching mel-filterbank row map.
+
+    One product gives all real/imaginary DFT components packed into
+    ``lanes`` columns: the sin columns of k=0 and k=n_fft/2 are zero, so
+    cos(n_freqs) + sin(n_freqs-2) columns fill exactly n_fft lanes. Squaring
+    and multiplying by a filterbank whose rows repeat each bin's mel weights
+    at the matching columns gives mel power = fb @ (Re^2 + Im^2).
+
+    Returns (G (n_fft, lanes) float32, col_bin (lanes,) column -> freq bin).
+    """
+    w = padded_window(win_length, n_fft, dtype=np.float64)
+    n = np.arange(n_fft, dtype=np.float64)[:, None]
+    k = np.arange(n_freqs, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * n * k / n_fft
+    cos_part = (w[:, None] * np.cos(ang))
+    sin_part = (w[:, None] * np.sin(ang))[:, 1:n_freqs - 1]  # drop k=0, k=N/2
+    lanes = _round_up(n_freqs + (n_freqs - 2), 128)
+    G = np.zeros((n_fft, lanes), dtype=np.float32)
+    G[:, :n_freqs] = cos_part.astype(np.float32)
+    G[:, n_freqs: 2 * n_freqs - 2] = sin_part.astype(np.float32)
+    col_bin = np.full((lanes,), -1, dtype=np.int64)
+    col_bin[:n_freqs] = np.arange(n_freqs)
+    col_bin[n_freqs: 2 * n_freqs - 2] = np.arange(1, n_freqs - 1)
+    return G, col_bin
+
+
+def _fb_rows(config: FrontendConfig, col_bin: np.ndarray) -> np.ndarray:
+    """(lanes, n_mels) filterbank with each bin's row at its packed columns."""
+    fb = np.zeros((col_bin.shape[0], config.n_mels), dtype=np.float32)
+    valid = col_bin >= 0
+    fb[valid] = mel_filterbank(config)[col_bin[valid]]
+    return fb
+
+
+def _bf16_split(M: torch.Tensor):
+    """hi/lo bf16 decomposition of a float32 tensor for 3-pass split products."""
+    hi = M.to(torch.bfloat16)
+    lo = (M - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+@functools.lru_cache(maxsize=16)
+def _matrices(config: FrontendConfig, pcm16: bool, precision: str,
+              device: torch.device):
+    """Host prep of the kernel's constant operands, on ``device``:
+    exact -> (G, None, fb, None) float32; fast -> (G_hi, G_lo, fb_hi, fb_lo)
+    bf16. int16 input folds the 1/32768 PCM scale into G (exact: a
+    power-of-two exponent shift)."""
+    G, col_bin = _dft_matrices(config.n_fft, config.win_length, config.n_freqs)
+    scale = np.float32(1.0 / 32768.0) if pcm16 else np.float32(1.0)
+    G = torch.from_numpy(G * scale).to(device)
+    fb = torch.from_numpy(_fb_rows(config, col_bin)).to(device)
+    if precision == "exact":
+        return G, None, fb, None
+    return (*_bf16_split(G), *_bf16_split(fb))
+
+
+def _tri_dot(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
+    """3-pass bf16 split product hi*hi + hi*lo + lo*hi, each bf16 product
+    exact in float32 and accumulated in float32."""
+    a_hi, a_lo = _bf16_split(a)
+    a_hi, a_lo, b_hi, b_lo = a_hi.float(), a_lo.float(), b_hi.float(), b_lo.float()
+    return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
+
+
+def plain_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: reflect-padded (B, Tp) wave ->
+    (B, n_frames, n_mels) log-mel dB (no top_db clamp)."""
+    frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()  # int16 -> float is exact
+    g_a, g_b, fb_a, fb_b = mats
+    if precision == "exact":
+        g = frames @ g_a
+        mel = (g * g) @ fb_a
+    else:
+        g = _tri_dot(frames, g_a, g_b)
+        mel = _tri_dot(g * g, fb_a, fb_b)
+    return _DB * torch.log(torch.clamp(mel, min=_AMIN))
+
+
+_C_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+                + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel_fn():
+    from .build import load_library
+
+    fn = load_library("mel").uit_log_mel
+    fn.argtypes = _C_SIGNATURE
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
+                      transposed: bool) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream: reflect-padded (B, Tp)
+    wave -> (B, n_frames, 64), or (n_frames, 64, B) when ``transposed``."""
+    if wavp.device.type != "cuda":
+        raise ValueError(f"the CUDA mel kernel needs a CUDA tensor, got {wavp.device}")
+    if wavp.dtype not in (torch.float32, torch.int16) or wavp.dim() != 2:
+        raise ValueError(f"wave must be (B, T) float32 or int16, got "
+                         f"{tuple(wavp.shape)} {wavp.dtype}")
+    if not wavp.is_contiguous():
+        raise ValueError("wave must be contiguous")
+    want = torch.float32 if precision == "exact" else torch.bfloat16
+    g_shape, fb_shape = (KERNEL_N_FFT, KERNEL_N_FFT), (KERNEL_N_FFT, KERNEL_N_MELS)
+    fast = precision == "fast"
+    for m, shape, required in zip(mats, (g_shape, g_shape, fb_shape, fb_shape),
+                                  (True, fast, True, fast)):
+        if m is None:
+            if required:
+                raise ValueError(f"missing kernel operand for precision {precision!r}")
+            continue
+        if (m.device != wavp.device or m.dtype != want or tuple(m.shape) != shape
+                or not m.is_contiguous()):
+            raise ValueError(f"kernel operand {tuple(m.shape)} {m.dtype} on {m.device} "
+                             f"does not match {shape} {want} on {wavp.device}")
+    B, Tp = wavp.shape
+    n_frames = (Tp - KERNEL_N_FFT) // hop + 1
+    if n_frames < 1 or B < 1:
+        raise ValueError(f"no frames in a ({B}, {Tp}) padded wave")
+    if B * n_frames >= 2 ** 31:
+        raise ValueError(f"batch too large for the kernel: {B} x {n_frames} frames")
+    shape = (n_frames, KERNEL_N_MELS, B) if transposed else (B, n_frames, KERNEL_N_MELS)
+    out = torch.empty(shape, dtype=torch.float32, device=wavp.device)
+    ptr = [0 if m is None else m.data_ptr() for m in mats]
+    with torch.cuda.device(wavp.device):
+        stream = torch.cuda.current_stream(wavp.device).cuda_stream
+        rc = _kernel_fn()(wavp.data_ptr(), int(wavp.dtype == torch.int16),
+                          int(fast), int(transposed), *ptr,
+                          out.data_ptr(), B, Tp, n_frames, hop, stream)
+    if rc != 0:
+        raise RuntimeError(f"uit_log_mel kernel launch failed with CUDA error {rc}")
+    launches[f"{'tfb' if transposed else 'row'}_{precision}"] += 1
+    return out
+
+
+def log_mel(wav: torch.Tensor, config: FrontendConfig | None = None,
+            precision: str = "exact", layout: str = "bft",
+            framing: str = "auto") -> torch.Tensor:
+    """(B, T) waveform (float32 or int16 PCM) -> log-mel dB, fused.
+
+    Drop-in for frontend.mel.log_mel_spectrogram, top_db_mode included.
+    layout: 'bft' -> (B, n_mels, n_frames); 'btf' -> (B, n_frames, n_mels),
+    the row kernel's own layout; 'tfb' -> (n_frames, n_mels, B), the
+    transposed kernel's layout (batches below TFB_MIN_BATCH take the row
+    kernel and transpose its output). framing ('auto' | 'slices' |
+    'gather') chose an XLA lowering in the JAX package; the kernel reads
+    frames straight from the padded wave, so all three give the same output.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel.
+    """
+    if precision not in ("exact", "fast"):
+        raise ValueError(f"unknown precision {precision!r}; expected 'exact' or 'fast'")
+    if layout not in ("bft", "btf", "tfb"):
+        raise ValueError(f"unknown layout {layout!r}; expected 'bft', 'btf' or 'tfb'")
+    if framing not in ("auto", "slices", "gather"):
+        raise ValueError(f"unknown framing {framing!r}; expected 'auto', 'slices' "
+                         f"or 'gather'")
+    config = config or FrontendConfig()
+    if config.n_fft != KERNEL_N_FFT or config.n_mels != KERNEL_N_MELS:
+        raise ValueError(f"the mel kernel is built for n_fft={KERNEL_N_FFT}, "
+                         f"n_mels={KERNEL_N_MELS}; got {config.n_fft}, {config.n_mels}")
+    if wav.dtype not in (torch.float32, torch.int16) or wav.dim() != 2:
+        raise ValueError(f"log_mel takes (B, T) float32 or int16, got "
+                         f"{tuple(wav.shape)} {wav.dtype}")
+    B = wav.shape[0]
+    wavp = reflect_pad(wav, config.n_fft // 2) if config.center else wav
+    wavp = wavp.contiguous()
+    mats = _matrices(config, wav.dtype == torch.int16, precision, wav.device)
+    transposed = layout == "tfb" and B >= TFB_MIN_BATCH
+    if wav.device.type == "cuda":
+        mel = cuda_log_mel_rows(wavp, mats, precision, config.hop_length, transposed)
+    elif wav.device.type == "cpu":
+        mel = plain_log_mel_rows(wavp, mats, precision, config.hop_length)
+        if transposed:
+            mel = mel.permute(1, 2, 0).contiguous()
+    else:
+        raise ValueError(f"unsupported device {wav.device}")
+    if layout == "tfb":
+        x_db = mel if transposed else mel.permute(1, 2, 0)
+        per_sample_dims = (0, 1)
+    else:
+        x_db = mel if layout == "btf" else mel.transpose(-1, -2)
+        per_sample_dims = (-2, -1)
+    if config.top_db is not None:
+        if config.top_db_mode == "torch":
+            ref = x_db.max()
+        elif config.top_db_mode == "per_sample":
+            ref = x_db.amax(dim=per_sample_dims, keepdim=True)
+        else:
+            raise ValueError(f"unknown top_db_mode {config.top_db_mode!r}")
+        x_db = torch.maximum(x_db, ref - config.top_db)
+    return x_db
+
+
+def make_frontend_fn(config: FrontendConfig | None = None, use_kernel: bool = True,
+                     precision: str = "exact", layout: str = "bft"):
+    """Frontend callable for models.uit.forward(frontend_fn=...).
+
+    use_kernel=True: the fused log_mel (kernel on CUDA tensors, its plain
+    version on CPU tensors); False: the rfft reference frontend.
+    layout 'btf'/'tfb' must pair with a model config of the same mel_layout."""
+    if layout not in ("bft", "btf", "tfb"):
+        raise ValueError(f"unknown frontend layout {layout!r}; expected one of "
+                         f"'bft', 'btf', 'tfb'")
+    config = config or FrontendConfig()
+    if use_kernel:
+        return lambda wav: log_mel(wav, config, precision=precision, layout=layout)
+    if layout == "btf":
+        return lambda wav: log_mel_spectrogram(wav, config).transpose(-1, -2)
+    if layout == "tfb":
+        return lambda wav: log_mel_spectrogram(wav, config).permute(2, 1, 0)
+    return lambda wav: log_mel_spectrogram(wav, config)
