@@ -14,7 +14,7 @@ import torch
 
 from uit_mobile_tpu.frontend import FrontendConfig as JaxFrontendConfig
 from uit_mobile_tpu.ops import pallas_log_mel
-from uit_mobile_tpu_torch.frontend import FrontendConfig, log_mel_spectrogram
+from uit_mobile_tpu_torch.frontend import FrontendConfig, log_mel_spectrogram, reflect_pad
 from uit_mobile_tpu_torch.ops import mel as mel_ops
 from uit_mobile_tpu_torch.ops.mel import TFB_MIN_BATCH, log_mel, make_frontend_fn
 
@@ -118,3 +118,79 @@ def test_bf16_split_is_exact_for_pcm():
     hi, lo = mel_ops._bf16_split(x)
     assert torch.equal(hi.float() + lo.float(), x)
 
+
+def test_packed_fast_operands_unpack_bitwise():
+    """pack_fast_operands only reorders: undoing its tiling gives _matrices's
+    bf16 hi/lo back bit for bit."""
+    mats = mel_ops._matrices(FrontendConfig(), True, "fast", torch.device("cpu"))
+    gpack, fbpack = mats[4:]
+
+    def unpack(flat, rows, k, tile_rows, tile_k):
+        t = flat.view(rows // tile_rows, k // tile_k, 2, tile_k // 8, tile_rows // 8, 8, 8)
+        t = t.permute(2, 0, 4, 5, 1, 3, 6).reshape(2, rows, k)
+        return t[0].t(), t[1].t()
+
+    assert all(torch.equal(a, b) for a, b in zip(
+        unpack(gpack, 512, 512, mel_ops.FAST_HALF, mel_ops.FAST_BK), mats[:2]))
+    assert all(torch.equal(a, b) for a, b in zip(
+        unpack(fbpack, 64, 512, 64, mel_ops.FAST_HALF), mats[2:4]))
+
+
+def test_packed_fast_operands_match_kernel_addressing():
+    """Each element sits where mel_fast_kernel's wgmma descriptors look for
+    it: G(k, n) in step t = (n // 256) * 16 + k // 32 of gpack, at byte
+    (k % 32 // 8) * LBO + (n % 256 // 8) * SBO + (n % 8) * 16 + (k % 8) * 2
+    of the step's hi tile (LBO 4096, SBO 128; the lo tile 16 KB later), and
+    fb(c, m) in half c // 256 of fbpack at (c % 256 // 8) * 1024 + (m // 8)
+    * 128 + (m % 8) * 16 + (c % 8) * 2 (lo 32 KB later)."""
+    g_hi, g_lo, fb_hi, fb_lo, gpack, fbpack = mel_ops._matrices(
+        FrontendConfig(), False, "fast", torch.device("cpu"))
+    k = torch.arange(512)[:, None]
+    n = torch.arange(512)[None, :]
+    byte = ((n // 256 * 16 + k // 32) * 32768 + (k % 32 // 8) * 4096 + (n % 256 // 8) * 128
+            + (n % 8) * 16 + (k % 8) * 2)
+    assert torch.equal(gpack[byte // 2], g_hi) and torch.equal(gpack[(byte + 16384) // 2], g_lo)
+    c = torch.arange(512)[:, None]
+    m = torch.arange(64)[None, :]
+    byte = (c // 256) * 65536 + (c % 256 // 8) * 1024 + (m // 8) * 128 + (m % 8) * 16 + (c % 8) * 2
+    assert torch.equal(fbpack[byte // 2], fb_hi)
+    assert torch.equal(fbpack[(byte + 32768) // 2], fb_lo)
+
+
+def test_fast_operands_packed_once_with_matrices():
+    """The packed copies are built with _matrices's operands and cached with
+    them; the exact operands carry none."""
+    cpu = torch.device("cpu")
+    mats = mel_ops._matrices(FrontendConfig(), False, "fast", cpu)
+    assert mel_ops._matrices(FrontendConfig(), False, "fast", cpu) is mats
+    assert all(torch.equal(a, b) for a, b in zip(mats[4:], mel_ops.pack_fast_operands(*mats[:4])))
+    assert len(mel_ops._matrices(FrontendConfig(), False, "exact", cpu)) == 4
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fast_tolerance_covers_a_float32_summation_order(seed):
+    """fast_tolerance_db holds the plain version (float32, this machine's
+    matmul order) to the float64 sum of the same products, frame 0 of each
+    reflect-padded clip included; for 99 % of the values the tolerance is
+    within 2e-4 dB of its 1e-3 dB floor."""
+    f32, _ = _wav(16, seed=seed)
+    wp = reflect_pad(torch.from_numpy(f32), 256)
+    mats = mel_ops._matrices(FrontendConfig(), False, "fast", torch.device("cpu"))
+    tol = mel_ops.fast_tolerance_db(wp, mats, 160)
+    err = (mel_ops.plain_log_mel_rows(wp, mats, "fast", 160).double()
+           - mel_ops.fast_log_mel_rows_float64(wp, mats, 160)).abs()
+    assert (err <= tol).all()
+    assert torch.quantile(tol.flatten() - mel_ops.FAST_TOL_DB, 0.99) <= 2e-4
+
+
+def test_fast_tolerance_rejects_a_dropped_pass():
+    """A fast product that drops its hi*lo and lo*hi passes (one bf16 pass
+    instead of three) falls outside the tolerance."""
+    f32, _ = _wav(4, seed=11)
+    wp = reflect_pad(torch.from_numpy(f32), 256)
+    mats = mel_ops._matrices(FrontendConfig(), False, "fast", torch.device("cpu"))
+    one_pass = (torch.zeros_like(mats[1]), torch.zeros_like(mats[3]))
+    wrong = mel_ops.plain_log_mel_rows(wp, (mats[0], one_pass[0], mats[2], one_pass[1]),
+                                       "fast", 160)
+    err = (wrong - mel_ops.plain_log_mel_rows(wp, mats, "fast", 160)).abs()
+    assert (err > mel_ops.fast_tolerance_db(wp, mats, 160)).any()

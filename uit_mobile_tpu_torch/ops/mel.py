@@ -15,7 +15,9 @@ variant        Pallas kernel replaced                       output
 The wrapper reflect-pads the wave (a torch op) and hands the padded
 (B, T + n_fft) wave to the kernel, which reads hop-strided frames from it
 directly. Precision ``exact`` runs both products in float32; ``fast`` runs
-both as 3-pass bf16 hi/lo splits. A tensor on the CPU takes the plain
+both as 3-pass bf16 hi/lo splits, from copies of G and the filterbank
+pre-packed in the order the kernel's wgmma reads them (``_matrices`` builds
+them once, with ``pack_fast_operands``). A tensor on the CPU takes the plain
 PyTorch version of the same computation; a CUDA tensor launches the kernel
 or raises. The top_db clamp stays outside the kernel: it needs a max over
 frames (per sample) or over the batch (``top_db_mode='torch'``).
@@ -39,6 +41,14 @@ TFB_MIN_BATCH = 128
 # the kernel is compiled for these sizes (csrc/mel.cu N_FFT, LANES, N_MELS)
 KERNEL_N_FFT = 512
 KERNEL_N_MELS = 64
+# fast kernel tiles (csrc/mel.cu F_HALF, F_BK): DFT columns per accumulator
+# pass and K depth per ring stage; each packed tile is 8 x 8 core matrices
+FAST_HALF = 256
+FAST_BK = 32
+# The fast kernel is held to its plain version within FAST_TOL_DB plus
+# FAST_TOL_ROUNDINGS float32 roundings of each DFT sum (fast_tolerance_db).
+FAST_TOL_DB = 1e-3
+FAST_TOL_ROUNDINGS = 8
 
 # Launch counters, one per kernel variant: each is incremented exactly where
 # the wrapper launches that variant on the card.
@@ -99,16 +109,41 @@ def _bf16_split(M: torch.Tensor):
 def _matrices(config: FrontendConfig, pcm16: bool, precision: str,
               device: torch.device):
     """Host prep of the kernel's constant operands, on ``device``:
-    exact -> (G, None, fb, None) float32; fast -> (G_hi, G_lo, fb_hi, fb_lo)
-    bf16. int16 input folds the 1/32768 PCM scale into G (exact: a
-    power-of-two exponent shift)."""
+    exact -> (G, None, fb, None) float32; fast -> (G_hi, G_lo, fb_hi, fb_lo,
+    gpack, fbpack) bf16, the last two the same values packed as the fast
+    kernel reads them (``pack_fast_operands``). int16 input folds the
+    1/32768 PCM scale into G (exact: a power-of-two exponent shift)."""
     G, col_bin = _dft_matrices(config.n_fft, config.win_length, config.n_freqs)
     scale = np.float32(1.0 / 32768.0) if pcm16 else np.float32(1.0)
     G = torch.from_numpy(G * scale).to(device)
     fb = torch.from_numpy(_fb_rows(config, col_bin)).to(device)
     if precision == "exact":
         return G, None, fb, None
-    return (*_bf16_split(G), *_bf16_split(fb))
+    mats = (*_bf16_split(G), *_bf16_split(fb))
+    return mats + pack_fast_operands(*mats)
+
+
+def _core_matrix_tiles(m: torch.Tensor, tile_rows: int, tile_k: int) -> torch.Tensor:
+    """(R, K) matrix, K contiguous -> (n_tiles, tile_rows * tile_k): its
+    (tile_rows, tile_k) tiles in row-tile-major order, each laid out as
+    wgmma's K-major operand without swizzle: 8-row x 8-K core matrices of
+    128 contiguous bytes, ordered (k // 8, r // 8, r % 8, k % 8)."""
+    R, K = m.shape
+    t = m.reshape(R // tile_rows, tile_rows // 8, 8, K // tile_k, tile_k // 8, 8)
+    return t.permute(0, 3, 4, 1, 2, 5).reshape(-1, tile_rows * tile_k)
+
+
+def pack_fast_operands(g_hi, g_lo, fb_hi, fb_lo):
+    """The fast kernel's constant operands in the order it copies them:
+    gpack holds, for each step t = half * 16 + kstep, the G^T tile of 256
+    columns x 32 K as [hi | lo]; fbpack holds, per half, the filterbank^T
+    tile of 64 mels x 256 columns as [hi | lo]. Flat bf16, on their device."""
+    def pack(hi, lo, tile_rows, tile_k):
+        tiles = [_core_matrix_tiles(m.t(), tile_rows, tile_k) for m in (hi, lo)]
+        return torch.stack(tiles, 1).reshape(-1).contiguous()
+
+    return (pack(g_hi, g_lo, FAST_HALF, FAST_BK),
+            pack(fb_hi, fb_lo, KERNEL_N_MELS, FAST_HALF))
 
 
 def _tri_dot(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
@@ -123,7 +158,7 @@ def plain_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int) -> to
     """Plain PyTorch version of the kernel: reflect-padded (B, Tp) wave ->
     (B, n_frames, n_mels) log-mel dB (no top_db clamp)."""
     frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()  # int16 -> float is exact
-    g_a, g_b, fb_a, fb_b = mats
+    g_a, g_b, fb_a, fb_b = mats[:4]
     if precision == "exact":
         g = frames @ g_a
         mel = (g * g) @ fb_a
@@ -133,7 +168,43 @@ def plain_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int) -> to
     return _DB * torch.log(torch.clamp(mel, min=_AMIN))
 
 
-_C_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
+def dft_rounding_db(wavp: torch.Tensor, mats, hop: int, roundings: float) -> torch.Tensor:
+    """(B, n_frames, n_mels): how far the fast log-mel moves, in dB, when
+    every DFT value g_c moves by ``roundings`` float32 roundings of
+    S_c = sum_n |F_n G_nc| on the side that raises mel power.
+
+    Two float32 evaluations of the DFT differ on that scale, not on the
+    scale of g_c: where g_c cancels (frame 0 of a reflect-padded clip has no
+    sine part, and mel 0 is DFT bin 1 alone) it is a large share of g_c."""
+    frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()
+    G = mats[0].float() + mats[1].float()
+    fb = mats[2].float() + mats[3].float()
+    g = frames @ G
+    d = roundings * 2.0 ** -24 * (frames.abs() @ G.abs())
+    mel = torch.clamp((g * g) @ fb, min=_AMIN)
+    return _DB * torch.log1p(((2 * g.abs() + d) * d) @ fb / mel)
+
+
+def fast_tolerance_db(wavp: torch.Tensor, mats, hop: int) -> torch.Tensor:
+    """(B, n_frames, n_mels) bound for |fast kernel - plain_log_mel_rows| in
+    dB: FAST_TOL_DB plus FAST_TOL_ROUNDINGS roundings of each DFT sum."""
+    return FAST_TOL_DB + dft_rounding_db(wavp, mats, hop, FAST_TOL_ROUNDINGS)
+
+
+def fast_log_mel_rows_float64(wavp: torch.Tensor, mats, hop: int) -> torch.Tensor:
+    """The fast path's 3-pass products on the same bf16 operands, summed in
+    float64 (power squared in float32, as the kernel does): the value every
+    float32 summation order of the fast path approximates."""
+    frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()
+    f_hi, f_lo = (m.double() for m in _bf16_split(frames))
+    g_hi, g_lo, fb_hi, fb_lo = (m.double() for m in mats[:4])
+    g = (f_hi @ g_hi + f_hi @ g_lo + f_lo @ g_hi).float()
+    p_hi, p_lo = (m.double() for m in _bf16_split(g * g))
+    mel = p_hi @ fb_hi + p_hi @ fb_lo + p_lo @ fb_hi
+    return _DB * torch.log(torch.clamp(mel, min=_AMIN))
+
+
+_C_SIGNATURE = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
@@ -179,11 +250,11 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
         raise ValueError(f"batch too large for the kernel: {B} x {n_frames} frames")
     shape = (n_frames, KERNEL_N_MELS, B) if transposed else (B, n_frames, KERNEL_N_MELS)
     out = torch.empty(shape, dtype=torch.float32, device=wavp.device)
-    ptr = [0 if m is None else m.data_ptr() for m in mats]
+    g, fb = mats[4:] if fast else (mats[0], mats[2])
     with torch.cuda.device(wavp.device):
         stream = torch.cuda.current_stream(wavp.device).cuda_stream
         rc = _kernel_fn()(wavp.data_ptr(), int(wavp.dtype == torch.int16),
-                          int(fast), int(transposed), *ptr,
+                          int(fast), int(transposed), g.data_ptr(), fb.data_ptr(),
                           out.data_ptr(), B, Tp, n_frames, hop, stream)
     if rc != 0:
         raise RuntimeError(f"uit_log_mel kernel launch failed with CUDA error {rc}")
