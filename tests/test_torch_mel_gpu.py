@@ -7,10 +7,12 @@ port is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_mel_gpu.py -q
 
 Tolerance: the kernel and its plain version compute the same products in
-another summation order, held to 1e-3 dB (chip_smoke.py's gate); through
-the model, 1e-3 in probabilities (tests/test_pallas_mel.py:67). int16
-input must give bitwise the output of f32/32768 input, and the transposed
-layout bitwise the row layout transposed.
+another summation order, held to 1e-3 dB, plus, on noise seeded by the
+shape, a few float32 roundings of each DFT sum where it cancels
+(ops/mel.py:tolerance_db, chip_smoke.py's gate); through the model, 1e-3 in
+probabilities (tests/test_pallas_mel.py:67). int16 input must give bitwise
+the output of f32/32768 input, and the transposed layout bitwise the row
+layout transposed.
 """
 
 import numpy as np
@@ -62,7 +64,8 @@ def test_cuda_kernel_matches_plain(cuda, precision, transposed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B, variant", [(4, "row_fast"), (mel_ops.TFB_MIN_BATCH, "tfb_fast")])
+@pytest.mark.parametrize("B, variant", [(4, "row_fast"), (mel_ops.TFB_MIN_BATCH, "tfb_fast"),
+                                        (4, "row_exact"), (mel_ops.TFB_MIN_BATCH, "tfb_exact")])
 def test_cuda_forward_launches_kernel_and_matches_cpu(cuda, B, variant):
     """make_forward_fn on the card goes through the kernel (the launch count
     moves) and agrees with the plain path on the CPU."""
@@ -70,35 +73,37 @@ def test_cuda_forward_launches_kernel_and_matches_cpu(cuda, B, variant):
     gpu_model, cpu_model = (models.build(cfg, torch.Generator().manual_seed(0), device=d)
                             for d in ("cuda", "cpu"))
     pcm = _pcm(B, seed=9)
+    precision = variant.split("_")[1]
     before = mel_ops.launches[variant]
-    got = make_forward_fn(cfg, gpu_model, precision="fast")(pcm).cpu()
+    got = make_forward_fn(cfg, gpu_model, precision=precision)(pcm).cpu()
     assert mel_ops.launches[variant] == before + 1
-    want = make_forward_fn(cfg, cpu_model, use_kernel=True, precision="fast")(pcm)
+    want = make_forward_fn(cfg, cpu_model, use_kernel=True, precision=precision)(pcm)
     torch.testing.assert_close(got, want, atol=1e-3, rtol=0)
 
 
-def _check_fast_variants(cuda, B, T, hop):
-    """Both fast layouts, both input types, on noise seeded by the shape.
-    Against the plain version the kernel is held to fast_tolerance_db: 1e-3
-    dB plus 8 float32 roundings of each DFT sum, since where a DFT value
-    cancels (mel 0 of frame 0 at B=257, T=48000: -72.5 dB) two summation
-    orders differ by more than 1e-3 dB (the kernel 6.98e-3 dB from plain)."""
+def _check_variants(cuda, B, T, hop, precision):
+    """Both layouts of one precision, both input types, on noise seeded by
+    the shape. Against the plain version the kernel is held to
+    tolerance_db: 1e-3 dB plus a few float32 roundings of each DFT sum,
+    since where a DFT value cancels (mel 0 of frame 0 at B=257, T=48000:
+    -72.5 dB) two summation orders differ by more than 1e-3 dB (the fast
+    kernel 6.98e-3 dB from plain)."""
     fe = FrontendConfig()
     pcm = torch.from_numpy(_pcm(B, T, seed=B + T)).to(cuda)
     wp_i = mel_ops.reflect_pad(pcm, 256).contiguous()
     wp_f = mel_ops.reflect_pad(pcm.float() / 32768.0, 256).contiguous()
-    mats_i = mel_ops._matrices(fe, True, "fast", cuda)
-    mats_f = mel_ops._matrices(fe, False, "fast", cuda)
-    want = mel_ops.plain_log_mel_rows(wp_f, mats_f, "fast", hop)
-    row = mel_ops.cuda_log_mel_rows(wp_f, mats_f, "fast", hop, False)
-    assert ((row - want).abs() <= mel_ops.fast_tolerance_db(wp_f, mats_f, hop)).all()
-    assert torch.equal(row, mel_ops.cuda_log_mel_rows(wp_i, mats_i, "fast", hop, False))
-    tfb = mel_ops.cuda_log_mel_rows(wp_i, mats_i, "fast", hop, True)
+    mats_i = mel_ops._matrices(fe, True, precision, cuda)
+    mats_f = mel_ops._matrices(fe, False, precision, cuda)
+    want = mel_ops.plain_log_mel_rows(wp_f, mats_f, precision, hop)
+    row = mel_ops.cuda_log_mel_rows(wp_f, mats_f, precision, hop, False)
+    assert ((row - want).abs() <= mel_ops.tolerance_db(wp_f, mats_f, hop, precision)).all()
+    assert torch.equal(row, mel_ops.cuda_log_mel_rows(wp_i, mats_i, precision, hop, False))
+    tfb = mel_ops.cuda_log_mel_rows(wp_i, mats_i, precision, hop, True)
     assert torch.equal(tfb, row.permute(1, 2, 0))
-    assert torch.equal(tfb, mel_ops.cuda_log_mel_rows(wp_f, mats_f, "fast", hop, True))
+    assert torch.equal(tfb, mel_ops.cuda_log_mel_rows(wp_f, mats_f, precision, hop, True))
     # a clip's rows do not depend on where the batch puts them in a tile
     head = (B + 1) // 2
-    assert torch.equal(row[:head], mel_ops.cuda_log_mel_rows(wp_f[:head], mats_f, "fast", hop,
+    assert torch.equal(row[:head], mel_ops.cuda_log_mel_rows(wp_f[:head], mats_f, precision, hop,
                                                              False))
 
 
@@ -106,14 +111,28 @@ def _check_fast_variants(cuda, B, T, hop):
 @pytest.mark.parametrize("T", [16000, 16001, 48000])
 @pytest.mark.parametrize("B", [1, 63, 65, 127, 129, 257])
 def test_fast_kernel_ragged_tiles_and_lengths(cuda, B, T):
-    """Batches around the fast kernel's 128-row tile (and its 64-row
-    warpgroup halves), row tiles that straddle clips, and T=16001, whose
-    padded rows are not a multiple of 16 bytes long."""
-    _check_fast_variants(cuda, B, T, 160)
+    """Batches around the kernel's 128-row tile (and its 64-row warpgroup
+    halves), row tiles that straddle clips, and T=16001, whose padded rows
+    are not a multiple of 16 bytes long."""
+    _check_variants(cuda, B, T, 160, "fast")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [16000, 16001, 48000])
+@pytest.mark.parametrize("B", [1, 63, 65, 127, 129, 257])
+def test_exact_kernel_ragged_tiles_and_lengths(cuda, B, T):
+    """The exact kernel (6 DFT passes, 16-deep ring stages) at the same
+    shapes."""
+    _check_variants(cuda, B, T, 160, "exact")
 
 
 @pytest.mark.gpu
 def test_fast_kernel_hop_not_a_multiple_of_8(cuda):
     """hop=157: frame starts fall off 16-byte alignment, so the kernel's
     producer takes its scalar-load path for most rows."""
-    _check_fast_variants(cuda, 65, 16001, 157)
+    _check_variants(cuda, 65, 16001, 157, "fast")
+
+
+@pytest.mark.gpu
+def test_exact_kernel_hop_not_a_multiple_of_8(cuda):
+    _check_variants(cuda, 65, 16001, 157, "exact")

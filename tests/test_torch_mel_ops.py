@@ -2,8 +2,11 @@
 wrapper takes each kernel's plain PyTorch version, vs the JAX Pallas kernels
 run in interpret mode (as tests/test_pallas_mel.py runs them).
 
-Measured (CPU): plain exact vs Pallas exact <= 1.4e-4 dB, plain fast vs
-Pallas fast <= 6.1e-5 dB; held to 5e-4 dB (exact) and 1e-3 dB (fast).
+Measured (CPU): plain exact (FP32 DFT, 3-pass bf16 filterbank, as the
+Pallas exact kernel) vs Pallas exact <= 5.6e-5 dB at B=3 and 3.1e-4 dB at
+B=128 through the transposed kernels, plain fast vs Pallas fast <= 5.5e-5
+dB at B=3 and 9.5e-5 dB at B=128; held to 5e-4 dB (exact) and 1e-3 dB
+(fast).
 The CUDA kernel itself runs only on the card: chip_smoke.py and
 tests/test_torch_mel_gpu.py hold it against the plain version there."""
 
@@ -119,6 +122,22 @@ def test_bf16_split_is_exact_for_pcm():
     assert torch.equal(hi.float() + lo.float(), x)
 
 
+def test_bf16_split3_is_exact_for_pcm_and_float32():
+    """_bf16_split3, the exact DFT's pieces: a PCM value splits into hi + mid
+    with lo = 0 (so int16 input is bitwise f32/32768 on the exact kernel
+    too); any other float32 into hi + mid + lo within 2^-24 of it."""
+    pcm = torch.arange(-32768, 32768, dtype=torch.float32)
+    for x in (pcm, pcm / 32768.0):
+        hi, mid, lo = mel_ops._bf16_split3(x)
+        assert torch.equal(lo.float(), torch.zeros_like(x))
+        assert torch.equal(hi.float() + mid.float(), x)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(1 << 16, generator=g) * torch.exp2(torch.randint(-60, 60, (1 << 16,), generator=g))
+    hi, mid, lo = (m.double() for m in mel_ops._bf16_split3(x))
+    assert ((hi + mid + lo - x.double()).abs() <= 2.0 ** -24 * x.double().abs()).all()
+    assert (mid.abs() <= 2.0 ** -8 * hi.abs()).all() and (lo.abs() <= 2.0 ** -16 * hi.abs()).all()
+
+
 def test_packed_fast_operands_unpack_bitwise():
     """pack_fast_operands only reorders: undoing its tiling gives _matrices's
     bf16 hi/lo back bit for bit."""
@@ -131,13 +150,13 @@ def test_packed_fast_operands_unpack_bitwise():
         return t[0].t(), t[1].t()
 
     assert all(torch.equal(a, b) for a, b in zip(
-        unpack(gpack, 512, 512, mel_ops.FAST_HALF, mel_ops.FAST_BK), mats[:2]))
+        unpack(gpack, 512, 512, mel_ops.KERNEL_HALF, mel_ops.KERNEL_BK["fast"]), mats[:2]))
     assert all(torch.equal(a, b) for a, b in zip(
-        unpack(fbpack, 64, 512, 64, mel_ops.FAST_HALF), mats[2:4]))
+        unpack(fbpack, 64, 512, 64, mel_ops.KERNEL_HALF), mats[2:4]))
 
 
 def test_packed_fast_operands_match_kernel_addressing():
-    """Each element sits where mel_fast_kernel's wgmma descriptors look for
+    """Each element sits where mel_kernel<T, L, 3>'s wgmma descriptors look for
     it: G(k, n) in step t = (n // 256) * 16 + k // 32 of gpack, at byte
     (k % 32 // 8) * LBO + (n % 256 // 8) * SBO + (n % 8) * 16 + (k % 8) * 2
     of the step's hi tile (LBO 4096, SBO 128; the lo tile 16 KB later), and
@@ -157,30 +176,77 @@ def test_packed_fast_operands_match_kernel_addressing():
     assert torch.equal(fbpack[(byte + 32768) // 2], fb_lo)
 
 
+def test_packed_exact_operands_match_kernel_addressing():
+    """Each element sits where mel_kernel<T, L, 6>'s wgmma descriptors look
+    for it: G(k, n) in step t = (n // 256) * 32 + k // 16 of gpack (3 x 8 KB
+    a step), at byte (k % 16 // 8) * LBO + (n % 256 // 8) * SBO + (n % 8) * 16
+    + (k % 8) * 2 of the step's hi tile (LBO 4096, SBO 128; mid 8 KB later,
+    lo 16 KB later), the pieces _bf16_split3 gives; the filterbank packed as
+    for the fast kernel."""
+    for pcm16 in (False, True):
+        G, _, fb_hi, fb_lo, gpack, fbpack = mel_ops._matrices(
+            FrontendConfig(), pcm16, "exact", torch.device("cpu"))
+        k = torch.arange(512)[:, None]
+        n = torch.arange(512)[None, :]
+        byte = ((n // 256 * 32 + k // 16) * 3 * 8192 + (k % 16 // 8) * 4096
+                + (n % 256 // 8) * 128 + (n % 8) * 16 + (k % 8) * 2)
+        for q, piece in enumerate(mel_ops._bf16_split3(G)):
+            assert torch.equal(gpack[(byte + q * 8192) // 2], piece)
+        c = torch.arange(512)[:, None]
+        m = torch.arange(64)[None, :]
+        byte = (c // 256) * 65536 + (c % 256 // 8) * 1024 + (m // 8) * 128 + (m % 8) * 16 + (c % 8) * 2
+        assert torch.equal(fbpack[byte // 2], fb_hi)
+        assert torch.equal(fbpack[(byte + 32768) // 2], fb_lo)
+
+
 def test_fast_operands_packed_once_with_matrices():
     """The packed copies are built with _matrices's operands and cached with
-    them; the exact operands carry none."""
+    them; the exact operands carry their own (G in three pieces, the same
+    filterbank hi/lo)."""
     cpu = torch.device("cpu")
     mats = mel_ops._matrices(FrontendConfig(), False, "fast", cpu)
     assert mel_ops._matrices(FrontendConfig(), False, "fast", cpu) is mats
-    assert all(torch.equal(a, b) for a, b in zip(mats[4:], mel_ops.pack_fast_operands(*mats[:4])))
-    assert len(mel_ops._matrices(FrontendConfig(), False, "exact", cpu)) == 4
+    assert all(torch.equal(a, b) for a, b in zip(
+        mats[4:], mel_ops.pack_operands(mats[:2], mats[2:4], mel_ops.KERNEL_BK["fast"])))
+    exact = mel_ops._matrices(FrontendConfig(), False, "exact", cpu)
+    assert len(exact) == 6 and exact[0].dtype == torch.float32 and exact[1] is None
+    assert exact[4].numel() == 3 * 512 * 512 and torch.equal(exact[5], mats[5])
+
+
+@pytest.mark.parametrize("pcm16", [False, True])
+def test_fast_operands_and_plain_output_unchanged(pcm16):
+    """Sharing _matrices and plain_log_mel_rows with the exact path leaves
+    the fast path as it was, bit for bit: G (PCM scale folded in) and the
+    filterbank split into bf16 hi/lo, both products 3-pass splits."""
+    cfg = FrontendConfig()
+    f32, pcm = _wav(2, seed=6)
+    wp = reflect_pad(torch.from_numpy(pcm if pcm16 else f32), 256)
+    G, col_bin = mel_ops._dft_matrices(512, cfg.win_length, cfg.n_freqs)
+    scale = np.float32(1.0 / 32768.0) if pcm16 else np.float32(1.0)
+    g_hi, g_lo = mel_ops._bf16_split(torch.from_numpy(G * scale))
+    fb_hi, fb_lo = mel_ops._bf16_split(torch.from_numpy(mel_ops._fb_rows(cfg, col_bin)))
+    mats = mel_ops._matrices(cfg, pcm16, "fast", torch.device("cpu"))
+    assert all(torch.equal(a, b) for a, b in zip(mats[:4], (g_hi, g_lo, fb_hi, fb_lo)))
+    g = mel_ops._tri_dot(wp.unfold(-1, 512, 160).float(), g_hi, g_lo)
+    mel = mel_ops._tri_dot(g * g, fb_hi, fb_lo)
+    want = 10.0 / np.log(10.0) * torch.log(torch.clamp(mel, min=1e-10))
+    assert torch.equal(mel_ops.plain_log_mel_rows(wp, mats, "fast", 160), want)
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fast_tolerance_covers_a_float32_summation_order(seed):
-    """fast_tolerance_db holds the plain version (float32, this machine's
+    """tolerance_db holds the fast plain version (float32, this machine's
     matmul order) to the float64 sum of the same products, frame 0 of each
     reflect-padded clip included; for 99 % of the values the tolerance is
     within 2e-4 dB of its 1e-3 dB floor."""
     f32, _ = _wav(16, seed=seed)
     wp = reflect_pad(torch.from_numpy(f32), 256)
     mats = mel_ops._matrices(FrontendConfig(), False, "fast", torch.device("cpu"))
-    tol = mel_ops.fast_tolerance_db(wp, mats, 160)
+    tol = mel_ops.tolerance_db(wp, mats, 160, "fast")
     err = (mel_ops.plain_log_mel_rows(wp, mats, "fast", 160).double()
-           - mel_ops.fast_log_mel_rows_float64(wp, mats, 160)).abs()
+           - mel_ops.log_mel_rows_float64(wp, mats, 160, "fast")).abs()
     assert (err <= tol).all()
-    assert torch.quantile(tol.flatten() - mel_ops.FAST_TOL_DB, 0.99) <= 2e-4
+    assert torch.quantile(tol.flatten() - mel_ops.TOL_DB, 0.99) <= 2e-4
 
 
 def test_fast_tolerance_rejects_a_dropped_pass():
@@ -193,4 +259,32 @@ def test_fast_tolerance_rejects_a_dropped_pass():
     wrong = mel_ops.plain_log_mel_rows(wp, (mats[0], one_pass[0], mats[2], one_pass[1]),
                                        "fast", 160)
     err = (wrong - mel_ops.plain_log_mel_rows(wp, mats, "fast", 160)).abs()
-    assert (err > mel_ops.fast_tolerance_db(wp, mats, 160)).any()
+    assert (err > mel_ops.tolerance_db(wp, mats, 160, "fast")).any()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_exact_tolerance_covers_a_float32_summation_order(seed):
+    """tolerance_db holds the exact plain version (float32 DFT in this
+    machine's matmul order) to the float64 DFT with the same 3-pass
+    filterbank, frame 0 of each reflect-padded clip included; for 99 % of
+    the values the tolerance is within 2e-4 dB of its 1e-3 dB floor."""
+    f32, _ = _wav(16, seed=seed)
+    wp = reflect_pad(torch.from_numpy(f32), 256)
+    mats = mel_ops._matrices(FrontendConfig(), False, "exact", torch.device("cpu"))
+    tol = mel_ops.tolerance_db(wp, mats, 160, "exact")
+    err = (mel_ops.plain_log_mel_rows(wp, mats, "exact", 160).double()
+           - mel_ops.log_mel_rows_float64(wp, mats, 160, "exact")).abs()
+    assert (err <= tol).all()
+    assert torch.quantile(tol.flatten() - mel_ops.TOL_DB, 0.99) <= 2e-4
+
+
+def test_exact_tolerance_rejects_a_dropped_pass():
+    """An exact DFT that drops the products of G's mid piece (hm and mm: a
+    G of hi + lo) falls outside the exact tolerance."""
+    f32, _ = _wav(4, seed=12)
+    wp = reflect_pad(torch.from_numpy(f32), 256)
+    mats = mel_ops._matrices(FrontendConfig(), False, "exact", torch.device("cpu"))
+    hi, _, lo = mel_ops._bf16_split3(mats[0])
+    wrong = mel_ops.plain_log_mel_rows(wp, (hi.float() + lo.float(), *mats[1:]), "exact", 160)
+    err = (wrong - mel_ops.plain_log_mel_rows(wp, mats, "exact", 160)).abs()
+    assert (err > mel_ops.tolerance_db(wp, mats, 160, "exact")).any()

@@ -14,12 +14,14 @@ variant        Pallas kernel replaced                       output
 
 The wrapper reflect-pads the wave (a torch op) and hands the padded
 (B, T + n_fft) wave to the kernel, which reads hop-strided frames from it
-directly. Precision ``exact`` runs both products in float32; ``fast`` runs
-both as 3-pass bf16 hi/lo splits, from copies of G and the filterbank
-pre-packed in the order the kernel's wgmma reads them (``_matrices`` builds
-them once, with ``pack_fast_operands``). A tensor on the CPU takes the plain
-PyTorch version of the same computation; a CUDA tensor launches the kernel
-or raises. The top_db clamp stays outside the kernel: it needs a max over
+directly. Both precisions run the filterbank product as a 3-pass bf16
+hi/lo split; the DFT runs as 6 bf16 passes of a hi/mid/lo split
+(``exact``, FP32-grade, what the Pallas kernel's Precision.HIGHEST runs on
+the TPU) or 3 of a hi/lo split (``fast``). The kernel reads copies of G and
+the filterbank pre-packed in the order its wgmma reads them (``_matrices``
+builds them once, with ``pack_operands``). A tensor on the CPU takes the
+plain PyTorch version of the same computation; a CUDA tensor launches the
+kernel or raises. The top_db clamp stays outside the kernel: it needs a max over
 frames (per sample) or over the batch (``top_db_mode='torch'``).
 """
 
@@ -41,14 +43,16 @@ TFB_MIN_BATCH = 128
 # the kernel is compiled for these sizes (csrc/mel.cu N_FFT, LANES, N_MELS)
 KERNEL_N_FFT = 512
 KERNEL_N_MELS = 64
-# fast kernel tiles (csrc/mel.cu F_HALF, F_BK): DFT columns per accumulator
-# pass and K depth per ring stage; each packed tile is 8 x 8 core matrices
-FAST_HALF = 256
-FAST_BK = 32
-# The fast kernel is held to its plain version within FAST_TOL_DB plus
-# FAST_TOL_ROUNDINGS float32 roundings of each DFT sum (fast_tolerance_db).
-FAST_TOL_DB = 1e-3
-FAST_TOL_ROUNDINGS = 8
+# kernel tiles (csrc/mel.cu HALF, Ring<PASSES>::BK): DFT columns per
+# accumulator pass, and K depth per ring stage for each precision
+KERNEL_HALF = 256
+KERNEL_BK = {"fast": 32, "exact": 16}
+# The kernel is held to its plain version within TOL_DB plus
+# TOL_ROUNDINGS[precision] float32 roundings of each DFT sum (tolerance_db):
+# 2-3x the largest kernel-vs-float64 plus plain-vs-float64 readings on the
+# H100 (PERF.md; fast 1.36 + 1.05, exact 0.53 + 1.25).
+TOL_DB = 1e-3
+TOL_ROUNDINGS = {"fast": 8, "exact": 4}
 
 # Launch counters, one per kernel variant: each is incremented exactly where
 # the wrapper launches that variant on the card.
@@ -105,22 +109,36 @@ def _bf16_split(M: torch.Tensor):
     return hi, lo
 
 
+def _bf16_split3(M: torch.Tensor):
+    """hi/mid/lo bf16 decomposition of a float32 tensor for the exact DFT's
+    6-pass products: each piece the bf16 rounding of what the earlier ones
+    leave (the float32 subtractions are exact). A PCM value (<= 16
+    significant bits) gives lo = 0."""
+    hi = M.to(torch.bfloat16)
+    rest = M - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 @functools.lru_cache(maxsize=16)
 def _matrices(config: FrontendConfig, pcm16: bool, precision: str,
               device: torch.device):
     """Host prep of the kernel's constant operands, on ``device``:
-    exact -> (G, None, fb, None) float32; fast -> (G_hi, G_lo, fb_hi, fb_lo,
-    gpack, fbpack) bf16, the last two the same values packed as the fast
-    kernel reads them (``pack_fast_operands``). int16 input folds the
-    1/32768 PCM scale into G (exact: a power-of-two exponent shift)."""
+    exact -> (G float32, None, fb_hi, fb_lo, gpack, fbpack); fast -> (G_hi,
+    G_lo, fb_hi, fb_lo, gpack, fbpack), the pieces bf16. gpack and fbpack
+    hold G's bf16 pieces (exact: hi/mid/lo; fast: hi/lo) and the filterbank's
+    hi/lo packed as the kernel reads them (``pack_operands``). int16 input
+    folds the 1/32768 PCM scale into G (exact: a power-of-two exponent
+    shift)."""
     G, col_bin = _dft_matrices(config.n_fft, config.win_length, config.n_freqs)
     scale = np.float32(1.0 / 32768.0) if pcm16 else np.float32(1.0)
     G = torch.from_numpy(G * scale).to(device)
-    fb = torch.from_numpy(_fb_rows(config, col_bin)).to(device)
+    fb = _bf16_split(torch.from_numpy(_fb_rows(config, col_bin)).to(device))
     if precision == "exact":
-        return G, None, fb, None
-    mats = (*_bf16_split(G), *_bf16_split(fb))
-    return mats + pack_fast_operands(*mats)
+        return (G, None, *fb) + pack_operands(_bf16_split3(G), fb, KERNEL_BK["exact"])
+    g = _bf16_split(G)
+    return (*g, *fb) + pack_operands(g, fb, KERNEL_BK["fast"])
 
 
 def _core_matrix_tiles(m: torch.Tensor, tile_rows: int, tile_k: int) -> torch.Tensor:
@@ -133,17 +151,18 @@ def _core_matrix_tiles(m: torch.Tensor, tile_rows: int, tile_k: int) -> torch.Te
     return t.permute(0, 3, 4, 1, 2, 5).reshape(-1, tile_rows * tile_k)
 
 
-def pack_fast_operands(g_hi, g_lo, fb_hi, fb_lo):
-    """The fast kernel's constant operands in the order it copies them:
-    gpack holds, for each step t = half * 16 + kstep, the G^T tile of 256
-    columns x 32 K as [hi | lo]; fbpack holds, per half, the filterbank^T
-    tile of 64 mels x 256 columns as [hi | lo]. Flat bf16, on their device."""
-    def pack(hi, lo, tile_rows, tile_k):
-        tiles = [_core_matrix_tiles(m.t(), tile_rows, tile_k) for m in (hi, lo)]
+def pack_operands(g_pieces, fb_pieces, bk: int):
+    """The kernel's constant operands in the order it copies them: gpack
+    holds, for each step t = half * (512 // bk) + kstep, the G^T tile of 256
+    columns x bk K of each piece in turn ([hi | lo] fast, [hi | mid | lo]
+    exact); fbpack holds, per half, the filterbank^T tile of 64 mels x 256
+    columns as [hi | lo]. Flat bf16, on their device."""
+    def pack(pieces, tile_rows, tile_k):
+        tiles = [_core_matrix_tiles(m.t(), tile_rows, tile_k) for m in pieces]
         return torch.stack(tiles, 1).reshape(-1).contiguous()
 
-    return (pack(g_hi, g_lo, FAST_HALF, FAST_BK),
-            pack(fb_hi, fb_lo, KERNEL_N_MELS, FAST_HALF))
+    return (pack(g_pieces, KERNEL_HALF, bk),
+            pack(fb_pieces, KERNEL_N_MELS, KERNEL_HALF))
 
 
 def _tri_dot(a: torch.Tensor, b_hi: torch.Tensor, b_lo: torch.Tensor) -> torch.Tensor:
@@ -158,26 +177,23 @@ def plain_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int) -> to
     """Plain PyTorch version of the kernel: reflect-padded (B, Tp) wave ->
     (B, n_frames, n_mels) log-mel dB (no top_db clamp)."""
     frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()  # int16 -> float is exact
-    g_a, g_b, fb_a, fb_b = mats[:4]
-    if precision == "exact":
-        g = frames @ g_a
-        mel = (g * g) @ fb_a
-    else:
-        g = _tri_dot(frames, g_a, g_b)
-        mel = _tri_dot(g * g, fb_a, fb_b)
+    g_a, g_b, fb_hi, fb_lo = mats[:4]
+    g = frames @ g_a if precision == "exact" else _tri_dot(frames, g_a, g_b)
+    mel = _tri_dot(g * g, fb_hi, fb_lo)
     return _DB * torch.log(torch.clamp(mel, min=_AMIN))
 
 
 def dft_rounding_db(wavp: torch.Tensor, mats, hop: int, roundings: float) -> torch.Tensor:
-    """(B, n_frames, n_mels): how far the fast log-mel moves, in dB, when
-    every DFT value g_c moves by ``roundings`` float32 roundings of
-    S_c = sum_n |F_n G_nc| on the side that raises mel power.
+    """(B, n_frames, n_mels): how far the log-mel moves, in dB, when every
+    DFT value g_c moves by ``roundings`` float32 roundings of
+    S_c = sum_n |F_n G_nc| on the side that raises mel power; G and the
+    filterbank as ``mats`` of either precision carry them.
 
     Two float32 evaluations of the DFT differ on that scale, not on the
     scale of g_c: where g_c cancels (frame 0 of a reflect-padded clip has no
     sine part, and mel 0 is DFT bin 1 alone) it is a large share of g_c."""
     frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()
-    G = mats[0].float() + mats[1].float()
+    G = mats[0].float() + (0.0 if mats[1] is None else mats[1].float())
     fb = mats[2].float() + mats[3].float()
     g = frames @ G
     d = roundings * 2.0 ** -24 * (frames.abs() @ G.abs())
@@ -185,20 +201,26 @@ def dft_rounding_db(wavp: torch.Tensor, mats, hop: int, roundings: float) -> tor
     return _DB * torch.log1p(((2 * g.abs() + d) * d) @ fb / mel)
 
 
-def fast_tolerance_db(wavp: torch.Tensor, mats, hop: int) -> torch.Tensor:
-    """(B, n_frames, n_mels) bound for |fast kernel - plain_log_mel_rows| in
-    dB: FAST_TOL_DB plus FAST_TOL_ROUNDINGS roundings of each DFT sum."""
-    return FAST_TOL_DB + dft_rounding_db(wavp, mats, hop, FAST_TOL_ROUNDINGS)
+def tolerance_db(wavp: torch.Tensor, mats, hop: int, precision: str) -> torch.Tensor:
+    """(B, n_frames, n_mels) bound for |kernel - plain_log_mel_rows| in dB:
+    TOL_DB plus TOL_ROUNDINGS[precision] roundings of each DFT sum."""
+    return TOL_DB + dft_rounding_db(wavp, mats, hop, TOL_ROUNDINGS[precision])
 
 
-def fast_log_mel_rows_float64(wavp: torch.Tensor, mats, hop: int) -> torch.Tensor:
-    """The fast path's 3-pass products on the same bf16 operands, summed in
-    float64 (power squared in float32, as the kernel does): the value every
-    float32 summation order of the fast path approximates."""
+def log_mel_rows_float64(wavp: torch.Tensor, mats, hop: int, precision: str) -> torch.Tensor:
+    """The DFT (exact: frames @ G; fast: the 3-pass products of the same
+    bf16 operands) and the 3-pass filterbank product summed in float64,
+    power squared in float32 as the kernel does: the value every float32
+    summation order of that precision approximates."""
     frames = wavp.unfold(-1, KERNEL_N_FFT, hop).float()
-    f_hi, f_lo = (m.double() for m in _bf16_split(frames))
-    g_hi, g_lo, fb_hi, fb_lo = (m.double() for m in mats[:4])
-    g = (f_hi @ g_hi + f_hi @ g_lo + f_lo @ g_hi).float()
+    if precision == "exact":
+        g = frames.double() @ mats[0].double()
+    else:
+        f_hi, f_lo = (m.double() for m in _bf16_split(frames))
+        g_hi, g_lo = (m.double() for m in mats[:2])
+        g = f_hi @ g_hi + f_hi @ g_lo + f_lo @ g_hi
+    g = g.float()
+    fb_hi, fb_lo = (m.double() for m in mats[2:4])
     p_hi, p_lo = (m.double() for m in _bf16_split(g * g))
     mel = p_hi @ fb_hi + p_hi @ fb_lo + p_lo @ fb_hi
     return _DB * torch.log(torch.clamp(mel, min=_AMIN))
@@ -229,19 +251,19 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
                          f"{tuple(wavp.shape)} {wavp.dtype}")
     if not wavp.is_contiguous():
         raise ValueError("wave must be contiguous")
-    want = torch.float32 if precision == "exact" else torch.bfloat16
-    g_shape, fb_shape = (KERNEL_N_FFT, KERNEL_N_FFT), (KERNEL_N_FFT, KERNEL_N_MELS)
+    if precision not in KERNEL_BK:
+        raise ValueError(f"unknown precision {precision!r}; expected 'exact' or 'fast'")
     fast = precision == "fast"
-    for m, shape, required in zip(mats, (g_shape, g_shape, fb_shape, fb_shape),
-                                  (True, fast, True, fast)):
-        if m is None:
-            if required:
-                raise ValueError(f"missing kernel operand for precision {precision!r}")
-            continue
-        if (m.device != wavp.device or m.dtype != want or tuple(m.shape) != shape
-                or not m.is_contiguous()):
-            raise ValueError(f"kernel operand {tuple(m.shape)} {m.dtype} on {m.device} "
-                             f"does not match {shape} {want} on {wavp.device}")
+    # G's bf16 pieces (fast 2, exact 3) and the filterbank's hi/lo, packed
+    sizes = ((2 if fast else 3) * KERNEL_N_FFT * KERNEL_N_FFT, 2 * KERNEL_N_FFT * KERNEL_N_MELS)
+    packed = mats[4:]
+    if len(packed) != 2:
+        raise ValueError(f"kernel operands for precision {precision!r} carry no packed copies")
+    for m, size in zip(packed, sizes):
+        if (m.device != wavp.device or m.dtype != torch.bfloat16 or m.dim() != 1
+                or m.numel() != size or not m.is_contiguous()):
+            raise ValueError(f"packed kernel operand {tuple(m.shape)} {m.dtype} on {m.device} "
+                             f"does not match ({size},) bfloat16 on {wavp.device}")
     B, Tp = wavp.shape
     n_frames = (Tp - KERNEL_N_FFT) // hop + 1
     if n_frames < 1 or B < 1:
@@ -250,7 +272,7 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
         raise ValueError(f"batch too large for the kernel: {B} x {n_frames} frames")
     shape = (n_frames, KERNEL_N_MELS, B) if transposed else (B, n_frames, KERNEL_N_MELS)
     out = torch.empty(shape, dtype=torch.float32, device=wavp.device)
-    g, fb = mats[4:] if fast else (mats[0], mats[2])
+    g, fb = packed
     with torch.cuda.device(wavp.device):
         stream = torch.cuda.current_stream(wavp.device).cuda_stream
         rc = _kernel_fn()(wavp.data_ptr(), int(wavp.dtype == torch.int16),
