@@ -22,11 +22,22 @@ Phases, each printing one JSON line:
                CPU plain path, and the inference CLI with --kernel on the card
                against the CPU run;
   6. forward - device and host-enqueue time of one serving forward at each
-               serving shape, beside the mel kernel's share of it.
+               serving shape, beside the mel kernel's share of it;
+  7. train   - the training path: the port's Trainer at full uit_xs width
+               and depth with the untrained MobileNetV2 PSL teacher, on
+               in-memory clips of data/synthworld.py, at the recipe of
+               configs/train_uit_xs.yaml (B=32, bft, exact: row_exact in
+               student and teacher) and at its throughput frontier (B=1024,
+               tfb, fast, int16: tfb_fast in both); the recipe's averaged.npz
+               served; each configuration's step timed (step ms, host
+               enqueue ms, mel and teacher shares, clips/s) and the
+               trainer's two frontends on that batch held against their
+               plain versions; one step of each configuration on the card
+               held against the CPU plain path (train_parity).
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Launch counters are set to 0 just before the serve and exact paths and read
-just after; comparison launches do not count. Any failure exits non-zero
+Launch counters are set to 0 just before the serve, exact and train paths
+and read just after; comparison launches do not count. Any failure exits non-zero
 without that last line, as does a machine with no CUDA GPU.
 """
 
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -499,6 +511,414 @@ def phase_exact(cfg, cpu_model, gpu_model) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------- training
+
+# configs/train_uit_xs.yaml's recipe as a dict (data in memory, cut to a few
+# short epochs); the PSL teacher is MobileNetV2 at its random init because
+# its checkpoint is not in the repo (allow_untrained)
+RECIPE = {
+    "model": "uit_xs", "model_args": {"target_length": 102}, "num_classes": 537,
+    "optimizer": "AdamW", "optimizer_args": {"lr": 0.001, "weight_decay": 5e-8},
+    "loss": "BCELoss", "loss_args": {}, "batch_size": 32, "chunk_length": 1.0, "mixup": None,
+    "epochs": 3, "epoch_length": 10, "warmup_iters": 5, "early_stop": 50, "valid_every": 3,
+    "n_saved": 2, "seed": 42, "num_workers": 2, "frontend_precision": "exact",
+    "psl": {"model": "MobileNetV2", "pretrained": "checkpoints/mobilenetv2_dm_mAP42_15.npz",
+            "allow_untrained": True},
+    "wavtransforms": {"Shift": {"min_shift": -0.5, "max_shift": 0.5}, "Gain": {"p": 0.5},
+                      "PolarityInversion": {"p": 0.5}},
+    "spectransforms": [{"TimeMasking": {"time_mask_param": 20, "iid_masks": True}},
+                       {"FrequencyMasking": {"freq_mask_param": 8, "iid_masks": True}},
+                       {"FrequencyMasking": {"freq_mask_param": 8, "iid_masks": True}}],
+}
+# the throughput frontier of configs/train_uit_xs.yaml:57-83 with the encoder
+# in float32 (bfloat16 compute is not yet ported): tfb_fast in the student
+# (B=1024) and the teacher (B=512, through 'tfb_to_bft')
+FRONTIER = dict(RECIPE, batch_size=1024, data_dtype="int16", frontend_precision="fast",
+                model_args={"target_length": 102, "mel_layout": "tfb"}, wavtransforms={},
+                epochs=1, epoch_length=3, valid_every=1, eval_batch_size=64)
+
+
+def synth_split(rng, n: int, kws: bool):
+    """n one-second clips of data/synthworld.py's world: keyword tones
+    (labels 527-536) or the class-0 noise filler, as int16 PCM."""
+    from uit_mobile_tpu_torch.data.synthworld import synth_clip, synth_labels
+
+    labels = synth_labels(rng, n, kws)
+    return [synth_clip(rng, lab) for lab in labels], labels
+
+
+class ClipDataset:
+    """In-memory clips -> (wave, multihot target, name), the datasets'
+    contract, with no h5py or pandas."""
+
+    def __init__(self, clips, labels, num_classes: int, dtype: str):
+        self.clips, self.labels = clips, labels
+        self.num_classes, self.dtype = num_classes, dtype
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        from uit_mobile_tpu_torch.data import multihot
+        from uit_mobile_tpu_torch.frontend import normalize_pcm16
+
+        wav = self.clips[i] if self.dtype == "int16" else normalize_pcm16(self.clips[i])
+        return wav, multihot([self.labels[i]], self.num_classes), f"clip_{i}"
+
+
+def synth_trainer_class():
+    """The port's Trainer with in-memory data from data/synthworld.py, and
+    the train step wrapped to keep its metrics."""
+    from uit_mobile_tpu_torch.data import DataLoader, MultiDataLoader
+    from uit_mobile_tpu_torch.train import Trainer
+
+    class SynthTrainer(Trainer):
+        def _build_data(self):
+            c = self.config
+            rng = np.random.default_rng(c["seed"])
+            half, dtype = c["batch_size"] // 2, c.get("data_dtype", "float32")
+
+            def ds(n, kws):
+                return ClipDataset(*synth_split(rng, n, kws), c["num_classes"], dtype)
+
+            train = MultiDataLoader(**{
+                name: DataLoader(ds(2 * half, name == "kws"), batch_size=half, shuffle=True,
+                                 drop_last=True, seed=c["seed"], num_workers=2)
+                for name in ("kws", "audioset")})
+            clips_as, labels_as = synth_split(rng, 32, False)
+            clips_kws, labels_kws = synth_split(rng, 32, True)
+            test = DataLoader(ClipDataset(clips_as + clips_kws, labels_as + labels_kws,
+                                          c["num_classes"], "float32"),
+                              batch_size=c.get("eval_batch_size", c["batch_size"]))
+            return train, test
+
+        def setup(self):
+            super().setup()
+            self.metrics = []
+            step = self.train_step
+
+            def recorded(batch, generator=None):
+                m = step(batch, generator)
+                self.metrics.append(m)
+                return m
+
+            self.train_step = recorded
+            self.start = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            self.teacher_start = {k: v.detach().clone()
+                                  for k, v in self.psl_model.state_dict().items()}
+
+    return SynthTrainer
+
+
+def drive_trainer(config: dict, info) -> tuple:
+    """Run the Trainer on the card with launch counts set to 0 just before
+    and read just after -> (trainer, output npz, counts, record)."""
+    import tempfile
+
+    from uit_mobile_tpu_torch.ops import launches
+
+    out_dir = Path(tempfile.mkdtemp(prefix="uit_train_"))
+    trainer = synth_trainer_class()(dict(config, outputdir=str(out_dir)), device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    losses = torch.stack([m["total_loss"] for m in trainer.metrics]).cpu()
+    norms = torch.stack([m["grad_norm"] for m in trainer.metrics]).cpu()
+    check(bool(torch.isfinite(losses).all() and torch.isfinite(norms).all()),
+          f"train loss or grad norm not finite: {losses.tolist()}")
+    end = trainer.model.state_dict()
+    moved = [k for k, v in trainer.start.items() if not torch.equal(v, end[k])]
+    params = [k for k, _ in trainer.model.named_parameters()]
+    check(all(k in moved for k in params if k not in ("cls_token", "token_pos_embed")),
+          f"parameters that did not move: {sorted(set(params) - set(moved))}")
+    check("init_bn.mean" in moved and "init_bn.var" in moved, "init_bn buffers did not move")
+    teacher_end = trainer.psl_model.state_dict()
+    check(all(torch.equal(v, teacher_end[k]) for k, v in trainer.teacher_start.items()),
+          "the PSL teacher's weights or buffers moved")
+    log_text = (out_dir / "train.log").read_text()
+    check("Validation Results" in log_text, "no validation ran")
+    return trainer, out, counts, {
+        "steps": len(trainer.metrics), "B": config["batch_size"], "wall_s": wall,
+        "first_loss": losses[0].item(), "last_loss": losses[-1].item(),
+        "max_grad_norm_seen": norms.max().item(), "params_moved": len(moved),
+        "launches": counts, "output": out.name, "card": info["nvidia_smi"]}
+
+
+def check_deliverable(out: Path, cfg_expected) -> dict:
+    """averaged.npz loads back into the port and serves on the card, within
+    1e-3 of the CPU plain path."""
+    from uit_mobile_tpu_torch.ckpt import load_model
+    from uit_mobile_tpu_torch.ops import make_forward_fn
+
+    cfg, model, extra = load_model(out, device="cuda")
+    check(cfg == cfg_expected and "averaged_from" in extra, f"{out.name}: unexpected config")
+    _, cpu_model, _ = load_model(out, device="cpu")
+    pcm = pcm_batch(np.random.default_rng(6), 16, SR)
+    got = make_forward_fn(cfg, model, precision="exact")(pcm).cpu().numpy()
+    want = cpu_reference(cfg, cpu_model, pcm, "exact", None)
+    drift = float(np.abs(got - want).max())
+    check(got.shape == (16, cfg.outputdim) and bool(np.isfinite(got).all()) and drift <= 1e-3,
+          f"averaged model serves {got.shape}, drift {drift} from the CPU plain path")
+    return {"served": list(got.shape), "max_abs_drift_vs_cpu": drift}
+
+
+# one train step on the card against the CPU plain path, per configuration:
+# B (half AudioSet rows for the teacher), the student's mel layout, frontend
+# precision, int16 input, the kernel the step launches in both models, and
+# whether the 1e-5 gate on the updated params covers every element. The
+# frontier's leaves out the elements whose gradient is below 1e-7: its fast
+# mel sits further from its plain version than exact's (on an H100,
+# gradients 6.3e-5 from the CPU's relative to each tensor's largest, exact
+# 9.7e-7), and Adam's first step, lr * g / (|g| + eps), turns a gradient
+# difference near 0 into up to lr (there 3.0e-4 over every element, 2.2e-6
+# outside them)
+PARITY = {"recipe": (32, "bft", "exact", False, "row_exact", True),
+          "frontier": (1024, "tfb", "fast", True, "tfb_fast", False)}
+
+
+def frontend_gate(fe, wav: torch.Tensor, precision: str, layout: str) -> dict:
+    """fe(wav) on the card (the kernel) against fe on the CPU (its plain
+    version): every value within ops/mel.py:tolerance_db in fe's layout, or
+    within the shift of the batch max where top_db clamps against it (the
+    shift itself within the tolerance)."""
+    from uit_mobile_tpu_torch.frontend import FrontendConfig, reflect_pad
+    from uit_mobile_tpu_torch.ops import mel as mel_ops
+
+    got, want = fe(wav), fe(wav.cpu())
+    fc = FrontendConfig()
+    wp = reflect_pad(wav, fc.n_fft // 2).contiguous()
+    mats = mel_ops._matrices(fc, wav.dtype == torch.int16, precision, wav.device)
+    tol = mel_ops.tolerance_db(wp, mats, fc.hop_length, precision)
+    tol = (tol.permute(1, 2, 0) if layout == "tfb" else tol.transpose(-1, -2)).cpu()
+    got = got.cpu()
+    shift = (got.max() - want.max()).abs()
+    err = (got - want).abs()
+    rec = {"shape": list(got.shape), "max_abs_err_db": err.max().item(),
+           "max_shift_db": shift.item(),
+           "worst_err_over_tolerance": (err / torch.clamp(tol, min=shift)).max().item()}
+    check(got.shape == want.shape and bool(torch.isfinite(got).all())
+          and shift <= tol.max() and rec["worst_err_over_tolerance"] <= 1.0,
+          f"{layout} {precision} frontend on the card vs the CPU plain path: {rec}")
+    return rec
+
+
+def train_parity(name: str, info) -> dict:
+    """One train step of a configuration (PSL teacher, AdamW, constant lr,
+    no augments, no dropout, no mixup) from the same weights and batch on
+    the card (the mel kernels) and through the plain path on the CPU.
+    Gates: the step's two frontends (frontend_gate); loss 1e-4 relative,
+    pre-clip grad norm 1e-3 relative, every gradient within 1e-4 of the
+    CPU's relative to its tensor's largest, updated params 1e-5 over every
+    element or (PARITY) outside the elements whose gradient is below 1e-7,
+    where Adam's first step is +-lr whatever the sign of a rounding; both
+    readings and the count of those elements are printed."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+    from uit_mobile_tpu_torch.utils import resolve_device
+
+    B, layout, precision, int16, variant, all_params = PARITY[name]
+    n_as = B // 2
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102, mel_layout=layout)
+    t_cfg = models.get_model_config("MobileNetV2", outputdim=527)
+    student = module_to_numpy(models.build(cfg, torch.Generator().manual_seed(7), "cpu"))
+    teacher = module_to_numpy(models.build(t_cfg, torch.Generator().manual_seed(8), "cpu"))
+    rng = np.random.default_rng(9)
+    clips_as, _ = synth_split(rng, n_as, False)
+    clips_kws, labels = synth_split(rng, B - n_as, True)
+    pcm = np.stack(clips_as + clips_kws)
+    wav = pcm if int16 else pcm.astype(np.float32) / 32768.0
+    target = np.zeros((B, 537), np.float32)
+    target[:n_as, 0] = 1.0
+    target[np.arange(n_as, B), labels] = 1.0
+    fe = make_frontend_fn(cfg.frontend, precision=precision, layout=layout)
+    psl_fe = make_frontend_fn(t_cfg.frontend, precision=precision, layout="tfb_to_bft")
+    wav_gpu = torch.from_numpy(wav).to(resolve_device("cuda"))
+    rec = {"phase": "train_parity", "config": name, "B": B, "teacher_B": n_as,
+           "mel_layout": layout, "precision": precision, "input": str(wav.dtype),
+           "frontend_student": frontend_gate(fe, wav_gpu, precision, layout),
+           "frontend_teacher": frontend_gate(psl_fe, wav_gpu[:n_as], precision, "bft")}
+    runs = {}
+    for dev_name in ("cuda", "cpu"):
+        dev = resolve_device(dev_name)
+        model = module_from_numpy(cfg, *student, device=dev)
+        t_model = module_from_numpy(t_cfg, *teacher, device=dev).requires_grad_(False)
+        opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+        step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
+                               psl_split=n_as, frontend_fn=fe, psl_frontend_fn=psl_fe)
+        before = dict(launches)
+        t0 = time.perf_counter()
+        m = step({"wav": torch.from_numpy(wav).to(dev),
+                  "target": torch.from_numpy(target).to(dev)})
+        loss = m["total_loss"].item()
+        rec[f"{dev_name}_step_s"] = time.perf_counter() - t0
+        rec[f"{dev_name}_launches"] = {k: launches[k] - before[k] for k in before}
+        # after one update the first moment is (1 - b1) x the step's gradient
+        grads = {n: (mu / 0.1).cpu() for n, mu in zip(opt.names, opt.moments[0])}
+        runs[dev_name] = (loss, m["grad_norm"].item(),
+                          {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
+    check(rec["cuda_launches"][variant] == 2,
+          f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
+    (l_g, n_g, p_g, g_g), (l_c, n_c, p_c, g_c) = runs["cuda"], runs["cpu"]
+    excluded, worst, worst_all = 0, 0.0, 0.0
+    for k, v in p_g.items():
+        keep = (g_c[k].abs() >= 1e-7) | (g_c[k] == 0)
+        excluded += int((~keep).sum())
+        worst = max(worst, (v - p_c[k])[keep].abs().max().item())
+        worst_all = max(worst_all, (v - p_c[k]).abs().max().item())
+    rec.update({
+        "loss_gpu": l_g, "loss_cpu": l_c, "loss_rel_err": abs(l_g - l_c) / abs(l_c),
+        "grad_norm_gpu": n_g, "grad_norm_cpu": n_c, "grad_norm_rel_err": abs(n_g - n_c) / abs(n_c),
+        "params_max_abs_diff": worst, "params_max_abs_diff_all": worst_all,
+        "params_gate_every_element": all_params,
+        "params_excluded_small_grad": excluded,
+        "params_total": sum(v.numel() for v in p_g.values()),
+        "max_grad_rel_diff": max(((g_g[k] - g_c[k]).abs().max() /
+                                  g_c[k].abs().max().clamp(min=1e-30)).item() for k in g_c),
+        "card": info["nvidia_smi"]})
+    emit(rec)
+    check(rec["loss_rel_err"] <= 1e-4 and rec["grad_norm_rel_err"] <= 1e-3
+          and rec["max_grad_rel_diff"] <= 1e-4 and (worst_all if all_params else worst) <= 1e-5,
+          f"{name}: train step on the card vs CPU plain path: {rec}")
+    return rec
+
+
+def time_train_step(trainer, name: str, info) -> dict:
+    """The trainer's step on a fixed device batch: CUDA-event median over 20
+    steps after 3 of warm-up, the host's enqueue time of a step, the two mel
+    launches (student, teacher) and the teacher's forward, each timed alone
+    at the step's shapes."""
+    from uit_mobile_tpu_torch import models
+
+    c = trainer.config
+    B, n_as = c["batch_size"], c["batch_size"] // 2
+    rng = np.random.default_rng(10)
+    clips_as, _ = synth_split(rng, n_as, False)
+    clips_kws, labels = synth_split(rng, B - n_as, True)
+    pcm = np.stack(clips_as + clips_kws)
+    dev = trainer.device
+    wav = torch.from_numpy(pcm if c.get("data_dtype") == "int16"
+                           else pcm.astype(np.float32) / 32768.0).to(dev)
+    target = torch.zeros(B, 537, device=dev)
+    target[:n_as, 0] = 1.0
+    target[torch.arange(n_as, B), torch.tensor(labels)] = 1.0
+    batch, gen = {"wav": wav, "target": target}, trainer.generator
+    step_ms = time_ms(lambda: trainer.train_step(batch, gen), warmup=3, iters=20)
+    enqueue = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch, gen)
+        enqueue.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    # the step feeds the student the augmented float wave when a wav augment
+    # is set, and the teacher the raw batch
+    s_wav = wav.float() / 32768.0 if (wav.dtype == torch.int16 and c.get("wavtransforms")) else wav
+    layout = getattr(trainer.cfg, "mel_layout", "bft")
+    gates = {"frontend_student": frontend_gate(trainer.frontend, s_wav,
+                                               c["frontend_precision"], layout),
+             "frontend_teacher": frontend_gate(trainer.psl_frontend, wav[:n_as],
+                                               c["frontend_precision"], "bft")}
+    mel_student = time_ms(lambda: trainer.frontend(s_wav))
+    mel_teacher = time_ms(lambda: trainer.psl_frontend(wav[:n_as]))
+
+    def teacher():
+        with torch.no_grad():
+            return models.forward(trainer.psl_cfg, trainer.psl_model, wav[:n_as],
+                                  frontend_fn=trainer.psl_frontend)
+
+    teacher_ms = time_ms(teacher)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    teacher()
+    teacher_enqueue = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    rec = {"phase": "train_timing", "config": name, "B": B, "teacher_B": n_as,
+           "input": str(wav.dtype).replace("torch.", ""),
+           "mel_layout": layout, "precision": c["frontend_precision"], **gates,
+           "step_ms": step_ms,
+           "enqueue_ms": statistics.median(enqueue), "mel_student_ms": mel_student,
+           "mel_teacher_ms": mel_teacher, "mel_ms": mel_student + mel_teacher,
+           "mel_share": (mel_student + mel_teacher) / step_ms, "teacher_forward_ms": teacher_ms,
+           "teacher_share": teacher_ms / step_ms, "teacher_enqueue_ms": teacher_enqueue,
+           "clips_per_s": B * 1e3 / step_ms,
+           **profile_steps(lambda: trainer.train_step(batch, gen), step_ms),
+           "card": info["nvidia_smi"]}
+    emit(rec)
+    return rec
+
+
+# kernel name fragments -> the part of the step they belong to (first match)
+KERNEL_GROUPS = (("mel", ("mel_kernel",)), ("conv", ("conv", "cudnn", "implicit", "winograd")),
+                 ("matmul", ("gemm", "cutlass", "sm90", "ampere", "cublas")),
+                 ("optimizer", ("foreach", "multi_tensor")),
+                 ("reduce", ("reduce", "norm", "softmax")))
+
+
+def profile_steps(step, step_ms: float, n: int = 5) -> dict:
+    """torch.profiler over n steps: the device's busy time a step (the union
+    of its kernels', memcpys' and memsets' intervals), its idle share of the
+    CUDA-event step time, the kernels launched a step, and the busy time by
+    kind of kernel. None where the trace holds no device event."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return {"device_busy_ms": None, "device_idle_share": None, "kernels_per_step": None}
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    groups: dict = {}
+    for e in dev:
+        name = e.name.lower()
+        kind = next((g for g, keys in KERNEL_GROUPS if any(k in name for k in keys)),
+                    "elementwise/other")
+        groups[kind] = groups.get(kind, 0.0) + (e.time_range.end - e.time_range.start) / n / 1e3
+    busy_ms = busy / n / 1e3
+    # not clamped: a busy time above the CUDA-event step shows as a negative
+    # share, i.e. the two readings disagree
+    return {"device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / step_ms,
+            "kernels_per_step": len(dev) / n,
+            "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+
+
+def phase_train(info) -> dict:
+    """The training path on the card: the recipe and the frontier through
+    the Trainer (counts set to 0 before each and read after), the recipe's
+    deliverable served, one step held against the CPU plain path, and both
+    configurations' steps timed. -> {config: launch counts}."""
+    from uit_mobile_tpu_torch import models
+
+    counts = {}
+    for name, config, variant in (("recipe", RECIPE, "row_exact"),
+                                  ("frontier", FRONTIER, "tfb_fast")):
+        trainer, out, counts[name], rec = drive_trainer(config, info)
+        check(counts[name][variant] > 0, f"{name}: the train path never launched {variant}: "
+                                         f"{counts[name]}")
+        if name == "recipe":
+            cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
+            rec.update(check_deliverable(out, cfg))
+        emit({"phase": "train", "config": name, **rec})
+        time_train_step(trainer, name, info)
+        shutil.rmtree(out.parent, ignore_errors=True)
+        train_parity(name, info)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -521,6 +941,7 @@ def main() -> int:
     serve_counts = phase_serve(cfg, cpu_model, info)
     exact_counts = phase_exact(cfg, cpu_model, gpu_model)
     phase_forward(cfg, gpu_model, records, info)
+    train_counts = phase_train(info)
 
     def timing(rec):
         return {"shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",
@@ -538,6 +959,7 @@ def main() -> int:
             "name": f"mel_{variant}", "route": "cuda", "source": KERNEL_SOURCE,
             "replaces": REPLACES[variant], "launches": path_counts[variant],
             "path": "serve" if precision == "fast" else "exact",
+            "train_launches": {name: c[variant] for name, c in train_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

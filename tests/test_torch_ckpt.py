@@ -61,5 +61,7 @@ def test_port_checkpoint_loads_in_jax(tmp_path, wav):
 def test_config_round_trip_and_unported_kinds():
     cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
     assert config_from_dict(config_to_dict(cfg)) == cfg
+    teacher = models.get_model_config("MobileNetV2", outputdim=527)
+    assert config_from_dict(config_to_dict(teacher)) == teacher
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        config_from_dict({"__model_config__": "MobileNetV2Config"})
+        config_from_dict({"__model_config__": "MoEUITConfig"})

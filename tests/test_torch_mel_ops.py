@@ -104,8 +104,10 @@ def test_make_frontend_fn_layouts():
                                bft.permute(2, 1, 0))
     torch.testing.assert_close(make_frontend_fn(use_kernel=True, layout="btf")(wav),
                                bft.transpose(-1, -2), atol=5e-4, rtol=0)
+    # the PSL teacher's layout: the canonical (B, F, T) mel
+    torch.testing.assert_close(make_frontend_fn(use_kernel=False, layout="tfb_to_bft")(wav), bft)
     with pytest.raises(ValueError, match="layout"):
-        make_frontend_fn(layout="tfb_to_bft")
+        make_frontend_fn(layout="fbt")
 
 
 def test_cuda_launcher_refuses_cpu_tensors():

@@ -6,6 +6,7 @@ Measured (CPU, uit_xxxs): bft forward drift <= 1.2e-7, btf/tfb kernel-path
 drift <= 1.8e-7, e2e golden drift ~1e-7; held to 1e-5 (bft, golden) and 1e-4
 (btf/tfb, where init_bn is folded into the patch embed)."""
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -159,7 +160,9 @@ def test_build_defaults_to_cuda_and_train_is_deferred(carried):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             models.build(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        models.apply(cfg, model, torch.zeros(1, 16000), train=True)
+    # training is ported; its bfloat16 compute is a later slice
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.get_model_config("MobileNetV2")
+        models.apply(bf16, model, torch.zeros(1, 16000), train=True)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        models.get_model_config("uit_xs_moe")

@@ -1,13 +1,19 @@
 from .convert import module_from_numpy, module_to_numpy
-from .io import (config_from_dict, config_to_dict, load_checkpoint, load_model,
-                 save_checkpoint)
+from .io import (average_checkpoints, config_from_dict, config_to_dict, load_checkpoint,
+                 load_model, load_pretrained_partial, load_training_state, save_checkpoint,
+                 save_numpy_checkpoint, save_training_state)
 
 __all__ = [
+    "average_checkpoints",
     "config_from_dict",
     "config_to_dict",
     "load_checkpoint",
     "load_model",
+    "load_pretrained_partial",
+    "load_training_state",
     "module_from_numpy",
     "module_to_numpy",
     "save_checkpoint",
+    "save_numpy_checkpoint",
+    "save_training_state",
 ]

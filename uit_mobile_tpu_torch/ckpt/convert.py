@@ -2,9 +2,11 @@
 
 The JAX package keeps (params, state) as nested dicts and lists of arrays
 (``jax.tree.map(np.asarray, params)`` gives numpy leaves). The port's
-``UiT`` module names its parameters after the same keys, so the carry is a
+modules name their parameters after the same keys, so the carry is a
 key-for-key copy: JAX ``blocks/3/attn/qkv/kernel`` is the port's
 ``blocks.3.attn.qkv.kernel`` (params -> parameters, state -> buffers).
+One layout differs: MobileNetV2's conv kernels are HWIO ``(k, k, cin/g,
+cout)`` in JAX and OIHW in the port (``permute(3, 2, 0, 1)``).
 """
 
 from __future__ import annotations
@@ -12,8 +14,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.uit import UiT, UITConfig
+from ..models import module_class
+from ..models.mobilenetv2 import MobileNetV2, MobileNetV2Config
 from ..utils.device import resolve_device
+
+
+def _hwio(cfg_or_model) -> bool:
+    """Whether this model family stores conv kernels HWIO in JAX."""
+    return isinstance(cfg_or_model, (MobileNetV2, MobileNetV2Config))
+
+
+def to_port_layout(cfg, key: str, value: np.ndarray) -> np.ndarray:
+    """One JAX-layout leaf -> the port's layout."""
+    if _hwio(cfg) and key.endswith("conv.kernel"):
+        return np.transpose(value, (3, 2, 0, 1))  # HWIO -> OIHW
+    return value
+
+
+def to_jax_layout(cfg, key: str, value: np.ndarray) -> np.ndarray:
+    """One port-layout leaf -> the JAX package's layout."""
+    if _hwio(cfg) and key.endswith("conv.kernel"):
+        return np.transpose(value, (2, 3, 1, 0))  # OIHW -> HWIO
+    return value
 
 
 def flatten_tree(tree, sep: str, prefix: str = "") -> dict:
@@ -56,11 +78,12 @@ def unflatten_tree(flat: dict, sep: str):
 
 
 @torch.no_grad()
-def module_from_numpy(cfg: UITConfig, params, state, device="cuda") -> UiT:
-    """JAX-layout (params, state) trees of numpy arrays -> the port's UiT on
-    ``device``. Every key must match, with its shape."""
+def module_from_numpy(cfg, params, state, device="cuda"):
+    """JAX-layout (params, state) trees of numpy arrays -> the port's model
+    (UiT or MobileNetV2) on ``device``. Every key must match, with its
+    shape."""
     dev = resolve_device(device)
-    model = UiT(cfg)
+    model = module_class(cfg)(cfg)
     flat = {**flatten_tree(params, "."), **flatten_tree(state or {}, ".")}
     sd = model.state_dict()
     missing, unexpected = sorted(set(sd) - set(flat)), sorted(set(flat) - set(sd))
@@ -68,15 +91,18 @@ def module_from_numpy(cfg: UITConfig, params, state, device="cuda") -> UiT:
         raise KeyError(f"parameter trees do not match the {type(model).__name__} "
                        f"of this config: missing {missing}, unexpected {unexpected}")
     for k, v in flat.items():
-        v = np.asarray(v)
+        v = to_port_layout(cfg, k, np.asarray(v))
         if tuple(v.shape) != tuple(sd[k].shape):
             raise ValueError(f"{k}: shape {v.shape} != expected {tuple(sd[k].shape)}")
         sd[k].copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
     return model.to(dev).eval()
 
 
-def module_to_numpy(model: UiT):
-    """The port's UiT -> JAX-layout (params, state) trees of numpy arrays."""
-    params = {k: v.detach().cpu().numpy() for k, v in model.named_parameters()}
+def module_to_numpy(model, named_params=None):
+    """The port's model -> JAX-layout (params, state) trees of numpy arrays.
+    ``named_params`` (name -> tensor) replaces the module's parameters, as
+    the EMA of the parameters does."""
+    params = dict(model.named_parameters()) if named_params is None else named_params
+    params = {k: to_jax_layout(model, k, v.detach().cpu().numpy()) for k, v in params.items()}
     state = {k: v.detach().cpu().numpy() for k, v in model.named_buffers()}
     return unflatten_tree(params, "."), unflatten_tree(state, ".")

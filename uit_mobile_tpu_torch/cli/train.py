@@ -1,0 +1,57 @@
+"""Training CLI, counterpart of ``uit_mobile_tpu/cli/train.py``.
+
+    python -m uit_mobile_tpu_torch.cli.train train configs/train_uit_xs.yaml [--key value ...]
+    python -m uit_mobile_tpu_torch.cli.train train cfg.yaml --device cpu
+
+Any ``--key value`` pair overrides the YAML config. Training runs on the
+card unless ``--device cpu`` asks for the CPU. ``run`` (train, then the
+Evaluator), ``pretrain`` (MAE) and ``sed`` are not yet ported and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..utils import parse_config_or_kwargs, parse_override
+
+_LATER = {
+    "run": "the Evaluator (ROADMAP §A10)",
+    "pretrain": "MAE pretraining (ROADMAP §A15)",
+    "sed": "SED training (ROADMAP §A13)",
+}
+
+
+def _parse_overrides(pairs) -> dict:
+    out, key = {}, None
+    for tok in pairs:
+        if tok.startswith("--"):
+            key = tok[2:].replace("-", "_")
+            out[key] = True  # bare flag
+        else:
+            if key is None:
+                raise ValueError(f"value {tok!r} without --key")
+            out[key] = parse_override(tok)
+            key = None
+    return out
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(prog="uit-train-torch")
+    parser.add_argument("command", choices=["train", "run", "pretrain", "sed"])
+    parser.add_argument("config")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args, rest = parser.parse_known_args(argv)
+    if args.command in _LATER:
+        raise NotImplementedError(f"'{args.command}' needs {_LATER[args.command]}, "
+                                  f"which is not yet ported; use 'train'")
+    config = parse_config_or_kwargs(args.config, **_parse_overrides(rest))
+    from ..train.loop import train_from_config
+
+    print(train_from_config(config, device=args.device))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

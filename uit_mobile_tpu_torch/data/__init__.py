@@ -1,3 +1,25 @@
 from .audio_io import read_wav, read_wav_bytes, write_wav
+from .hdf5 import (BalancedSampler, DataLoader, MultiDataLoader, RandomSampler,
+                   SequentialSampler, WeakChunkedHDF5Dataset, WeakHDF5Dataset,
+                   WeakRandomCropHDF5Dataset, collate, device_prefetch, pad_batch, to_device)
+from .manifest import multihot, read_tsv_data
 
-__all__ = ["read_wav", "read_wav_bytes", "write_wav"]
+__all__ = [
+    "BalancedSampler",
+    "DataLoader",
+    "MultiDataLoader",
+    "RandomSampler",
+    "SequentialSampler",
+    "WeakChunkedHDF5Dataset",
+    "WeakHDF5Dataset",
+    "WeakRandomCropHDF5Dataset",
+    "collate",
+    "device_prefetch",
+    "multihot",
+    "pad_batch",
+    "read_tsv_data",
+    "read_wav",
+    "read_wav_bytes",
+    "to_device",
+    "write_wav",
+]

@@ -1,0 +1,68 @@
+"""Deterministic synthetic keyword world, counterpart of
+``uit_mobile_tpu/data/synthworld.py``.
+
+537 classes: each keyword index (527-536) is a pure tone at a fixed
+frequency, and the "AudioSet" filler is colored noise labeled class 0.
+``synth_clip`` makes clips in numpy; ``build_world`` writes the HDF5 + TSV
+splits the Trainer reads (h5py and pandas are imported only there).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+
+# keyword class -> tone frequency, 300 Hz .. ~4.5 kHz
+KW_FREQS = {527 + i: 300.0 * (1.35 ** i) for i in range(10)}
+
+
+def synth_clip(rng: np.random.Generator, label: int, sr: int = 16000) -> np.ndarray:
+    """One 1 s int16 clip: a noisy pure tone for keyword labels, colored
+    noise for the class-0 filler."""
+    t = np.arange(sr) / sr
+    if label in KW_FREQS:
+        w = rng.uniform(0.2, 0.8) * np.sin(2 * np.pi * KW_FREQS[label] * t
+                                           + rng.uniform(0, 2 * np.pi))
+        w += rng.standard_normal(sr) * 0.02
+    else:
+        w = rng.standard_normal(sr) * rng.uniform(0.05, 0.3)
+    return (np.clip(w, -1, 1) * 32000).astype(np.int16)
+
+
+def synth_labels(rng: np.random.Generator, n: int, kws: bool) -> list[int]:
+    """n labels: uniform keyword classes for the KWS half, 0 otherwise."""
+    return [int(rng.choice(list(KW_FREQS))) if kws else 0 for _ in range(n)]
+
+
+def make_split(root: Path, name: str, n: int, rng: np.random.Generator, kws: bool) -> str:
+    """Write one HDF5 + TSV split; returns the TSV path."""
+    import h5py
+    import pandas as pd
+
+    root = Path(root)
+    h5 = root / f"{name}.h5"
+    rows = []
+    with h5py.File(h5, "w") as f:
+        for i in range(n):
+            label = synth_labels(rng, 1, kws)[0]
+            f[f"{name}_{i}.wav"] = synth_clip(rng, label)
+            rows.append((f"{name}_{i}.wav", str(label), str(h5)))
+    tsv = root / f"{name}.tsv"
+    pd.DataFrame(rows, columns=["filename", "labels", "hdf5path"]).to_csv(
+        tsv, sep="\t", index=False)
+    return str(tsv)
+
+
+def build_world(outdir, seed: int = 0, n_train: int = 256, n_eval: int = 64) -> dict:
+    """The 4-split world -> the config keys the Trainer consumes.
+    Deterministic in (seed, n_train, n_eval), as in the JAX package."""
+    outdir = Path(outdir)
+    outdir.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    return {
+        "audioset_train_data": make_split(outdir, "as_train", n_train, rng, kws=False),
+        "audioset_eval_data": make_split(outdir, "as_eval", n_eval, rng, kws=False),
+        "kws_train_data": make_split(outdir, "kws_train", n_train, rng, kws=True),
+        "kws_test_data": make_split(outdir, "kws_eval", n_eval, rng, kws=True),
+    }

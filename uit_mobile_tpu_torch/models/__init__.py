@@ -1,7 +1,7 @@
 """Model registry: explicit name -> config factory, plus build/apply.
 
-Counterpart of ``uit_mobile_tpu/models/__init__.py`` for the UiT family.
-MobileNetV2 and the MoE UiT are not yet ported and raise.
+Counterpart of ``uit_mobile_tpu/models/__init__.py`` for the UiT family and
+MobileNetV2. The MoE UiT is not yet ported and raises.
 """
 
 from __future__ import annotations
@@ -9,7 +9,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from . import uit
+from . import mobilenetv2, uit
+from .mobilenetv2 import MobileNetV2, MobileNetV2Config
 from .uit import (
     PRETRAINED_CHECKPOINTS,
     UiT,
@@ -31,11 +32,17 @@ MODEL_REGISTRY = {
     "audio_transformer_h128_d4_m3_relu": audio_transformer_h128_d4_m3_relu,
     "audio_transformer_h128_d6_m3": audio_transformer_h128_d6_m3,
     "audio_transformer_h128_d6_m3_relu": audio_transformer_h128_d6_m3_relu,
+    "MobileNetV2": mobilenetv2.mobilenetv2,
 }
-NOT_YET_PORTED = ("MobileNetV2", "uit_xs_moe")
+NOT_YET_PORTED = ("uit_xs_moe",)
+# config type -> (module class, init, forward)
+_FAMILIES = {
+    UITConfig: (UiT, uit.init, uit.forward),
+    MobileNetV2Config: (MobileNetV2, mobilenetv2.init, mobilenetv2.forward),
+}
 
 
-def get_model_config(name: str, **kwargs) -> UITConfig:
+def get_model_config(name: str, **kwargs):
     if name in NOT_YET_PORTED:
         raise NotImplementedError(f"model {name!r} is not yet ported")
     if name not in MODEL_REGISTRY:
@@ -43,31 +50,64 @@ def get_model_config(name: str, **kwargs) -> UITConfig:
     return MODEL_REGISTRY[name](**kwargs)
 
 
-def build(cfg, generator: torch.Generator | None = None, device="cuda") -> UiT:
-    """A freshly initialised model on ``device`` (drawn on the CPU from
-    ``generator``, default seed 0, so every device gets the same weights)."""
-    if not isinstance(cfg, UITConfig):
+def _family(cfg):
+    if type(cfg) not in _FAMILIES:
         raise NotImplementedError(f"config type {type(cfg).__name__} is not yet ported")
+    return _FAMILIES[type(cfg)]
+
+
+def module_class(cfg):
+    """The parameter-container class of a config (UiT, MobileNetV2)."""
+    return _family(cfg)[0]
+
+
+def build(cfg, generator: torch.Generator | None = None, device="cuda"):
+    """A freshly initialised model on ``device`` (drawn on the CPU from
+    ``generator``, default seed 0, so every device gets the same weights),
+    in eval mode."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    return uit.init(cfg, generator).to(dev).eval()
+    return _family(cfg)[1](cfg, generator).to(dev).eval()
 
 
-def apply(cfg, model: UiT, wav: torch.Tensor, **kwargs) -> torch.Tensor:
-    """Eval forward for any ported model config."""
-    if not isinstance(cfg, UITConfig):
-        raise NotImplementedError(f"config type {type(cfg).__name__} is not yet ported")
+def forward(cfg, model, wav: torch.Tensor, **kwargs):
+    """The forward of any ported config, in the caller's grad mode: eval
+    -> probs, ``train=True`` -> (probs, new_state)."""
+    return _family(cfg)[2](cfg, model, wav, **kwargs)
+
+
+def apply(cfg, model, wav: torch.Tensor, train: bool = False, **kwargs):
+    """Eval forward under ``torch.inference_mode`` -> probs; with
+    ``train=True`` the train forward with autograd -> (probs, new_state),
+    the running statistics after this batch keyed by buffer name (write
+    them back with ``load_state``), as the JAX ``models.apply`` returns
+    (probs, new_state)."""
+    if train:
+        return forward(cfg, model, wav, train=True, **kwargs)
     with torch.inference_mode():
-        return uit.forward(cfg, model, wav, **kwargs)
+        return forward(cfg, model, wav, **kwargs)
+
+
+@torch.no_grad()
+def load_state(model, new_state: dict) -> None:
+    """Write a train forward's new_state into the model's buffers."""
+    buffers = dict(model.named_buffers())
+    for name, value in new_state.items():
+        buffers[name].copy_(value)
 
 
 __all__ = [
     "MODEL_REGISTRY",
     "PRETRAINED_CHECKPOINTS",
+    "MobileNetV2",
+    "MobileNetV2Config",
     "UITConfig",
     "UiT",
     "apply",
     "build",
+    "forward",
     "get_model_config",
+    "load_state",
+    "module_class",
 ]

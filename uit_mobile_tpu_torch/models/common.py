@@ -1,4 +1,4 @@
-"""NN primitives of the model family (eval), counterpart of
+"""NN primitives of the model family, counterpart of
 ``uit_mobile_tpu/models/common.py``.
 
 Parameters live in small ``nn.Module`` containers whose attribute names are
@@ -6,7 +6,8 @@ the JAX pytree's keys, so a JAX flat key ``blocks/3/attn/qkv/kernel`` is the
 port's ``blocks.3.attn.qkv.kernel``. Linear kernels keep the JAX layout
 ``(in, out)`` (``y = x @ kernel + bias``, i.e. torch ``Linear.weight.T``).
 The functions below take such a container as ``p``, like their JAX
-counterparts take a dict.
+counterparts take a dict. Train-mode randomness (dropout, drop-path) is
+drawn from an explicit ``torch.Generator`` where JAX takes a key.
 """
 
 from __future__ import annotations
@@ -103,6 +104,32 @@ def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _generator(generator, what: str):
+    if generator is None:
+        raise ValueError(f"{what} in train mode needs a torch.Generator")
+    return generator
+
+
+def dropout(generator, x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=_generator(generator, "dropout"),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
+def drop_path(generator, x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+    """Stochastic depth: drop whole residual branches per sample."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    mask = torch.rand(shape, generator=_generator(generator, "drop_path"),
+                      device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def batch_norm_inference(p: BatchNorm, x: torch.Tensor, axis: int = -1,
                          eps: float = 1e-5) -> torch.Tensor:
     """Per-channel affine with the running stats; ``axis`` is the channel axis."""
@@ -116,6 +143,31 @@ def batch_norm_inference(p: BatchNorm, x: torch.Tensor, axis: int = -1,
     return (x - r(p.mean)) * inv * r(p.scale) + r(p.bias)
 
 
+def batch_norm_train(p: BatchNorm, x: torch.Tensor, axis: int = -1,
+                     momentum: float = 0.1, eps: float = 1e-5):
+    """BatchNorm with batch statistics -> (y, new_state), torch semantics:
+    normalized with the biased batch variance, the running variance moved
+    toward the *unbiased* one. new_state = {'mean', 'var'} (no grad); the
+    module's buffers are left as they are."""
+    axis = axis % x.dim()
+    reduce_dims = tuple(i for i in range(x.dim()) if i != axis)
+    mean = x.mean(dim=reduce_dims)
+    var = x.var(dim=reduce_dims, unbiased=False)
+    n = x.numel() // x.shape[axis]
+    with torch.no_grad():
+        unbiased = var * n / max(n - 1, 1)
+        new_state = {"mean": (1 - momentum) * p.mean + momentum * mean,
+                     "var": (1 - momentum) * p.var + momentum * unbiased}
+    shape = [1] * x.dim()
+    shape[axis] = x.shape[axis]
+
+    def r(v):
+        return v.reshape(shape)
+
+    y = (x - r(mean)) * torch.rsqrt(r(var) + eps) * r(p.scale) + r(p.bias)
+    return y, new_state
+
+
 ACTIVATIONS = {
     "gelu": lambda x: F.gelu(x, approximate="none"),
     "relu": F.relu,
@@ -125,8 +177,10 @@ ACTIVATIONS = {
 
 def multihead_attention(p, x: torch.Tensor, num_heads: int, scale: float,
                         inner_dim: int, causal: bool = False,
-                        key_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Full/bottleneck multi-head self-attention, eval.
+                        key_mask: torch.Tensor | None = None,
+                        attn_drop: float = 0.0, proj_drop: float = 0.0,
+                        generator=None, deterministic: bool = True) -> torch.Tensor:
+    """Full/bottleneck multi-head self-attention.
 
     ``p`` holds ``qkv`` (D -> 3*inner) and ``proj`` (inner -> D). The
     reference's ``scale`` is the FULL-dim head size (uit.py:99-100), passed
@@ -147,10 +201,14 @@ def multihead_attention(p, x: torch.Tensor, num_heads: int, scale: float,
         if key_mask is not None:  # (B, N) True = valid key token
             attn = attn.masked_fill(~key_mask[:, None, :], min_val)
         attn = torch.softmax(attn, dim=-1)
+        attn = dropout(generator, attn, attn_drop, deterministic)
         heads.append(attn.to(v.dtype) @ v)
     out = heads[0] if num_heads == 1 else torch.cat(heads, dim=-1)
-    return linear(p.proj, out.to(x.dtype))
+    out = linear(p.proj, out.to(x.dtype))
+    return dropout(generator, out, proj_drop, deterministic)
 
 
-def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
-    return linear(p.fc2, ACTIVATIONS[act](linear(p.fc1, x)))
+def mlp(p, x: torch.Tensor, act: str, drop: float = 0.0, generator=None,
+        deterministic: bool = True) -> torch.Tensor:
+    x = dropout(generator, ACTIVATIONS[act](linear(p.fc1, x)), drop, deterministic)
+    return dropout(generator, linear(p.fc2, x), drop, deterministic)

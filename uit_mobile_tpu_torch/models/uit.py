@@ -1,4 +1,4 @@
-"""UiT audio transformer family (eval), counterpart of
+"""UiT audio transformer family, counterpart of
 ``uit_mobile_tpu/models/uit.py``.
 
 The model is a ``UiT`` ``nn.Module`` whose parameter names mirror the JAX
@@ -14,6 +14,12 @@ Checkpoint-parity quirks kept:
 - pooling='dm' does freq-mean -> head -> sigmoid -> time-mean;
 - long clips are cut into target_length windows, the short tail replaced by
   the last full window, and scores reduced by ``eval_avg``.
+
+Training (``forward(..., train=True)``) returns ``(probs, new_state)``: the
+init_bn running statistics after this batch as a dict keyed by buffer name
+(``init_bn.mean``/``init_bn.var``, momentum 0.01), which the caller writes
+back (``load_state``); the module itself is not changed. Dropout, drop-path,
+patch dropout and the augments draw from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -26,13 +32,17 @@ import torch
 from torch import nn
 
 from ..frontend import FrontendConfig, log_mel_spectrogram
+from ..augment.mixup import mixup_tensor
 from .common import (
     BatchNorm,
     LayerNorm,
     LayerScale,
     Linear,
     batch_norm_inference,
+    batch_norm_train,
     conv2d_torch_default_init,
+    drop_path,
+    dropout,
     layer_norm,
     linear,
     linear_init,
@@ -267,6 +277,33 @@ def patch_embed_tfb(cfg: UITConfig, model: UiT, x: torch.Tensor) -> torch.Tensor
     return tokens + bias_f[None, :, None]               # (B, fg, tg, D)
 
 
+def patch_embed_tfb_train(cfg: UITConfig, p: Linear, x: torch.Tensor) -> torch.Tensor:
+    """(T, n_mels, B) normalized mel -> (B, fg, tg, D) tokens: the unfolded
+    tfb patch embed for training (init_bn ran in train mode on the mel
+    already, so its affine cannot be folded); same kernel flattening as
+    patch_embed (u = mel-in-patch major)."""
+    T, F, B = x.shape
+    ps = cfg.patch_size
+    fg, tg = F // ps, T // ps
+    if tg < 1:
+        raise _too_few_frames(cfg, T)
+    x = x[: tg * ps, : fg * ps, :]
+    K = p.kernel.reshape(ps, ps, -1)                   # (mel_p u, time_p v, D)
+    x5 = x.reshape(tg, ps, fg, ps, B)                  # [t, v, f, u, b]
+    return torch.einsum("tvfub,uvd->bftd", x5, K) + p.bias
+
+
+def _drop_patches(generator, x: torch.Tensor, axis: int, frac: float) -> torch.Tensor:
+    """Random patch dropout along ``axis``, order kept (uit.py:224)."""
+    n = x.shape[axis]
+    keep = n - int(n * frac)
+    if generator is None:
+        raise ValueError("patch dropout in train mode needs a torch.Generator")
+    perm = torch.randperm(n, generator=generator, device=generator.device)
+    idx = torch.sort(perm[:keep]).values.to(x.device)
+    return x.index_select(axis, idx)
+
+
 def token_validity_mask(cfg: UITConfig, lengths: torch.Tensor, tg: int) -> torch.Tensor:
     """lengths (B,) samples -> (B, fg*tg) bool: which patch tokens lie fully
     inside real (non-padded) audio; the first time patch is always kept."""
@@ -278,18 +315,31 @@ def token_validity_mask(cfg: UITConfig, lengths: torch.Tensor, tg: int) -> torch
     return t_valid[:, None, :].expand(-1, fg, -1).reshape(lengths.shape[0], -1)
 
 
-def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
+def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None,
+                    train: bool = False, generator=None):
     """(B, fg, tg, D) patch tokens -> (B, N, D) block-ready sequence (pos
-    embeds, f-major flatten, cls token). Returns (x, token_mask)."""
+    embeds, patch dropout, f-major flatten, cls token, input dropout).
+    Returns (x, token_mask)."""
+    patch_out = cfg.time_patch_out is not None or cfg.freq_patch_out is not None
+    if train and token_mask is not None and patch_out:
+        raise ValueError(
+            "use_length_mask is incompatible with time/freq_patch_out during "
+            "training: patch dropout changes the token count after the mask "
+            "is built — disable one of the two")
     tg = x.shape[2]
     if tg > model.time_pos_embed.shape[0]:
         raise ValueError(
             f"input spans {tg} time patches but target_length="
             f"{cfg.target_length} provides only "
-            f"{model.time_pos_embed.shape[0]} positional embeddings"
+            f"{model.time_pos_embed.shape[0]} positional embeddings; in "
+            f"training, crop clips (chunk_length) or raise target_length"
         )
     x = x + model.time_pos_embed[None, None, :tg, :]
     x = x + model.freq_pos_embed[None, :, None, :]
+    if train and cfg.time_patch_out is not None:
+        x = _drop_patches(generator, x, 2, cfg.time_patch_out)
+    if train and cfg.freq_patch_out is not None:
+        x = _drop_patches(generator, x, 1, cfg.freq_patch_out)
     B = x.shape[0]
     x = x.reshape(B, -1, cfg.embed_dim)  # 'b f t c -> b (f t) c'
     if cfg.pooling == "token":
@@ -298,37 +348,48 @@ def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None
         if token_mask is not None:
             ones = torch.ones(B, 1, dtype=torch.bool, device=x.device)
             token_mask = torch.cat([ones, token_mask], dim=1)
+    x = dropout(generator, x, cfg.drop_rate, deterministic=not train)
     return x, token_mask
 
 
-def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor,
-                  token_mask=None) -> torch.Tensor:
-    """One pre-LN transformer block (eval): (B, N, D) -> (B, N, D)."""
+def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor, token_mask=None,
+                  dpr_i: float = 0.0, train: bool = False, generator=None) -> torch.Tensor:
+    """One pre-LN transformer block: (B, N, D) -> (B, N, D); in train mode
+    with attention/MLP dropout and drop-path at rate ``dpr_i``."""
+    det = not train
     h = layer_norm(blk.norm1, x, eps=1e-6)
     h = multihead_attention(blk.attn, h, num_heads=cfg.num_heads,
                             scale=cfg.attn_scale, inner_dim=cfg.inner_dim,
-                            causal=cfg.causal, key_mask=token_mask)
+                            causal=cfg.causal, key_mask=token_mask,
+                            attn_drop=cfg.attn_drop_rate, proj_drop=cfg.drop_rate,
+                            generator=generator, deterministic=det)
     if hasattr(blk, "ls1"):
         h = h * blk.ls1.gamma
-    x = x + h
-    h = mlp(blk.mlp, layer_norm(blk.norm2, x, eps=1e-6), act=cfg.act)
+    x = x + drop_path(generator, h, dpr_i, det)
+    h = mlp(blk.mlp, layer_norm(blk.norm2, x, eps=1e-6), act=cfg.act,
+            drop=cfg.drop_rate, generator=generator, deterministic=det)
     if hasattr(blk, "ls2"):
         h = h * blk.ls2.gamma
-    return x + h
+    return x + drop_path(generator, h, dpr_i, det)
 
 
-def _finish_features(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
+def _finish_features(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None,
+                     train: bool = False, generator=None):
     """(B, fg, tg, D) patch tokens -> (B, N, D) encoded tokens."""
-    x, token_mask = _prepare_tokens(cfg, model, x, token_mask=token_mask)
-    for blk in model.blocks:
-        x = block_forward(cfg, blk, x, token_mask=token_mask)
+    x, token_mask = _prepare_tokens(cfg, model, x, token_mask=token_mask,
+                                    train=train, generator=generator)
+    dpr = torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, dtype=torch.float64).tolist()
+    for blk, rate in zip(model.blocks, dpr):
+        x = block_forward(cfg, blk, x, token_mask=token_mask, dpr_i=rate,
+                          train=train, generator=generator)
     return layer_norm(model.norm, x, eps=1e-6)
 
 
-def forward_features(cfg: UITConfig, model: UiT, mel: torch.Tensor, token_mask=None):
+def forward_features(cfg: UITConfig, model: UiT, mel: torch.Tensor, token_mask=None,
+                     train: bool = False, generator=None):
     """(B, n_mels, T<=target_length) normalized mel -> (B, N, D) tokens."""
     return _finish_features(cfg, model, patch_embed(cfg, model.patch_embed, mel),
-                            token_mask=token_mask)
+                            token_mask=token_mask, train=train, generator=generator)
 
 
 def forward_head(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
@@ -405,16 +466,86 @@ def _reduce_crops(cfg: UITConfig, probs: torch.Tensor, dim: int) -> torch.Tensor
     return probs.mean(dim=dim) if cfg.eval_avg == "mean" else probs.amax(dim=dim)
 
 
+def _needs_frontend(cfg: UITConfig):
+    return ValueError(f"mel_layout={cfg.mel_layout!r} needs a frontend_fn built with "
+                      f"make_frontend_fn(..., layout={cfg.mel_layout!r})")
+
+
+_INT16_WAV_AUGMENT = ("wav augments expect normalized float32 waveforms; "
+                      "train int16 PCM only with wavtransforms: []")
+
+
+def _forward_train(cfg: UITConfig, model: UiT, wav: torch.Tensor, generator,
+                   mixup_lamb, wav_augment, spec_augment, lengths, frontend_fn):
+    """The train branches of ``forward`` (uit.py:592-637, 681-759) ->
+    (probs, new_state)."""
+    if cfg.mel_layout == "btf":
+        raise ValueError(
+            "mel_layout='btf' is an eval/serving optimization; train with the "
+            "default 'bft' layout (BN stat updates cannot be folded into the "
+            "patch embed)")
+    if cfg.mel_layout == "tfb" and frontend_fn is None:
+        raise _needs_frontend(cfg)
+    if wav.dtype == torch.int16 and wav_augment is not None:
+        # int16 PCM trains bitwise as f32/32768 (the frontends fold the
+        # scale); only wav augments need the normalized-f32 convention
+        raise ValueError(_INT16_WAV_AUGMENT)
+    want = cfg.mel_layout
+    if spec_augment is not None and getattr(spec_augment, "layout", "bft") != want:
+        raise ValueError(
+            f"mel_layout={want!r} training needs spec transforms built with "
+            f"parse_spectransforms(..., layout={want!r}); got "
+            f"layout={getattr(spec_augment, 'layout', None)!r} — it would mask "
+            f"the wrong axes")
+    if (wav_augment is not None or spec_augment is not None) and generator is None:
+        raise ValueError("wav/spec augments in train mode need a torch.Generator")
+    tfb = want == "tfb"
+    if frontend_fn is None:
+        frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
+    if wav_augment is not None:
+        wav = wav_augment(generator, wav)
+    mel = frontend_fn(wav)  # (T, F, B) tfb, (B, F, T) bft
+    if mixup_lamb is not None:
+        mel = mixup_tensor(mel, mixup_lamb, batch_axis=-1 if tfb else 0)
+    if spec_augment is not None:
+        mel = spec_augment(generator, mel)
+    new_state = {}
+    if cfg.init_bn:
+        x, bn = batch_norm_train(model.init_bn, mel, axis=1 if tfb else -2, momentum=0.01)
+        new_state = {f"init_bn.{k}": v for k, v in bn.items()}
+    else:
+        x = (mel + 10.0) / 40.0
+    if tfb:
+        tokens = patch_embed_tfb_train(cfg, model.patch_embed, x)
+        feats = _finish_features(cfg, model, tokens, train=True, generator=generator)
+        return forward_head(cfg, model, feats), new_state
+    token_mask = None
+    if cfg.use_length_mask and lengths is not None:
+        if mixup_lamb is not None:
+            raise ValueError(
+                "use_length_mask is incompatible with mixup: the mask is built "
+                "from the primary clip's length, but mixup mixes in a partner "
+                "whose audio (and labels) extend past it")
+        tg = min(x.shape[-1], cfg.target_length) // cfg.patch_stride
+        token_mask = token_validity_mask(cfg, torch.as_tensor(lengths, device=x.device), tg)
+    feats = forward_features(cfg, model, x, token_mask=token_mask, train=True,
+                             generator=generator)
+    return forward_head(cfg, model, feats, token_mask=token_mask), new_state
+
+
 def forward(cfg: UITConfig, model: UiT, wav: torch.Tensor, *, train: bool = False,
-            lengths=None, frontend_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Eval forward: (B, T_wav) waveform -> (B, outputdim) probabilities.
+            generator=None, mixup_lamb=None, wav_augment=None, spec_augment=None,
+            lengths=None, frontend_fn: Optional[Callable] = None):
+    """(B, T_wav) waveform -> (B, outputdim) probabilities; in train mode
+    (probs, new_state) (module docstring).
 
     ``frontend_fn`` swaps in the fused mel kernel (ops.mel.make_frontend_fn);
     mel_layout 'btf'/'tfb' need one of the matching layout. With
     cfg.use_length_mask and ``lengths`` (samples per clip), padded patches
-    are excluded from attention and pooling (single-window 'bft' only)."""
-    if train:
-        raise NotImplementedError("training is a later slice")
+    are excluded from attention and pooling (single-window 'bft' only).
+    Train mode takes ``generator`` for its stochastic parts, mixup lambdas
+    (mixed in the mel domain against the flipped batch) and the parsed
+    wav/spec augments."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
@@ -425,11 +556,11 @@ def forward(cfg: UITConfig, model: UiT, wav: torch.Tensor, *, train: bool = Fals
             f"layout; the {cfg.mel_layout!r} serving layout would silently "
             f"score padding as audio — drop lengths or use 'bft'"
         )
+    if train:
+        return _forward_train(cfg, model, wav, generator, mixup_lamb, wav_augment,
+                              spec_augment, lengths, frontend_fn)
     if cfg.mel_layout in ("btf", "tfb") and frontend_fn is None:
-        raise ValueError(
-            f"mel_layout={cfg.mel_layout!r} needs a frontend_fn built with "
-            f"make_frontend_fn(..., layout={cfg.mel_layout!r})"
-        )
+        raise _needs_frontend(cfg)
     if cfg.mel_layout == "tfb":
         mel = frontend_fn(wav)  # (T, F, B)
         if mel.shape[0] > cfg.target_length:

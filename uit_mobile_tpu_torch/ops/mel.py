@@ -344,19 +344,31 @@ def log_mel(wav: torch.Tensor, config: FrontendConfig | None = None,
 
 def make_frontend_fn(config: FrontendConfig | None = None, use_kernel: bool = True,
                      precision: str = "exact", layout: str = "bft"):
-    """Frontend callable for models.uit.forward(frontend_fn=...).
+    """Frontend callable for models.*.forward(frontend_fn=...).
 
     use_kernel=True: the fused log_mel (kernel on CUDA tensors, its plain
     version on CPU tensors); False: the rfft reference frontend.
-    layout 'btf'/'tfb' must pair with a model config of the same mel_layout."""
-    if layout not in ("bft", "btf", "tfb"):
+    layout 'btf'/'tfb' must pair with a model config of the same mel_layout.
+    layout 'tfb_to_bft' gives the canonical (B, F, T) mel for a 'bft'
+    consumer such as the PSL teacher, through the transposed kernel plus
+    one transpose where that is bitwise the row kernel (precision 'fast'
+    and B >= TFB_MIN_BATCH, as in the JAX package), else through the row
+    kernel; without the kernel it is the plain 'bft' chain."""
+    if layout not in ("bft", "btf", "tfb", "tfb_to_bft"):
         raise ValueError(f"unknown frontend layout {layout!r}; expected one of "
-                         f"'bft', 'btf', 'tfb'")
+                         f"'bft', 'btf', 'tfb', 'tfb_to_bft'")
     config = config or FrontendConfig()
+    if use_kernel and layout == "tfb_to_bft":
+        def fe(wav):
+            if precision != "fast" or wav.shape[0] < TFB_MIN_BATCH:
+                return log_mel(wav, config, precision=precision, layout="bft")
+            return log_mel(wav, config, precision=precision, layout="tfb").permute(2, 1, 0)
+
+        return fe
     if use_kernel:
         return lambda wav: log_mel(wav, config, precision=precision, layout=layout)
     if layout == "btf":
         return lambda wav: log_mel_spectrogram(wav, config).transpose(-1, -2)
     if layout == "tfb":
         return lambda wav: log_mel_spectrogram(wav, config).permute(2, 1, 0)
-    return lambda wav: log_mel_spectrogram(wav, config)
+    return lambda wav: log_mel_spectrogram(wav, config)  # 'bft'/'tfb_to_bft'

@@ -1,0 +1,427 @@
+"""Train and eval steps, counterpart of ``uit_mobile_tpu/train/steps.py``.
+
+One train step does what the reference's per-iteration closure does: the
+frozen teacher scores the AudioSet rows (PSL), their targets are
+overwritten, mixup lambdas are drawn, the student's train forward runs
+(augments, the fused mel kernel forward only, init_bn in train mode),
+then the loss, the backward pass, the pre-clip gradient norm, clipping and
+the optimizer update. The step mutates the model and the optimizer in place
+and returns its metrics as device tensors (no host sync).
+
+The optimizers are ``torch.optim``'s Adam, AdamW and SGD, the same update
+rules as optax's (AdamW's ``p * (1 - lr * wd)`` before the Adam step is
+optax's ``wd * p`` added to the Adam direction). The learning rate of
+update n is ``schedule(n)``, n counted before the update, as optax counts
+it: the wrapper sets it on the param groups before each step.
+``wrap_optimizer`` adds a parameter EMA and gradient accumulation (the mean
+of K micro-gradients per applied update); the schedule and the EMA advance
+per applied update.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from .. import models
+from ..augment.mixup import mixup_targets, sample_mixup_lambdas
+
+# ------------------------------------------------------------------- losses
+
+
+def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+    if reduction == "mean":
+        return x.mean()
+    if reduction == "sum":
+        return x.sum()
+    raise ValueError(f"unknown reduction {reduction!r} (use 'mean' or 'sum')")
+
+
+def _weight(weight):
+    return None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
+
+
+def _make_bce(weight=None, reduction: str = "mean", eps: float = 1e-7):
+    """torch.nn.BCELoss on probabilities; ``weight`` multiplies each
+    element's loss before the reduction."""
+    w = _weight(weight)
+
+    def loss(probs, targets):
+        p = probs.clamp(eps, 1.0 - eps)
+        elt = -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+        if w is not None:
+            elt = elt * w.to(elt.device)
+        return _reduce(elt, reduction)
+
+    return loss
+
+
+def _make_ce(weight=None, reduction: str = "mean", label_smoothing: float = 0.0,
+             eps: float = 1e-7):
+    """Cross-entropy over probability outputs: log-probs renormalized with
+    logsumexp, targets normalized to sum 1. The weighted mean divides by
+    the unsmoothed weighted target mass, as in the JAX package."""
+    w = _weight(weight)
+
+    def loss(probs, targets):
+        C = probs.shape[-1]
+        logp = torch.log(probs.clamp(eps, 1.0))
+        logp = logp - torch.logsumexp(logp, dim=-1, keepdim=True)
+        t = targets / targets.sum(-1, keepdim=True).clamp(min=eps)
+        ww = w.to(probs.device) if w is not None else torch.ones(C, device=probs.device)
+        denom = (t * ww).sum().clamp(min=eps)
+        if label_smoothing > 0.0:
+            t = (1.0 - label_smoothing) * t + label_smoothing / C
+        per_sample = -(t * ww * logp).sum(-1)
+        if reduction == "mean":
+            return per_sample.sum() / denom
+        return _reduce(per_sample, reduction)
+
+    return loss
+
+
+def _make_focal(gamma: float = 2.0, alpha: Optional[float] = None,
+                reduction: str = "mean", eps: float = 1e-7):
+    """Binary focal loss on probabilities: BCE modulated by (1-p_t)^gamma,
+    with an optional class-balance factor alpha."""
+
+    def loss(probs, targets):
+        p = probs.clamp(eps, 1.0 - eps)
+        pos = -targets * ((1.0 - p) ** gamma) * torch.log(p)
+        neg = -(1.0 - targets) * (p ** gamma) * torch.log1p(-p)
+        if alpha is not None:
+            pos = alpha * pos
+            neg = (1.0 - alpha) * neg
+        return _reduce(pos + neg, reduction)
+
+    return loss
+
+
+LOSS_FACTORIES = {
+    "BCELoss": _make_bce,
+    "CrossEntropyLoss": _make_ce,
+    "FocalLoss": _make_focal,
+}
+
+
+def make_loss(name: str, **loss_args):
+    """Config ``loss:`` + ``loss_args:`` -> fn(probs, targets) -> scalar."""
+    if name not in LOSS_FACTORIES:
+        raise KeyError(f"unknown loss {name!r}; known: {sorted(LOSS_FACTORIES)} "
+                       "(losses operate on the models' probability outputs)")
+    return LOSS_FACTORIES[name](**loss_args)
+
+
+# --------------------------------------------------------------- optimizers
+
+
+def params_ema(decay: float) -> float:
+    """Validate a parameter-EMA decay: ``ema <- decay * ema + (1 - decay) *
+    params`` after every applied update, starting from a real copy of the
+    initial params."""
+    if not 0.0 < decay < 1.0:
+        raise ValueError(f"ema decay must be in (0, 1), got {decay}")
+    return float(decay)
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerSpec:
+    """What ``build_optimizer`` returns and ``wrap_optimizer`` extends;
+    ``init(model)`` binds it to a model's parameters."""
+    name: str
+    schedule: Callable[[int], float]
+    hparams: dict
+    ema_decay: Optional[float] = None
+    grad_accum: int = 1
+
+    def init(self, model: torch.nn.Module) -> "Optimizer":
+        return Optimizer(self, model)
+
+
+class Optimizer:
+    """The optimizer state of one model: ``torch.optim``'s Adam, AdamW or
+    SGD (``foreach``) as the base rule, the update count that drives the
+    schedule, the parameter EMA and the gradient accumulator, all allocated
+    at construction (``state_leaves`` is fixed for a spec and a model).
+    ``update(grads)`` takes one micro-step's gradients; it applies an
+    update to the parameters on every ``grad_accum``-th call, at the lr
+    ``schedule(count)`` read before the count advances, as optax reads it."""
+
+    def __init__(self, spec: OptimizerSpec, model: torch.nn.Module):
+        self.spec = spec
+        self.names = [n for n, _ in model.named_parameters()]
+        self.params = [p for _, p in model.named_parameters()]
+        zeros = lambda: [torch.zeros_like(p, memory_format=torch.preserve_format)  # noqa: E731
+                         for p in self.params]
+        self.count = 0  # applied updates (the schedule's and the EMA's clock)
+        self.micro = 0  # micro-steps accumulated toward the next update
+        h = spec.hparams
+        if spec.name == "SGD":
+            self.base = torch.optim.SGD(self.params, lr=0.0, momentum=h["momentum"],
+                                        nesterov=h["nesterov"], foreach=True)
+            # a zero trace makes the first update's trace the gradient, as
+            # in optax (and keeps the state's leaves fixed from the start)
+            self._slots = ("momentum_buffer",) if h["momentum"] else ()
+        else:
+            rule = torch.optim.AdamW if spec.name == "AdamW" else torch.optim.Adam
+            self.base = rule(self.params, lr=0.0, betas=(h["b1"], h["b2"]), eps=h["eps"],
+                             weight_decay=h["weight_decay"], foreach=True)
+            self._slots = ("exp_avg", "exp_avg_sq")
+        for p in self.params:
+            self.base.state[p].update({k: torch.zeros_like(p, memory_format=torch.preserve_format)
+                                       for k in self._slots})
+            if spec.name != "SGD":
+                self.base.state[p]["step"] = torch.tensor(0.0)
+        self.ema = ([p.detach().clone() for p in self.params]
+                    if spec.ema_decay is not None else None)
+        self.acc = zeros() if spec.grad_accum > 1 else None
+
+    @property
+    def moments(self) -> list[list[torch.Tensor]]:
+        """The base rule's state per slot: Adam's first and second moments,
+        or SGD's momentum trace."""
+        return [[self.base.state[p][k] for p in self.params] for k in self._slots]
+
+    @torch.no_grad()
+    def update(self, grads: list[torch.Tensor]) -> bool:
+        """One micro-step -> whether an update was applied."""
+        if self.acc is not None:
+            # running mean of the micro-gradients
+            torch._foreach_mul_(self.acc, self.micro / (self.micro + 1))
+            torch._foreach_add_(self.acc, grads, alpha=1.0 / (self.micro + 1))
+            self.micro += 1
+            if self.micro < self.spec.grad_accum:
+                return False
+            grads, self.micro = self.acc, 0
+        for group in self.base.param_groups:
+            group["lr"] = self.spec.schedule(self.count)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.base.step()
+        for p in self.params:
+            p.grad = None
+        if self.acc is not None:
+            torch._foreach_zero_(self.acc)
+        self.count += 1
+        if self.ema is not None:
+            d = self.spec.ema_decay
+            torch._foreach_mul_(self.ema, d)
+            torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
+        return True
+
+    def state_leaves(self) -> list[torch.Tensor]:
+        leaves = [torch.tensor([self.count, self.micro], dtype=torch.int64)]
+        for group in self.moments + [self.ema or [], self.acc or []]:
+            leaves.extend(group)
+        return leaves
+
+    @torch.no_grad()
+    def load_state_leaves(self, leaves: list[torch.Tensor]) -> None:
+        mine = self.state_leaves()
+        if len(leaves) != len(mine):
+            raise ValueError(f"optimizer structure changed: snapshot has {len(leaves)} "
+                             f"leaves, this optimizer has {len(mine)}")
+        self.count, self.micro = (int(v) for v in leaves[0])
+        for dst, src in zip(mine[1:], leaves[1:]):
+            if tuple(dst.shape) != tuple(src.shape):
+                raise ValueError(f"optimizer leaf shape {tuple(src.shape)} != {tuple(dst.shape)}")
+            dst.copy_(src)
+        for p in self.params:  # Adam's bias corrections count applied updates
+            if "step" in self.base.state[p]:
+                self.base.state[p]["step"].fill_(self.count)
+
+
+def find_ema_params(optimizer: Optimizer) -> Optional[dict]:
+    """name -> EMA tensor of an optimizer built with ``ema_decay``, or None."""
+    return None if optimizer.ema is None else dict(zip(optimizer.names, optimizer.ema))
+
+
+_OPTIMIZERS = ("Adam", "AdamW", "SGD")
+# optax.adafactor is not torch.optim.Adafactor: these wait for their own port
+_NOT_YET_PORTED = ("Adam8bit", "Adafactor")
+
+
+def build_optimizer(name: str, schedule_or_lr, **kwargs) -> OptimizerSpec:
+    """Config ``optimizer:`` + ``optimizer_args:`` -> an OptimizerSpec.
+    ``schedule_or_lr`` is a float or a function of the update count."""
+    if name in _NOT_YET_PORTED:
+        raise NotImplementedError(f"optimizer {name!r} is not yet ported; use Adam, AdamW or SGD")
+    if name not in _OPTIMIZERS:
+        raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS + _NOT_YET_PORTED)}")
+    kwargs = dict(kwargs)
+    kwargs.pop("lr", None)
+    if name == "SGD":
+        hparams = {"momentum": float(kwargs.pop("momentum", 0.0)),
+                   "nesterov": bool(kwargs.pop("nesterov", False))}
+    else:
+        hparams = {"b1": float(kwargs.pop("b1", 0.9)), "b2": float(kwargs.pop("b2", 0.999)),
+                   "eps": float(kwargs.pop("eps", 1e-8)),
+                   # optax.adam takes no weight_decay; the JAX registry's
+                   # AdamW defaults it to 1e-2
+                   "weight_decay": float(kwargs.pop("weight_decay", 1e-2))
+                   if name == "AdamW" else 0.0}
+    if kwargs:  # an unknown option fails loudly instead of training without it
+        raise TypeError(f"{name} got unexpected options {sorted(kwargs)}")
+    schedule = schedule_or_lr if callable(schedule_or_lr) else (lambda count, lr=float(schedule_or_lr): lr)
+    return OptimizerSpec(name, schedule, hparams)
+
+
+def wrap_optimizer(spec: OptimizerSpec, *, ema_decay: Optional[float] = None,
+                   grad_accum: int = 1) -> OptimizerSpec:
+    """Add the parameter EMA (``ema_decay``) and gradient accumulation
+    (``grad_accum`` micro-batches per applied update) to a spec."""
+    if grad_accum < 1:
+        raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
+    return dataclasses.replace(
+        spec, ema_decay=None if ema_decay is None else params_ema(ema_decay),
+        grad_accum=int(grad_accum))
+
+
+# -------------------------------------------------------------------- steps
+
+
+def _norm(w: torch.Tensor) -> torch.Tensor:
+    """int16 PCM -> float32 / 32768 (exact: a power of two)."""
+    return w.float() * (1.0 / 32768.0) if w.dtype == torch.int16 else w
+
+
+def _step_wav(w: torch.Tensor, wav_augment) -> torch.Tensor:
+    """The step's wav dtype policy: with no wav augment int16 PCM rides raw
+    into the forwards (every frontend folds the 1/32768 scale bitwise);
+    a wav augment needs the normalized float32 convention."""
+    if wav_augment is None and w.dtype == torch.int16:
+        return w
+    return _norm(w)
+
+
+def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient element (optax.global_norm)."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = "BCELoss",
+                    loss_args: Optional[dict] = None, mixup_alpha: Optional[float] = None,
+                    max_grad_norm: Optional[float] = None, psl_cfg=None, psl_model=None,
+                    distill_mode: str = "psl", distill_alpha: float = 1.0,
+                    distill_classes: int = 527, psl_split: Optional[int] = None,
+                    wav_augment: Optional[Callable] = None,
+                    spec_augment: Optional[Callable] = None,
+                    frontend_fn: Optional[Callable] = None,
+                    psl_frontend_fn: Optional[Callable] = None) -> Callable:
+    """-> ``train_step(batch, generator) -> {'total_loss', 'grad_norm'}``.
+
+    Without PSL the batch is ``{'wav': (B, T), 'target': (B, C)}``. With
+    PSL it is either the same flat form with the AudioSet rows first
+    (``psl_split`` of them) or ``{'audioset': {...}, 'kws': {...}}``: the
+    teacher ``psl_model`` (eval mode, no grad) scores the AudioSet rows'
+    unaugmented wave and its probabilities replace their first
+    ``distill_classes`` target columns. ``distill_mode='soft'``: the teacher
+    scores every row and the target becomes ``alpha * teacher + (1 - alpha)
+    * target``. The pre-clip gradient norm is reported; with
+    ``max_grad_norm`` the gradients are scaled by ``min(1, max / (norm +
+    1e-6))``."""
+    if distill_mode not in ("psl", "soft"):
+        raise ValueError(f"distill_mode must be 'psl' or 'soft', got {distill_mode!r}")
+    if (psl_cfg is None) != (psl_model is None):
+        raise ValueError("PSL needs both psl_cfg and psl_model")
+    if (psl_cfg is not None and psl_frontend_fn is None
+            and getattr(model_cfg, "mel_layout", "bft") == "tfb"):
+        raise ValueError(
+            "mel_layout='tfb' training with a PSL teacher needs psl_frontend_fn= "
+            "(the teacher reads 'bft' mel; build one with "
+            "make_frontend_fn(psl_cfg.frontend, layout='tfb_to_bft'))")
+    loss_fn = make_loss(loss_name, **(loss_args or {}))
+    params = optimizer.params
+
+    def teacher(wav):
+        with torch.no_grad():
+            return models.forward(psl_cfg, psl_model, wav,
+                                  frontend_fn=psl_frontend_fn or frontend_fn)
+
+    def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+        if psl_cfg is not None:
+            if "wav" in batch:
+                wav, target, n_as = _step_wav(batch["wav"], wav_augment), batch["target"], psl_split
+                if distill_mode == "psl" and not (n_as is not None and 0 < n_as <= wav.shape[0]):
+                    raise ValueError(
+                        "flat PSL batches need make_train_step(..., psl_split=<audioset rows "
+                        f"at the front of the batch>) in (0, {wav.shape[0]}], got {n_as}")
+            else:
+                as_w, kws_w = batch["audioset"]["wav"], batch["kws"]["wav"]
+                # int16 passes through only when both halves are int16
+                if wav_augment is None and as_w.dtype == kws_w.dtype == torch.int16:
+                    wav = torch.cat([as_w, kws_w])
+                else:
+                    wav = torch.cat([_norm(as_w), _norm(kws_w)])
+                target = torch.cat([batch["audioset"]["target"], batch["kws"]["target"]])
+                n_as = as_w.shape[0]
+            # the teacher scores the unaugmented wave on purpose: the wav
+            # augments belong to the student's train forward
+            if distill_mode == "psl":
+                y_teacher = teacher(wav[:n_as])
+                target = target.clone()
+                target[:n_as, :distill_classes] = y_teacher[:, :distill_classes]
+            else:
+                target = distill_alpha * teacher(wav) + (1.0 - distill_alpha) * target
+        else:
+            wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
+
+        mixup_lamb = None
+        if mixup_alpha is not None and mixup_alpha > 0.0:
+            if generator is None:
+                raise ValueError("mixup needs a torch.Generator")
+            mixup_lamb = sample_mixup_lambdas(generator, wav.shape[0], mixup_alpha)
+            target = mixup_targets(target, mixup_lamb)
+
+        probs, new_state = models.forward(
+            model_cfg, model, wav, train=True, generator=generator, mixup_lamb=mixup_lamb,
+            wav_augment=wav_augment, spec_augment=spec_augment, frontend_fn=frontend_fn)
+        loss = loss_fn(probs, target)
+        # parameters the config leaves unused (the cls token under mean
+        # pooling) get zero gradients, as JAX gives them
+        grads = torch.autograd.grad(loss, params, materialize_grads=True)
+        gnorm = global_norm(grads)
+        if max_grad_norm is not None:
+            scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
+            grads = torch._foreach_mul(grads, scale)
+        models.load_state(model, new_state)
+        optimizer.update(list(grads))
+        return {"total_loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_multi_step(train_step: Callable) -> Callable:
+    """K train steps in a row: ``multi(batches, generator)`` with a leading
+    (K, ...) axis on every batch leaf -> metrics stacked over the K steps.
+    Exactly K sequential ``train_step`` calls."""
+
+    def take(tree, i):
+        return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    def multi(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
+        K = next(iter(_leaves(batches))).shape[0]
+        ms = [train_step(take(batches, i), generator) for i in range(K)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return multi
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def make_eval_step(model_cfg, frontend_fn: Optional[Callable] = None) -> Callable:
+    """-> ``eval_step(model, wav) -> probs``: the eval forward (crop
+    chunking engaged) under ``torch.inference_mode``."""
+
+    def eval_step(model, wav):
+        return models.apply(model_cfg, model, wav, frontend_fn=frontend_fn)
+
+    return eval_step
