@@ -33,16 +33,28 @@ Phases, each printing one JSON line:
                enqueue ms, mel and teacher shares, clips/s) and the
                trainer's two frontends on that batch held against their
                plain versions; one step of each configuration on the card
-               held against the CPU plain path (train_parity).
+               held against the CPU plain path (train_parity);
+  8. eval    - the evaluation path: the Evaluator on the recipe's averaged.npz
+               (`cli.train run`'s GSC + AudioSet evaluation, then calibrate,
+               strong with a sweep and PSDS, fast, int16 and a two-member
+               ensemble) on in-memory clips of data/synthworld.py (64 one-second
+               GSC clips, 64 ten-second AudioSet clips, 16 ten-second strong
+               clips), each mode held against the same Evaluator on the CPU plain
+               path; the mel frontend at the eval shapes against its plain
+               version; cli.evaluate test_sample and cli.infer --timestamps/
+               --events on the card against the CPU; per batch forward ms vs
+               enqueue ms, mel share, launches, device idle share; clips/s of a
+               warm AudioSet and GSC epoch.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Launch counters are set to 0 just before the serve, exact and train paths
-and read just after; comparison launches do not count. Any failure exits non-zero
+Launch counters are set to 0 just before the serve, exact, train and each
+eval path and read just after; comparison launches do not count. Any failure exits non-zero
 without that last line, as does a machine with no CUDA GPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import shutil
@@ -258,6 +270,10 @@ def phase_kernels(dev) -> dict:
              ("row_exact", 4, SR, "timed"), ("tfb_exact", 256, SR, "timed")]
     cases += [(v, B, SR + 1, "gate") for v in variants for B in (1, 129, 257)]
     cases += [(v, 257, 3 * SR, "noise_by_shape") for v in ("row_fast", "row_exact")]
+    # the Evaluator's shapes (float32 in, B=32): AudioSet 10 s and GSC 1 s
+    # exact, GSC fast; timed, gated by tolerance_db
+    cases += [("row_exact", 32, 10 * SR, "eval"), ("row_exact", 32, SR, "eval"),
+              ("row_fast", 32, SR, "eval")]
     records, worst = {}, {}
     fb257 = torch.from_numpy(mel_filterbank(fe)).to(dev)
     window = torch.from_numpy(padded_window(512, 512)).to(dev)
@@ -343,10 +359,13 @@ def phase_kernels(dev) -> dict:
             rec["fast_vs_exact_mean_db"] = d.mean().item()
             check(rec["fast_vs_exact_max_db"] < 1.0 and rec["fast_vs_exact_mean_db"] < 0.02,
                   f"{variant}: fast vs exact {d.max().item()} / {d.mean().item()} dB")
-        if role == "timed":
-            # the serve path feeds int16 (fast), the exact path float32
-            wp, mats = (wp_i, mats_i) if precision == "fast" else (wp_f, mats_f)
-            rec["input"] = "int16" if precision == "fast" else "float32"
+        if role in ("timed", "eval"):
+            # the serve path feeds int16 (fast), the exact path and the
+            # Evaluator float32
+            int16_in = precision == "fast" and role == "timed"
+            wp, mats = (wp_i, mats_i) if int16_in else (wp_f, mats_f)
+            rec["input"] = "int16" if int16_in else "float32"
+            rec["role"] = role
             rec["kernel_ms"] = time_ms(lambda: run(wp, mats))
             rec["kernel_back_to_back_ms"] = back_to_back_ms(lambda: run(wp, mats))
             rec["plain_ms"] = time_ms(
@@ -549,7 +568,8 @@ def synth_split(rng, n: int, kws: bool):
 
 class ClipDataset:
     """In-memory clips -> (wave, multihot target, name), the datasets'
-    contract, with no h5py or pandas."""
+    contract, with no h5py or pandas; a clip's label is one class or a
+    list of classes."""
 
     def __init__(self, clips, labels, num_classes: int, dtype: str):
         self.clips, self.labels = clips, labels
@@ -563,7 +583,7 @@ class ClipDataset:
         from uit_mobile_tpu_torch.frontend import normalize_pcm16
 
         wav = self.clips[i] if self.dtype == "int16" else normalize_pcm16(self.clips[i])
-        return wav, multihot([self.labels[i]], self.num_classes), f"clip_{i}"
+        return wav, multihot(np.atleast_1d(self.labels[i]), self.num_classes), f"clip_{i}"
 
 
 def synth_trainer_class():
@@ -896,14 +916,15 @@ def profile_steps(step, step_ms: float, n: int = 5) -> dict:
             "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
 
 
-def phase_train(info) -> dict:
+def phase_train(info) -> tuple:
     """The training path on the card: the recipe and the frontier through
     the Trainer (counts set to 0 before each and read after), the recipe's
     deliverable served, one step held against the CPU plain path, and both
-    configurations' steps timed. -> {config: launch counts}."""
+    configurations' steps timed. -> ({config: launch counts}, the recipe's
+    averaged.npz kept under OUT_DIR)."""
     from uit_mobile_tpu_torch import models
 
-    counts = {}
+    counts, kept = {}, OUT_DIR / "recipe_averaged.npz"
     for name, config, variant in (("recipe", RECIPE, "row_exact"),
                                   ("frontier", FRONTIER, "tfb_fast")):
         trainer, out, counts[name], rec = drive_trainer(config, info)
@@ -912,11 +933,327 @@ def phase_train(info) -> dict:
         if name == "recipe":
             cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
             rec.update(check_deliverable(out, cfg))
+            shutil.copyfile(out, kept)
         emit({"phase": "train", "config": name, **rec})
         time_train_step(trainer, name, info)
         shutil.rmtree(out.parent, ignore_errors=True)
         train_parity(name, info)
-    return counts
+    return counts, kept
+
+
+# ---------------------------------------------------------------- evaluation
+
+# what `cli.train run` evaluates, as the names of the in-memory sets
+EVAL_RUN_CONFIG = {"kws_test_data": "gsc", "audioset_eval_data": "audioset"}
+
+
+def eval_sets(rng) -> dict:
+    """In-memory clips of data/synthworld.py -> {set: (int16 clips, labels)}:
+    'gsc' 64 one-second clips (32 keywords, 32 filler), label lists;
+    'audioset' 64 ten-second clips of ten 1 s clips each (a keyword in ~30 %
+    of the seconds), the labels they carry; 'strong' 16 such clips, their
+    keyword seconds as (class, onset, offset) events."""
+    from uit_mobile_tpu_torch.data.synthworld import synth_clip, synth_labels
+
+    kw_clips, kw_labels = synth_split(rng, 32, True)
+    fi_clips, fi_labels = synth_split(rng, 32, False)
+    sets = {"gsc": (kw_clips + fi_clips, [[lab] for lab in kw_labels + fi_labels])}
+
+    def long_clips(n):
+        labels = [[synth_labels(rng, 1, rng.uniform() < 0.3)[0] for _ in range(10)]
+                  for _ in range(n)]
+        return [np.concatenate([synth_clip(rng, lab) for lab in ls]) for ls in labels], labels
+
+    clips, labels = long_clips(64)
+    sets["audioset"] = (clips, [sorted(set(ls)) for ls in labels])
+    clips, labels = long_clips(16)
+    sets["strong"] = (clips, [[(lab, float(i), float(i + 1)) for i, lab in enumerate(ls) if lab]
+                              for ls in labels])
+    return sets
+
+
+def synth_evaluator_class(sets: dict):
+    """The port's Evaluator reading the in-memory sets through its one data
+    method, and keeping every epoch's (preds, targets, names)."""
+    from uit_mobile_tpu_torch.evaluate import Evaluator
+    from uit_mobile_tpu_torch.frontend import normalize_pcm16
+
+    class SynthEvaluator(Evaluator):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, num_workers=1, report_dir=str(OUT_DIR), **kw)
+            self.epochs = []
+
+        def _clips(self, eval_data, num_classes, basename=True, strong=False):
+            clips, labels = sets[eval_data]
+            if not strong:
+                return ClipDataset(clips, labels, num_classes, self.dtype)
+            conv = (lambda w: w) if self.dtype == "int16" else normalize_pcm16
+            return [(f"{eval_data}_{i}", conv(c), events)
+                    for i, (c, events) in enumerate(zip(clips, labels))]
+
+        def _run_epoch(self, dataset, pad_to_target=False):
+            out = super()._run_epoch(dataset, pad_to_target)
+            self.epochs.append(out)
+            return out
+
+    return SynthEvaluator
+
+
+def gsc_near(p: np.ndarray, drift: float, threshold: float = 0.2, n_as: int = 527) -> np.ndarray:
+    """(N,) bool: clips whose GSC decision a drift of ``drift`` could flip: a
+    keyword score within it of the threshold, or the best AudioSet score and
+    the keyword scores with their two largest within 2x of each other."""
+    kw = p[:, n_as:]
+    cand = np.sort(np.concatenate([p[:, :n_as].max(-1, keepdims=True), kw], -1), -1)
+    return (np.abs(kw - threshold) <= drift).any(-1) | (cand[:, -1] - cand[:, -2] <= 2 * drift)
+
+
+def cli_stdout(main, argv) -> list:
+    """A CLI's main run in this process -> its stdout lines."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(main(argv) == 0, f"{argv} exited non-zero")
+    return buf.getvalue().splitlines()
+
+
+def ranked_rows(lines: list, name: str) -> list:
+    """Printed rankings -> [(segment prefix, {label: probability})]: all of
+    test_sample's '[idx] : pct' lines as one row, one row per --timestamps
+    line of 'label p.ppp' pairs (headers as rows without labels)."""
+    if name == "test_sample":
+        return [("", {ln.split(":")[0].strip(): float(ln.split(":")[1]) / 100.0
+                      for ln in lines})]
+    rows = []
+    for ln in lines:
+        m = re.match(r"(\[[^]]*\]) (.*)$", ln)
+        rows.append((ln, {}) if not m else (m.group(1), {
+            lab.strip(): float(p) for lab, p in re.findall(r"(.+?) (\d\.\d{3})(?:  |$)",
+                                                           m.group(2))}))
+    return rows
+
+
+def same_topk(card: list, cpu: list, name: str, tol: float) -> bool:
+    """The same top-k on the card and the CPU: equal segments and labels,
+    each probability within ``tol`` (the printed precision plus the drift);
+    a label ranked on one side only passes if its probability exceeds the
+    other side's last one by at most ``tol`` (a near-tie at the boundary)."""
+    rows_a, rows_b = ranked_rows(card, name), ranked_rows(cpu, name)
+    if len(rows_a) != len(rows_b):
+        return False
+    for (pa, ra), (pb, rb) in zip(rows_a, rows_b):
+        if pa != pb or len(ra) != len(rb):
+            return False
+        for mine, other in ((ra, rb), (rb, ra)):
+            last = min(other.values(), default=0.0)
+            for lab, p in mine.items():
+                if abs(p - other[lab]) > tol if lab in other else p - last > tol:
+                    return False
+    return True
+
+
+def eval_clis(npz: Path) -> dict:
+    """cli.evaluate test_sample and cli.infer --timestamps/--events (kernel
+    path) on the card and on the CPU: the same top-5 (up to near-ties the
+    drift can reorder) and the same segments and events."""
+    from uit_mobile_tpu_torch.cli.evaluate import main as eval_main
+    from uit_mobile_tpu_torch.cli.infer import main as infer_main
+    from uit_mobile_tpu_torch.data import read_wav, write_wav
+
+    three = OUT_DIR / "three_seconds.wav"
+    waves = [read_wav(p)[0][0] for p in sorted((REPO / "samples").glob("*.wav"))]
+    write_wav(three, np.resize(np.concatenate(waves), 3 * SR), sample_rate=SR)
+    out = {}
+    # printed precision (test_sample 0.01 %, timestamps 0.001) plus drift
+    for name, main, argv, tol in (
+            ("test_sample", eval_main,
+             ["test_sample", str(npz), str(REPO / "samples" / "85b877b5_nohash_0.wav")], 2e-4),
+            ("timestamps", infer_main, [str(three), "-m", str(npz), "--kernel", "-k", "5",
+                                        "--timestamps"], 2e-3),
+            ("events", infer_main, [str(three), "-m", str(npz), "--kernel", "--events",
+                                    "--event-threshold", "0.2"], None)):
+        card, cpu = (cli_stdout(main, argv + ["--device", dev]) for dev in ("cuda", "cpu"))
+        same = (len(card) == len(cpu) > 0
+                and (card == cpu if tol is None else same_topk(card, cpu, name, tol)))
+        check(same, f"cli {name}: card {card[:8]} != CPU {cpu[:8]}")
+        out[name] = {"lines": len(card), "identical": card == cpu, "first": card[:2]}
+    return out
+
+
+def phase_eval(npz: Path, other: Path, info) -> dict:
+    """The evaluation path on the card (counts set to 0 just before each mode
+    and read just after) against the same Evaluator on the CPU plain path,
+    with the same weights and clips. -> {mode: launch counts}."""
+    import logging
+
+    from uit_mobile_tpu_torch.cli.train import evaluate_run
+    from uit_mobile_tpu_torch.evaluate.harness import DEFAULT_SWEEP
+    from uit_mobile_tpu_torch.evaluate.metrics import gsc_accuracy
+    from uit_mobile_tpu_torch.ops import launches, make_framewise_fn
+    from uit_mobile_tpu_torch.ops import mel as mel_ops
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.utils import get_logger, resolve_device
+
+    log = get_logger()
+    level = log.level
+    log.setLevel(logging.WARNING)  # the reports go to files, not stdout
+    t_phase = time.perf_counter()
+    try:
+        sets = eval_sets(np.random.default_rng(11))
+        Ev = synth_evaluator_class(sets)
+        card, cpu = Ev(str(npz), device="cuda"), Ev(str(npz), device="cpu", use_kernel=True)
+        counts, rec = {}, {"phase": "eval", "model": "uit_xs", "checkpoint": npz.name,
+                           "batch_size": card.batch_size, "card": info["nvidia_smi"]}
+
+        def on_card(mode, fn):
+            torch.cuda.synchronize()
+            reset_launches()
+            out = fn()
+            torch.cuda.synchronize()
+            counts[mode] = dict(launches)
+            return out
+
+        # `cli.train run`'s evaluation: GSC, then AudioSet
+        run_card = on_card("run", lambda: evaluate_run(card, EVAL_RUN_CONFIG))
+        run_cpu = evaluate_run(cpu, EVAL_RUN_CONFIG)
+        for (pg, tg, ng), (pc, tc, nc) in zip(card.epochs, cpu.epochs):
+            check(ng == nc and np.array_equal(tg, tc), "card and CPU epochs hold other clips")
+        (g_card, a_card), (g_cpu, a_cpu) = [e[0] for e in card.epochs], [e[0] for e in cpu.epochs]
+        drift_g, drift_a = (float(np.abs(a - b).max()) for a, b in ((g_card, g_cpu),
+                                                                    (a_card, a_cpu)))
+        check(g_card.shape == (64, 537) and a_card.shape == (64, 537)
+              and bool(np.isfinite(g_card).all() and np.isfinite(a_card).all()),
+              f"eval shapes {g_card.shape} {a_card.shape}")
+        targets_g = card.epochs[0][1]
+        right = [np.array([gsc_accuracy(p[i:i + 1], targets_g[i:i + 1]) for i in range(len(p))])
+                 for p in (g_card, g_cpu)]
+        near = gsc_near(g_cpu, drift_g)
+        flipped = right[0] != right[1]
+        map_card, map_cpu = run_card["audioset"]["mAP"], run_cpu["audioset"]["mAP"]
+        rec["audioset"] = {"clips": 64, "seconds": 10, "max_abs_prob_drift": drift_a,
+                           "mAP_card": map_card, "mAP_cpu": map_cpu,
+                           "mAPKWS_card": run_card["audioset"].get("mAPKWS")}
+        rec["gsc"] = {"clips": 64, "seconds": 1, "max_abs_prob_drift": drift_g,
+                      "accuracy_card": run_card["gsc"]["Accuracy@0.2"],
+                      "accuracy_cpu": run_cpu["gsc"]["Accuracy@0.2"],
+                      "clips_within_drift_of_a_decision": int(near.sum()),
+                      "decisions_flipped": int(flipped.sum())}
+        check(drift_a <= 1e-3 and drift_g <= 1e-3 and abs(map_card - map_cpu) <= 1e-3,
+              f"audioset/gsc on the card vs CPU plain path: {rec['audioset']} {rec['gsc']}")
+        check(not (flipped & ~near).any(), f"GSC decisions flipped beyond the drift: {rec['gsc']}")
+
+        cal_card = on_card("calibrate", lambda: card.calibrate(eval_data="gsc"))
+        cal_cpu = cpu.calibrate(eval_data="gsc")
+        rel = abs(cal_card["temperature"] - cal_cpu["temperature"]) / cal_cpu["temperature"]
+        rec["calibrate"] = {"temperature_card": cal_card["temperature"],
+                            "temperature_cpu": cal_cpu["temperature"], "rel_diff": rel,
+                            "ECE_before": cal_card["ECE_before"],
+                            "ECE_after": cal_card["ECE_after"]}
+        check(rel <= 1e-3, f"calibrate on the card vs CPU: {rec['calibrate']}")
+
+        st_kw = dict(psds=True, median_kernel=3)
+        st_card = on_card("strong", lambda: card.strong(eval_data="strong", **st_kw))
+        st_cpu = cpu.strong(eval_data="strong", **st_kw)
+        # the strong forward at the Evaluator's batch: 16 clips padded to 32
+        batch = np.zeros((card.batch_size, 10 * SR), np.float32)
+        batch[:16] = np.stack(sets["strong"][0]) / 32768.0
+        fw = [make_framewise_fn(*ev._resolved, use_kernel=True, top_db_mode="per_sample")(batch)
+              for ev in (card, cpu)]
+        (p_g, t_g), (p_c, t_c) = [(p.cpu().numpy()[:16], t) for p, t in fw]
+        drift_s = float(np.abs(p_g - p_c).max())
+        near_s = int(sum((np.abs(p_c - th) <= drift_s).sum() for th in (0.5,) + DEFAULT_SWEEP))
+        scalar = [k for k, v in st_cpu.items() if not k.startswith("_")]
+        differ = [k for k in scalar if st_card[k] != st_cpu[k]]
+        curve_same = st_card["_event_operating_curve"] == st_cpu["_event_operating_curve"]
+        rec["strong"] = {"clips": 16, "seconds": 10, "segments": int(p_g.shape[1]),
+                         "max_abs_framewise_drift": drift_s, "times_bitwise": bool(
+                             np.array_equal(t_g, t_c)),
+                         "probs_within_drift_of_a_threshold": near_s,
+                         "scores_differing": differ, "curve_equal": curve_same,
+                         **{k: st_card[k] for k in ("Segment_Micro_F1", "Event_Micro_F1",
+                                                    "PSDS")}}
+        check(drift_s <= 1e-3 and rec["strong"]["times_bitwise"]
+              and (near_s > 0 or (not differ and curve_same)),
+              f"strong on the card vs CPU plain path: {rec['strong']}")
+
+        fast = Ev(str(npz), device="cuda", fast=True)
+        on_card("fast", lambda: evaluate_run(fast, EVAL_RUN_CONFIG))
+        drift_f = max(float(np.abs(e[0] - ref).max()) for e, ref in zip(fast.epochs,
+                                                                         (g_card, a_card)))
+        pcm = Ev(str(npz), device="cuda", dtype="int16")
+        on_card("int16", lambda: evaluate_run(pcm, EVAL_RUN_CONFIG))
+        bitwise = all(np.array_equal(e[0], ref) for e, ref in zip(pcm.epochs, (g_card, a_card)))
+        single = Ev(str(other), device="cuda")
+        single.gsc(eval_data="gsc")
+        ens = Ev(f"{npz},{other}", device="cuda")
+        on_card("ensemble", lambda: ens.gsc(eval_data="gsc"))
+        drift_e = float(np.abs(ens.epochs[0][0] - (g_card + single.epochs[0][0]) / 2).max())
+        rec.update(fast_vs_exact_max_abs=drift_f, int16_bitwise=bitwise,
+                   ensemble_vs_member_mean_max_abs=drift_e)
+        check(drift_f <= 1e-3 and bitwise and drift_e <= 1e-6,
+              f"fast {drift_f} (1e-3), int16 bitwise {bitwise}, ensemble {drift_e} (1e-6)")
+
+        for mode, variant in (("run", "row_exact"), ("calibrate", "row_exact"),
+                              ("strong", "row_exact"), ("int16", "row_exact"),
+                              ("ensemble", "row_exact"), ("fast", "row_fast")):
+            check(counts[mode][variant] > 0, f"eval {mode} never launched {variant}: "
+                                             f"{counts[mode]}")
+        rec["launches"] = counts
+
+        # the mel frontend at the eval shapes against its plain version
+        dev = resolve_device("cuda")
+        fe_cfg = card._resolved[0].frontend
+        as_b = torch.from_numpy(np.stack(sets["audioset"][0][:32]) / np.float32(32768)).to(dev)
+        gsc_b = torch.from_numpy(np.stack(sets["gsc"][0][:32]) / np.float32(32768)).to(dev)
+        st_b = torch.from_numpy(batch).to(dev)
+        per_sample = dataclasses.replace(fe_cfg, top_db_mode="per_sample")
+        rec["frontend"] = {
+            "audioset_row_exact": frontend_gate(make_frontend_fn(fe_cfg), as_b, "exact", "bft"),
+            "gsc_row_exact": frontend_gate(make_frontend_fn(fe_cfg), gsc_b, "exact", "bft"),
+            "gsc_row_fast": frontend_gate(make_frontend_fn(fe_cfg, precision="fast"), gsc_b,
+                                          "fast", "bft"),
+            "strong_row_exact_per_sample": frontend_gate(make_frontend_fn(per_sample), st_b,
+                                                         "exact", "bft")}
+        rec["cli"] = eval_clis(npz)
+
+        # timing: one batch on the card, and warm epochs
+        timing = {}
+        for name, x in (("audioset", as_b), ("gsc", gsc_b)):
+            fwd = card._fwd_fn
+            forward_ms = time_ms(lambda: fwd(x))
+            enqueue = []
+            for _ in range(10):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fwd(x)
+                enqueue.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.synchronize()
+            mel_ms = time_ms(lambda: mel_ops.log_mel(x, fe_cfg, precision="exact", layout="bft"))
+            before = dict(launches)
+            fwd(x)
+            torch.cuda.synchronize()
+            per_batch = {k: launches[k] - before[k] for k in launches if launches[k] != before[k]}
+            t0 = time.perf_counter()
+            (card.audioset(audioset_eval_data="audioset") if name == "audioset"
+             else card.gsc(eval_data="gsc"))
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t0
+            timing[name] = {
+                "B": int(x.shape[0]), "seconds": int(x.shape[1]) // SR, "input": "float32",
+                "forward_ms": forward_ms, "enqueue_ms": statistics.median(enqueue),
+                "mel_kernel_ms": mel_ms, "mel_share": mel_ms / forward_ms,
+                "mel_launches_per_batch": per_batch,
+                "forward_clips_per_s": x.shape[0] * 1e3 / forward_ms,
+                "epoch_clips": 64, "epoch_s": epoch_s, "epoch_clips_per_s": 64 / epoch_s,
+                **profile_steps(lambda: fwd(x), forward_ms)}
+        rec["timing"] = timing
+        rec["wall_s"] = time.perf_counter() - t_phase
+        emit(rec)
+        return counts
+    finally:
+        log.setLevel(level)
 
 
 def main() -> int:
@@ -941,7 +1278,8 @@ def main() -> int:
     serve_counts = phase_serve(cfg, cpu_model, info)
     exact_counts = phase_exact(cfg, cpu_model, gpu_model)
     phase_forward(cfg, gpu_model, records, info)
-    train_counts = phase_train(info)
+    train_counts, recipe_npz = phase_train(info)
+    eval_counts = phase_eval(recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
 
     def timing(rec):
         return {"shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",
@@ -960,6 +1298,7 @@ def main() -> int:
             "replaces": REPLACES[variant], "launches": path_counts[variant],
             "path": "serve" if precision == "fast" else "exact",
             "train_launches": {name: c[variant] for name, c in train_counts.items()},
+            "eval_launches": {mode: c[variant] for mode, c in eval_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

@@ -66,8 +66,8 @@ def test_cli_refusals(ckpt, tmp_path, monkeypatch):
     from uit_mobile_tpu_torch.data import write_wav
 
     monkeypatch.chdir(REPO)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main([WAVS[0], "-m", str(ckpt), "--device", "cpu", "--events"])
+    with pytest.raises(ValueError, match=">=2 checkpoints"):
+        main([WAVS[0], "-m", f"{ckpt},", "--device", "cpu", "--events"])
     with pytest.raises(NotImplementedError, match="not yet ported"):
         main([WAVS[0], "-m", "model.pt", "--device", "cpu"])
     p = tmp_path / "sr8k.wav"

@@ -99,6 +99,9 @@ def _port_modules():
 def test_port_imports_without_jax():
     """Every port module imports with jax and uit_mobile_tpu blocked."""
     mods = [m.rstrip(".") for m in _port_modules()]
+    assert {f"uit_mobile_tpu_torch.evaluate.{m}" for m in
+            ("harness", "calibration", "events", "psds", "metrics")} <= set(mods)
+    assert "uit_mobile_tpu_torch.cli.evaluate" in mods
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

@@ -47,5 +47,5 @@ def test_average_precision_edge_cases_and_unported_metrics():
     # one positive ranked second of three: AP = precision at its rank = 1/2
     assert average_precision(np.array([0.9, 0.5, 0.1]), np.array([0, 1, 0])) == 0.5
     assert np.isnan(average_precision(np.array([0.3, 0.2]), np.array([0, 0])))
-    with pytest.raises(KeyError, match="not yet ported"):
-        compute_metrics(["lwlrap"], np.zeros((2, 3)), np.ones((2, 3)))
+    with pytest.raises(KeyError, match="unknown metrics"):
+        compute_metrics(["NoSuchMetric"], np.zeros((2, 3)), np.ones((2, 3)))

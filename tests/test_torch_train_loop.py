@@ -173,7 +173,7 @@ def test_train_cli_yaml(tmp_path, synth_env, capsys):
     if not torch.cuda.is_available():  # the card by default: no GPU raises
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             train_main(["train", str(cfg_path), "--epochs", "1"])
-    for cmd in ("run", "pretrain", "sed"):
+    for cmd in ("pretrain", "sed"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             train_main([cmd, str(cfg_path), "--device", "cpu"])
 

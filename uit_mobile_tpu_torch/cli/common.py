@@ -1,4 +1,5 @@
-"""Shared CLI helpers: label maps and checkpoint resolution (local files only)."""
+"""Shared CLI helpers: label maps and checkpoint resolution (local files only,
+comma-joined ensembles)."""
 
 from __future__ import annotations
 
@@ -52,15 +53,38 @@ def _pick_checkpoint_in_dir(p: Path) -> Path:
     raise FileNotFoundError(f"no checkpoint found under {p}")
 
 
-def resolve_model(spec: str, device="cuda"):
-    """Resolve a model spec -> (cfg, model on ``device``).
+def resolve_model(spec: str, device="cuda", return_extra: bool = False):
+    """Resolve a model spec -> (cfg, model on ``device``) [+ extra dict].
 
     Accepted specs: a local pretrained name (``checkpoints/<name>.npz`` in
-    the repo; nothing is downloaded), a native ``.npz`` path, or an
-    experiment directory. ``.pt`` dumps and comma-joined ensembles are not
-    yet ported and raise."""
+    the repo; nothing is downloaded), a native ``.npz`` path, an experiment
+    directory, or two or more of these joined by commas: an ensemble, whose
+    members must share one config exactly; it resolves to (cfg, [models])
+    and every forward built through ``ops.pipeline`` averages the members'
+    probabilities. ``.pt`` dumps are not yet ported and raise.
+
+    With ``return_extra=True`` a third element is the checkpoint's sidecar
+    metadata (the first member's for an ensemble, plus ``ensemble``: the
+    member count): ``run_config`` holds the training config of a
+    trainer-written checkpoint, whose ``basename`` flag evaluation reads."""
     if "," in spec:
-        raise NotImplementedError("checkpoint ensembles are not yet ported")
+        parts = [s.strip() for s in spec.split(",") if s.strip()]
+        if len(parts) < 2:
+            raise ValueError(f"ensemble spec needs >=2 checkpoints: {spec!r}")
+        resolved = [_resolve_model(s, device) for s in parts]
+        cfg0 = resolved[0][0]
+        for part, (c, _, _) in zip(parts[1:], resolved[1:]):
+            if c != cfg0:
+                raise ValueError(f"ensemble members must share one model config: "
+                                 f"{parts[0]!r} vs {part!r} differ ({cfg0} != {c})")
+        out = (cfg0, [r[1] for r in resolved],
+               {**(resolved[0][2] or {}), "ensemble": len(parts)})
+    else:
+        out = _resolve_model(spec, device)
+    return out if return_extra else out[:2]
+
+
+def _resolve_model(spec: str, device):
     if spec.startswith(("http://", "https://")):
         raise FileNotFoundError(
             f"the port never downloads; place the file under {REPO_ROOT / 'checkpoints'}"
@@ -72,9 +96,8 @@ def resolve_model(spec: str, device="cuda"):
             raise FileNotFoundError(
                 f"no local checkpoint for {spec!r}: place a converted npz at "
                 f"{entry['path']}")
-        cfg, model, _ = load_model(entry["path"], device,
-                                   cfg=entry["factory"](**entry["model_kwargs"]))
-        return cfg, model
+        return load_model(entry["path"], device,
+                          cfg=entry["factory"](**entry["model_kwargs"]))
     if p.is_dir():
         p = _pick_checkpoint_in_dir(p)
     if p.suffix == ".pt":
@@ -82,6 +105,5 @@ def resolve_model(spec: str, device="cuda"):
             f"converting the torch dump {p} is not yet ported (convert with the "
             f"JAX package's ckpt.torch_convert and save an npz)")
     if p.suffix == ".npz":
-        cfg, model, _ = load_model(p, device)
-        return cfg, model
+        return load_model(p, device)
     raise ValueError(f"cannot resolve model spec {spec!r}")

@@ -1,11 +1,14 @@
 """Training CLI, counterpart of ``uit_mobile_tpu/cli/train.py``.
 
     python -m uit_mobile_tpu_torch.cli.train train configs/train_uit_xs.yaml [--key value ...]
+    python -m uit_mobile_tpu_torch.cli.train run   configs/train_uit_xs.yaml   # train + eval
     python -m uit_mobile_tpu_torch.cli.train train cfg.yaml --device cpu
 
 Any ``--key value`` pair overrides the YAML config. Training runs on the
-card unless ``--device cpu`` asks for the CPU. ``run`` (train, then the
-Evaluator), ``pretrain`` (MAE) and ``sed`` are not yet ported and raise.
+card unless ``--device cpu`` asks for the CPU. ``run`` trains, then
+evaluates the deliverable with the Evaluator: GSC on ``kws_test_data`` and
+AudioSet on ``audioset_eval_data``. ``pretrain`` (MAE) and ``sed`` are not
+yet ported and raise.
 """
 
 from __future__ import annotations
@@ -16,7 +19,6 @@ import sys
 from ..utils import parse_config_or_kwargs, parse_override
 
 _LATER = {
-    "run": "the Evaluator (ROADMAP §A10)",
     "pretrain": "MAE pretraining (ROADMAP §A15)",
     "sed": "SED training (ROADMAP §A13)",
 }
@@ -49,8 +51,20 @@ def main(argv=None) -> int:
     config = parse_config_or_kwargs(args.config, **_parse_overrides(rest))
     from ..train.loop import train_from_config
 
-    print(train_from_config(config, device=args.device))
+    output_model = train_from_config(config, device=args.device)
+    if args.command == "run":
+        from ..evaluate import Evaluator
+
+        evaluate_run(Evaluator(str(output_model), device=args.device), config)
+    print(output_model)
     return 0
+
+
+def evaluate_run(evaluator, config: dict) -> dict:
+    """``run``'s evaluation of the trained deliverable: GSC on the config's
+    ``kws_test_data``, then AudioSet on its ``audioset_eval_data``."""
+    return {"gsc": evaluator.gsc(eval_data=config["kws_test_data"]),
+            "audioset": evaluator.audioset(audioset_eval_data=config["audioset_eval_data"])}
 
 
 if __name__ == "__main__":

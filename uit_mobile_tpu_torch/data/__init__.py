@@ -2,7 +2,7 @@ from .audio_io import read_wav, read_wav_bytes, write_wav
 from .hdf5 import (BalancedSampler, DataLoader, MultiDataLoader, RandomSampler,
                    SequentialSampler, WeakChunkedHDF5Dataset, WeakHDF5Dataset,
                    WeakRandomCropHDF5Dataset, collate, device_prefetch, pad_batch, to_device)
-from .manifest import multihot, read_tsv_data
+from .manifest import events_by_file, multihot, read_tsv_data
 
 __all__ = [
     "BalancedSampler",
@@ -15,6 +15,7 @@ __all__ = [
     "WeakRandomCropHDF5Dataset",
     "collate",
     "device_prefetch",
+    "events_by_file",
     "multihot",
     "pad_batch",
     "read_tsv_data",

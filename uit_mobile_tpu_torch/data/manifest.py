@@ -41,6 +41,19 @@ def read_tsv_data(datafile, nrows: int | None = None, basename: bool = True):
     return df
 
 
+def events_by_file(df):
+    """Group a strong-label manifest (one labeled event interval per row:
+    filename/labels/hdf5path/from/to) by file ->
+    [(filename, hdf5path, [(class_idx, onset_s, offset_s), ...]), ...] in
+    first-appearance order; negative label indices are dropped."""
+    groups = []
+    for (h5, fname), g in df.groupby(["hdf5path", "filename"], sort=False):
+        events = [(int(lab), float(row["from"]), float(row["to"]))
+                  for _, row in g.iterrows() for lab in row["labels"] if int(lab) >= 0]
+        groups.append((fname, h5, events))
+    return groups
+
+
 def multihot(label_idxs, num_classes: int) -> np.ndarray:
     target = np.zeros(num_classes, dtype=np.float32)
     idxs = np.asarray(label_idxs, dtype=np.int64)

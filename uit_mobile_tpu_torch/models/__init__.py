@@ -35,10 +35,11 @@ MODEL_REGISTRY = {
     "MobileNetV2": mobilenetv2.mobilenetv2,
 }
 NOT_YET_PORTED = ("uit_xs_moe",)
-# config type -> (module class, init, forward)
+# config type -> (module class, init, forward, framewise forward)
 _FAMILIES = {
-    UITConfig: (UiT, uit.init, uit.forward),
-    MobileNetV2Config: (MobileNetV2, mobilenetv2.init, mobilenetv2.forward),
+    UITConfig: (UiT, uit.init, uit.forward, uit.forward_framewise),
+    MobileNetV2Config: (MobileNetV2, mobilenetv2.init, mobilenetv2.forward,
+                        mobilenetv2.forward_framewise),
 }
 
 
@@ -89,6 +90,13 @@ def apply(cfg, model, wav: torch.Tensor, train: bool = False, **kwargs):
         return forward(cfg, model, wav, **kwargs)
 
 
+def apply_framewise(cfg, model, wav: torch.Tensor, **kwargs):
+    """Temporal tagging under ``torch.inference_mode`` -> (probs (B, S, C),
+    times (S, 2) float64 numpy seconds)."""
+    with torch.inference_mode():
+        return _family(cfg)[3](cfg, model, wav, **kwargs)
+
+
 @torch.no_grad()
 def load_state(model, new_state: dict) -> None:
     """Write a train forward's new_state into the model's buffers."""
@@ -105,6 +113,7 @@ __all__ = [
     "UITConfig",
     "UiT",
     "apply",
+    "apply_framewise",
     "build",
     "forward",
     "get_model_config",

@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -223,6 +224,25 @@ def total_time_stride(cfg: MobileNetV2Config) -> int:
     for spec in layer_specs(cfg):
         stride *= spec[4] if spec[0] == "convbnrelu" else spec[3]
     return stride
+
+
+def forward_framewise(cfg: MobileNetV2Config, model: MobileNetV2, wav: torch.Tensor, *,
+                      frontend_fn=None):
+    """Eval-only temporal tagging: (B, T_wav) -> (probs (B, S, C), times
+    (S, 2) float64 seconds). The network is fully convolutional in time, so
+    the per-timestep classifier probabilities are the segments: one per
+    feature step, total_time_stride mel frames long (0.32 s at defaults)."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
+    if frontend_fn is None:
+        frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
+    feats, _ = features_forward(cfg, model, frontend_fn(wav))
+    probs = torch.sigmoid(linear(model.classifier, feats))  # (B, S, C)
+    sec = total_time_stride(cfg) * cfg.frontend.hop_length / cfg.frontend.sample_rate
+    times = np.array([[j * sec, (j + 1) * sec] for j in range(probs.shape[1])],
+                     dtype=np.float64)
+    return probs, times
 
 
 def mobilenetv2(**kwargs) -> MobileNetV2Config:

@@ -28,6 +28,7 @@ import dataclasses
 from pathlib import Path
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -602,6 +603,64 @@ def forward(cfg: UITConfig, model: UiT, wav: torch.Tensor, *, train: bool = Fals
             cfg, torch.as_tensor(lengths, device=x.device), tg)
     feats = forward_features(cfg, model, x, token_mask=token_mask)
     return forward_head(cfg, model, feats, token_mask=token_mask)
+
+
+def forward_framewise(cfg: UITConfig, model: UiT, wav: torch.Tensor, *,
+                      frontend_fn: Optional[Callable] = None):
+    """Eval-only temporal tagging: (B, T_wav) wav -> (probs (B, S, outputdim),
+    times (S, 2) float64 numpy seconds [start, end)).
+
+    Pooling 'dm' gives one segment per time patch (patch_stride frames, 0.16 s
+    at defaults), the dm head's per-timestep sigmoid before its time mean;
+    'mean'/'token' one segment per crop window (target_length frames), the
+    windows of the long-clip forward, the tail window overlapping the one
+    before as the crop rule sets it. The mean over S is the forward's
+    eval_avg='mean' output."""
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
+    if cfg.mel_layout != "bft":
+        raise ValueError("framewise tagging uses the bft layout")
+    if frontend_fn is None:
+        frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
+    x = apply_init_bn(cfg, model, frontend_fn(wav))
+    B, F, T = x.shape
+    L = min(cfg.target_length, T)
+    starts = _window_starts(T, L)
+    crops = torch.stack([x[..., s:s + L] for s in starts], dim=1).reshape(B * len(starts), F, L)
+    feats = forward_features(cfg, model, crops)  # (B * n, N, D)
+    times = framewise_times(cfg, T)
+    if cfg.pooling == "dm":
+        return forward_head_framewise(cfg, model, feats).reshape(B, -1, cfg.outputdim), times
+    return forward_head(cfg, model, feats).reshape(B, len(starts), cfg.outputdim), times
+
+
+def framewise_times(cfg: UITConfig, n_frames: int) -> np.ndarray:
+    """(S, 2) float64 segment extents in seconds for an ``n_frames``-frame
+    mel, the host-side companion of forward_framewise. It never passes
+    through a tensor: float32 boundaries would move min_overlap
+    rasterization at exact-coverage edges."""
+    sec_per_frame = cfg.frontend.hop_length / cfg.frontend.sample_rate
+    L = min(cfg.target_length, n_frames)
+    starts = _window_starts(n_frames, L)
+    if cfg.pooling == "dm":
+        tg = L // cfg.patch_stride  # time patches per crop window
+        return np.array([[(s + j * cfg.patch_stride) * sec_per_frame,
+                          (s + (j + 1) * cfg.patch_stride) * sec_per_frame]
+                         for s in starts for j in range(tg)], dtype=np.float64)
+    return np.array([[s * sec_per_frame, (s + L) * sec_per_frame] for s in starts],
+                    dtype=np.float64)
+
+
+def forward_head_framewise(cfg: UITConfig, model: UiT, x: torch.Tensor) -> torch.Tensor:
+    """(B, N, D) tokens -> (B, tg, outputdim) per-time-patch probabilities,
+    the 'dm' head before its time mean (whose mean is forward_head's)."""
+    if cfg.pooling != "dm":
+        raise ValueError("framewise head needs pooling='dm'")
+    fg = cfg.grid_size[0]
+    B, N, D = x.shape
+    h = x.reshape(B, fg, N // fg, D).mean(dim=1)  # (B, tg, D)
+    return torch.sigmoid(linear(model.head, layer_norm(model.head_norm, h, eps=1e-5)))
 
 
 # ------------------------------------------------------------------ factories

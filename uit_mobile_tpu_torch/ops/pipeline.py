@@ -4,8 +4,10 @@
 ``make_forward_fn`` is the one place that encodes the layout/precision
 policy: where the kernel is available (the model lives on a CUDA device),
 the fused mel kernel feeds the UiT encoder in the transposed 'tfb' layout
-with init_bn folded into the patch embed; elsewhere the rfft reference
-frontend feeds the canonical 'bft' path.
+with init_bn folded into the patch embed, and other families (MobileNetV2)
+the canonical mel through 'tfb_to_bft'; elsewhere the rfft reference
+frontend feeds the canonical 'bft' path. A list of models is an ensemble:
+the frontend runs once and the member probabilities are averaged.
 """
 
 from __future__ import annotations
@@ -15,46 +17,105 @@ from typing import Optional
 
 import torch
 
-from ..models import uit
+from .. import models
 from ..models.uit import UITConfig
 from ..utils.device import resolve_device
 from .mel import make_frontend_fn
 
 
-def make_forward_fn(cfg: UITConfig, model, use_kernel: Optional[bool] = None,
+def _members(cfg, model) -> list:
+    """``model`` as a list of members (a single model is a list of one);
+    an ensemble must be a non-empty list of models of one architecture."""
+    if not isinstance(model, (list, tuple)):
+        return [model]
+    if not model:
+        raise ValueError("an ensemble forward needs a non-empty list of models")
+    shapes = [[(n, tuple(p.shape)) for n, p in m.named_parameters()] for m in model]
+    if any(type(m) is not type(model[0]) or s != shapes[0] for m, s in zip(model, shapes)):
+        raise ValueError(f"ensemble members must share one model config ({cfg}): their "
+                         f"parameter names or shapes differ")
+    return list(model)
+
+
+def _policy(cfg, model, use_kernel, precision, top_db_mode, btf, framewise=False):
+    """-> (members, device, run config, frontend fn, use_kernel)."""
+    members = _members(cfg, model)
+    device = resolve_device(next(members[0].parameters()).device)
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    uit_family = isinstance(cfg, UITConfig)
+    if not use_kernel or btf is False or framewise:
+        layout = "bft"
+    else:
+        # bft consumers (MobileNetV2) take the transposed kernel plus one
+        # transpose back where that is bitwise the row kernel
+        layout = "tfb" if uit_family else "tfb_to_bft"
+    fe_cfg = cfg.frontend
+    if top_db_mode is not None:
+        fe_cfg = dataclasses.replace(fe_cfg, top_db_mode=top_db_mode)
+    # the model config's mel_layout is always pinned to the frontend's
+    # actual layout (non-UiT configs have no layout branch)
+    run_cfg = (dataclasses.replace(cfg, mel_layout=layout, frontend=fe_cfg) if uit_family
+               else dataclasses.replace(cfg, frontend=fe_cfg))
+    frontend = make_frontend_fn(fe_cfg, use_kernel=use_kernel, precision=precision,
+                                layout=layout)
+    return members, device, run_cfg, frontend, use_kernel
+
+
+def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
                     precision: str = "exact", top_db_mode: Optional[str] = None,
                     btf: Optional[bool] = None):
     """Eval forward fn(wav) -> probs on the model's device.
 
+    model: one model, or a list of models of one config (an ensemble: the
+    frontend runs once and fn returns the mean of the member probabilities).
     use_kernel: None = the fused kernel whenever the model is on CUDA.
     With use_kernel=True on a CPU model the kernel's plain version runs.
     precision: 'exact' (parity grade) or 'fast' (3-pass bf16 DFT; serving).
     top_db_mode: override the frontend's dB-clamp reference ('per_sample'
     for serving isolation); None keeps the config's mode.
-    btf: None = the 'tfb' layout whenever the kernel runs; False pins the
-    plain 'bft' chain (the A/B escape hatch). The model config's mel_layout
-    is always pinned to the frontend's actual layout.
-    ``wav`` is a (B, T) float32 or int16 tensor or array."""
-    if isinstance(model, (list, tuple)):
-        raise NotImplementedError("ensembles in make_forward_fn are not yet ported")
-    if not isinstance(cfg, UITConfig):
-        raise NotImplementedError(f"config type {type(cfg).__name__} is not yet ported")
-    device = resolve_device(next(model.parameters()).device)
-    if use_kernel is None:
-        use_kernel = device.type == "cuda"
-    layout = "tfb" if use_kernel and btf is not False else "bft"
-    fe_cfg = cfg.frontend
-    if top_db_mode is not None:
-        fe_cfg = dataclasses.replace(fe_cfg, top_db_mode=top_db_mode)
-    run_cfg = dataclasses.replace(cfg, mel_layout=layout, frontend=fe_cfg)
-    frontend = make_frontend_fn(fe_cfg, use_kernel=use_kernel, precision=precision,
-                                layout=layout)
+    btf: None = the transposed-kernel routes whenever the kernel runs ('tfb'
+    for UiT, 'tfb_to_bft' for other families); False pins the plain 'bft'
+    chain. ``wav`` is a (B, T) float32 or int16 tensor or array.
+    fn.uses_kernel and fn.top_db_mode say which frontend runs."""
+    members, device, run_cfg, frontend, use_kernel = _policy(
+        cfg, model, use_kernel, precision, top_db_mode, btf)
 
     @torch.inference_mode()
     def fn(wav):
         wav = torch.as_tensor(wav).to(device)
-        return uit.forward(run_cfg, model, wav, frontend_fn=frontend)
+        if len(members) == 1:
+            return models.forward(run_cfg, members[0], wav, frontend_fn=frontend)
+        mel = frontend(wav)
+        probs = [models.forward(run_cfg, m, wav, frontend_fn=lambda _: mel) for m in members]
+        return torch.stack(probs).mean(dim=0)
 
+    fn.uses_kernel = use_kernel
+    fn.top_db_mode = run_cfg.frontend.top_db_mode
+    return fn
+
+
+def make_framewise_fn(cfg, model, use_kernel: Optional[bool] = None,
+                      precision: str = "exact", top_db_mode: Optional[str] = None):
+    """Temporal-tagging forward fn(wav) -> (probs (B, S, C) on the model's
+    device, times (S, 2) float64 numpy seconds), on the bft layout; a list
+    of models averages the member probabilities over one frontend run (the
+    times depend on the config alone)."""
+    members, device, run_cfg, frontend, use_kernel = _policy(
+        cfg, model, use_kernel, precision, top_db_mode, None, framewise=True)
+
+    @torch.inference_mode()
+    def fn(wav):
+        wav = torch.as_tensor(wav).to(device)
+        if len(members) == 1:
+            return models.apply_framewise(run_cfg, members[0], wav, frontend_fn=frontend)
+        mel = frontend(wav)
+        outs = [models.apply_framewise(run_cfg, m, wav, frontend_fn=lambda _: mel)
+                for m in members]
+        return torch.stack([p for p, _ in outs]).mean(dim=0), outs[0][1]
+
+    fn.uses_kernel = use_kernel
+    fn.top_db_mode = run_cfg.frontend.top_db_mode
     return fn
 
 
