@@ -44,12 +44,28 @@ Phases, each printing one JSON line:
                version; cli.evaluate test_sample and cli.infer --timestamps/
                --events on the card against the CPU; per batch forward ms vs
                enqueue ms, mel share, launches, device idle share; clips/s of a
-               warm AudioSet and GSC epoch.
+               warm AudioSet and GSC epoch;
+  9. stream  - MultiStreamTagger (uit_xs) on the card: S=1024 streams, int16
+               ring (tfb_fast) and S=16, float32 ring (row_fast), 12 feed_all
+               hops each after feed() seeds the rings; windows/s, real-time
+               streams sustained, feed_all p50/p99, launches a hop, the card's
+               idle share over 5 hops (utils/profiling.py); held against the
+               CPU plain path (1e-3), the host path (bitwise) and the other
+               ring dtype (bitwise);
+ 10. http    - make_http_server on 127.0.0.1:0 over a card TaggingService,
+               StreamSessions (8 slots) and the /events scorer: 64 concurrent
+               POST /tag (WAV, pcm16, f32; 1 s and 3 s), /events on a 10 s clip,
+               one /stream session, /healthz, /metrics, /reload, a calibrated
+               service; held against the CPU plain path (1e-3, top-k up to
+               ties, events on the classes clear of the threshold);
+ 11. bench   - cli.bench.main in this process: --serve, --stream, --frontend-only
+               at small counts, each record checked for the JAX CLI's fields.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Launch counters are set to 0 just before the serve, exact, train and each
-eval path and read just after; comparison launches do not count. Any failure exits non-zero
-without that last line, as does a machine with no CUDA GPU.
+Launch counters are set to 0 just before the serve, exact, train, each
+eval, each stream and the http path and read just after; comparison launches do
+not count. Any failure exits non-zero without that last line, as does a machine
+with no CUDA GPU.
 """
 
 from __future__ import annotations
@@ -61,6 +77,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1256,6 +1273,393 @@ def phase_eval(npz: Path, other: Path, info) -> dict:
         log.setLevel(level)
 
 
+
+# ---------------------------------------------------------------- streaming, HTTP, bench
+
+STREAM_RUNS = ((1024, "int16", "tfb_fast"), (16, "float32", "row_fast"))
+STREAM_HOPS = 12  # feed_all hops of each run's main path
+CPU_CHECKED_HOPS = (0, STREAM_HOPS - 1)  # the ring's seed hop and its last hop
+
+
+def stream_windows(audio: np.ndarray, hop: int, seed_hops: int, k: int) -> np.ndarray:
+    """The (S, 1 s) windows that feed_all hop k scores."""
+    end = (seed_hops + k + 1) * hop
+    return audio[:, end - SR:end]
+
+
+def phase_stream(cfg, cpu_model, info) -> dict:
+    """MultiStreamTagger on the card at uit_xs width: per run, each stream's
+    ring seeded by feed() with 3 hops (nothing due yet), then STREAM_HOPS
+    feed_all hops (the first re-seeds the device ring, the rest ship only
+    the chunk), counts set to 0 just before the hops and read just after;
+    5 more hops under torch.profiler for the card's idle share. Gates: the
+    CPU plain path at fast precision within 1e-3; the host path (feed() at
+    S=16, _push + _score at S=1024) bitwise; an int16 ring bitwise the
+    float32 ring fed k/32768; the expected kernel launched every hop.
+    -> {S: launch counts}."""
+    from torch.autograd import DeviceType
+
+    from uit_mobile_tpu_torch.frontend import normalize_pcm16
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.serve import MultiStreamTagger, StreamingConfig
+    from uit_mobile_tpu_torch.utils.profiling import device_dispatch_ms, trace
+
+    plain = make_forward_fn(cfg, cpu_model, use_kernel=True, precision="fast",
+                            top_db_mode="per_sample")
+    out = {}
+    for S, dtype, variant in STREAM_RUNS:
+        sc = StreamingConfig(hop_seconds=0.25, dtype=dtype)
+        hop = int(sc.hop_seconds * SR)
+        seed_hops = 3
+        n_total = seed_hops + STREAM_HOPS + 5
+        audio = pcm_batch(np.random.default_rng(S), S, n_total * hop)  # int16 PCM
+        feed_in = audio if dtype == "int16" else normalize_pcm16(audio)
+
+        def tagger(dt=dtype):
+            return MultiStreamTagger(cfg, cpu_model, n_streams=S, device="cuda",
+                                     config=dataclasses.replace(sc, dtype=dt))
+
+        def chunk(data, k):
+            lo = (seed_hops + k) * hop
+            return data[:, lo:lo + hop]
+
+        def seed(t, data):
+            for s in range(S):
+                t.feed(s, data[s, :seed_hops * hop])
+
+        main_t = tagger()
+        seed(main_t, feed_in)
+        torch.cuda.synchronize()
+        reset_launches()
+        probs, hop_ms = [], []
+        for k in range(STREAM_HOPS):
+            t0 = time.perf_counter()
+            evs = main_t.feed_all(chunk(feed_in, k))
+            hop_ms.append(1e3 * (time.perf_counter() - t0))
+            probs.append(np.stack([e.probs for e in evs]))
+        counts = dict(launches)
+        check(counts[variant] == STREAM_HOPS and sum(counts.values()) == STREAM_HOPS,
+              f"stream S={S}: expected {STREAM_HOPS} {variant} launches, got {counts}")
+        check(main_t._host_stale and main_t._dev_buf is not None,
+              f"stream S={S}: the steady state left the device ring")
+        # a hop split: the forward on the ring (CUDA events), its host
+        # enqueue, and the host's events for one hop's probabilities
+        forward_ms = time_ms(lambda: main_t._fwd(main_t._dev_buf))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main_t._fwd(main_t._dev_buf)
+        enqueue_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main_t._emit(list(range(S)), probs[-1])
+        emit_ms = 1e3 * (time.perf_counter() - t0)
+        # the card's idle share over 5 more hops (utils/profiling.py)
+        logdir = OUT_DIR / f"stream_trace_S{S}"
+        shutil.rmtree(logdir, ignore_errors=True)
+        with trace(str(logdir)) as prof:
+            t0 = time.perf_counter()
+            for k in range(STREAM_HOPS, STREAM_HOPS + 5):
+                main_t.feed_all(chunk(feed_in, k))
+            traced_ms = 1e3 * (time.perf_counter() - t0)
+        busy = device_dispatch_ms(str(logdir), min_gap_us=200.0)
+        kernels = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        # gates: the CPU plain path, the host path, int16 == float32
+        drift = max(float(np.abs(probs[k] - plain(
+            stream_windows(audio, hop, seed_hops, k)).numpy()).max()) for k in CPU_CHECKED_HOPS)
+        check(drift <= 1e-3, f"stream S={S}: drift {drift} from the CPU plain path > 1e-3")
+        host_t = tagger()
+        seed(host_t, feed_in)
+        host_probs = []
+        for k in range(STREAM_HOPS):
+            c = chunk(feed_in, k)
+            if S <= 16:  # the real host path: every stream fed alone
+                evs = [e for s in range(S) for e in host_t.feed(s, c[s])]
+            else:  # the host path's ring shift and full upload, all streams at once
+                for s in range(S):
+                    host_t._push(s, c[s])
+                evs = host_t._score(list(range(S)))
+            host_probs.append(np.stack([e.probs for e in sorted(evs, key=lambda e: e.stream)]))
+        host_equal = all(np.array_equal(a, b) for a, b in zip(probs, host_probs))
+        check(host_equal, f"stream S={S}: device-ring scores differ from the host path's "
+                          f"(max {max(np.abs(a - b).max() for a, b in zip(probs, host_probs))})")
+        other = "float32" if dtype == "int16" else "int16"
+        twin = tagger(other)
+        twin_in = normalize_pcm16(audio) if other == "float32" else audio
+        seed(twin, twin_in)
+        twin_probs = [np.stack([e.probs for e in twin.feed_all(chunk(twin_in, k))])
+                      for k in range(STREAM_HOPS)]
+        dtype_equal = all(np.array_equal(a, b) for a, b in zip(probs, twin_probs))
+        check(dtype_equal, f"stream S={S}: the int16 ring differs from the float32 ring")
+        steady = hop_ms[1:]  # the first hop re-seeds the ring with a full upload
+        windows_s = S * len(steady) / (sum(steady) / 1e3)
+        emit({"phase": "stream", "model": "uit_xs", "streams": S, "hop_seconds": 0.25,
+              "dtype": dtype, "mel_variant": variant, "launches": counts,
+              "launches_per_hop": sum(counts.values()) / STREAM_HOPS,
+              "windows_per_s": windows_s, "realtime_streams": windows_s * sc.hop_seconds,
+              "feed_all_p50_ms": float(np.percentile(hop_ms, 50)),
+              "feed_all_p99_ms": float(np.percentile(hop_ms, 99)),
+              "seed_hop_ms": hop_ms[0], "forward_ms": forward_ms,
+              "forward_enqueue_ms": enqueue_ms, "emit_ms": emit_ms,
+              "max_abs_drift_vs_cpu": drift, "cpu_checked_hops": list(CPU_CHECKED_HOPS),
+              "host_path": "feed()" if S <= 16 else "_push + _score",
+              "host_path_bitwise": host_equal, "int16_vs_float32_bitwise": dtype_equal,
+              "profiled_hops": 5, "profiled_ms": traced_ms,
+              "device_busy_ms_per_hop": sum(busy) / 5,
+              "device_idle_share": 1.0 - sum(busy) / traced_ms,
+              "device_kernels_per_hop": kernels / 5, "card": info["nvidia_smi"]})
+        out[S] = counts
+    return out
+
+
+def http_request(url: str, body=None, ctype="application/octet-stream"):
+    """-> (status, body bytes) of a GET (body None) or a POST."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=body, method="GET" if body is None else "POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def same_top(card: list, want: np.ndarray, tol: float) -> bool:
+    """The card's top-k indices against the CPU's probabilities: each
+    position the CPU's index or a tie with it within ``tol``."""
+    ref = np.argsort(want)[::-1][:len(card)]
+    return all(i == j or abs(want[i] - want[j]) <= tol for i, j in zip(card, ref))
+
+
+def phase_http(cfg, cpu_model, info) -> dict:
+    """make_http_server on 127.0.0.1:0 in a thread over a card TaggingService
+    (int16, the default buckets), StreamSessions (8 slots) and the /events
+    scorer: 64 concurrent POST /tag (WAV, pcm16, f32; 1 s and 3 s), one
+    /events on a 10 s clip of the samples and silence, one stream session
+    (open, ragged feeds, close), /healthz, /metrics; counts set to 0 just
+    before the /tag burst and read after the session closed. Then /reload
+    with new weights and a calibrated service. -> launch counts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.cli.common import load_label_map
+    from uit_mobile_tpu_torch.data import read_wav, write_wav
+    from uit_mobile_tpu_torch.evaluate import apply_temperature, extract_events
+    from uit_mobile_tpu_torch.frontend import normalize_pcm16
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.serve import (MultiStreamTagger, ServiceConfig, StreamingConfig,
+                                            StreamSessions, TaggingService, make_framewise_fn,
+                                            make_http_server)
+
+    labels = load_label_map()
+    new_model = models.build(cfg, torch.Generator().manual_seed(4321), device="cpu")
+    svc = TaggingService(cfg, cpu_model, ServiceConfig(dtype="int16"), device="cuda")
+    sessions = StreamSessions(cfg, cpu_model, max_sessions=8, device="cuda")
+    framewise = make_framewise_fn(cfg, cpu_model, max_seconds=10, device="cuda")
+
+    def reload_fn():
+        info_ = {"weights_version": svc.reload(new_model)}
+        info_["_framewise_fn"] = make_framewise_fn(cfg, new_model, max_seconds=10,
+                                                   device="cuda")
+        info_["stream_sessions"] = ("reloaded" if sessions.reload(cfg, new_model)
+                                    else "deferred")
+        return info_
+
+    server = make_http_server(svc, labels=labels, port=0, model_name="uit_xs",
+                              framewise_fn=framewise, stream_sessions=sessions,
+                              reload_fn=reload_fn)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    rng = np.random.default_rng(5)
+    clips = [pcm_batch(rng, 1, (1 if i % 4 else 3) * SR)[0] for i in range(64)]
+    bodies = []
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    for i, pcm in enumerate(clips):
+        fmt = ("wav", "pcm16", "f32")[i % 3]
+        if fmt == "wav":
+            path = OUT_DIR / f"http_{i}.wav"
+            write_wav(path, normalize_pcm16(pcm))
+            bodies.append(("/tag?full=1", path.read_bytes(), "audio/wav"))
+        elif fmt == "pcm16":
+            bodies.append(("/tag?format=pcm16&full=1", pcm.astype("<i2").tobytes(), None))
+        else:
+            bodies.append(("/tag?format=f32&full=1",
+                           normalize_pcm16(pcm).astype("<f4").tobytes(), None))
+    waves = [read_wav(p)[0][0] for p in sorted((REPO / "samples").glob("*.wav"))]
+    ten = np.zeros(10 * SR, np.float32)
+    pos = 0
+    for w in waves:  # the samples with a second of silence after each, to 10 s
+        n = min(len(w), len(ten) - pos)
+        ten[pos:pos + n] = w[:n]
+        pos += n + SR
+        if pos >= len(ten):
+            break
+    ragged = [3000, 9000, 500, 12000, 7000, 1, 8499]
+    session_audio = pcm_batch(np.random.default_rng(6), 1, sum(ragged))[0]
+
+    def tag(item):
+        path, body, ctype = item
+        t0 = time.perf_counter()
+        code, raw = http_request(base + path, body, ctype or "application/octet-stream")
+        return code, json.loads(raw), 1e3 * (time.perf_counter() - t0)
+
+    pool = ThreadPoolExecutor(64)
+    try:
+        # the client's 64 threads started and one request served before
+        # the timed burst (a cold client's first burst times its own start)
+        ready = threading.Barrier(65)
+        for _ in range(64):
+            pool.submit(ready.wait, 60)
+        ready.wait(60)
+        check(tag(bodies[1])[0] == 200, "warm-up /tag failed")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        results = list(pool.map(tag, bodies))
+        burst_s = time.perf_counter() - t0
+        code, raw = http_request(base + "/events?format=f32&threshold=0.5",
+                                 ten.astype("<f4").tobytes())
+        check(code == 200, f"/events returned {code}: {raw[:200]}")
+        events = json.loads(raw)
+        _, raw = http_request(base + "/stream/open?on=0.5&off=0.3", b"")
+        sid = json.loads(raw)["id"]
+        slot = sessions._sessions[sid]["slot"]
+        windows, pos = [], 0
+        for n in ragged:
+            code, raw = http_request(f"{base}/stream/{sid}/feed?format=pcm16&k=5",
+                                     session_audio[pos:pos + n].astype("<i2").tobytes())
+            check(code == 200, f"/stream feed returned {code}")
+            windows += json.loads(raw)["windows"]
+            pos += n
+        code, _ = http_request(f"{base}/stream/{sid}/close", b"")
+        check(code == 200, f"/stream close returned {code}")
+        counts = dict(launches)
+        _, raw = http_request(base + "/healthz")
+        health = json.loads(raw)
+        code, metrics = http_request(base + "/metrics")
+        check(code == 200 and b"uit_requests_total" in metrics, "/metrics")
+        # /reload with new weights: /tag then scores with them
+        code, raw = http_request(base + "/reload", b"")
+        reloaded = json.loads(raw)
+        check(code == 200 and reloaded["weights_version"] == 2
+              and reloaded["stream_sessions"] == "reloaded", f"/reload: {reloaded}")
+        _, raw = http_request(base + "/tag?format=pcm16&full=1", clips[1].astype("<i2").tobytes())
+        after = np.asarray(json.loads(raw)["probs"])
+    finally:
+        pool.shutdown()
+        server.shutdown()
+        server.server_close()
+        svc.close()
+        thread.join(timeout=60)
+
+    # gates against the CPU plain path (fast, per-sample clamp, bucket-padded)
+    plain = make_forward_fn(cfg, cpu_model, use_kernel=True, precision="fast",
+                            top_db_mode="per_sample")
+    check(all(c == 200 for c, _, _ in results), "a /tag request failed")
+    drift, top_ok = 0.0, True
+    for pcm, (_, out, _) in zip(clips, results):
+        want = plain(pcm[None]).numpy()[0]
+        got = np.asarray(out["probs"])
+        drift = max(drift, float(np.abs(got - want).max()))
+        top_ok &= same_top([t["index"] for t in out["top"]], want, 1e-3)
+    check(drift <= 1e-3, f"/tag drift {drift} from the CPU plain path > 1e-3")
+    check(top_ok, "/tag top-k differs from the CPU plain path beyond ties")
+    new_plain = make_forward_fn(cfg, new_model, use_kernel=True, precision="fast",
+                                top_db_mode="per_sample")
+    reload_drift = float(np.abs(after - new_plain(clips[1][None]).numpy()[0]).max())
+    check(reload_drift <= 1e-3, f"/tag after /reload: drift {reload_drift} from the new weights")
+    # /events against the CPU scorer (exact, plain), class by class where no
+    # segment lies within 1e-3 of the threshold
+    cpu_fw = make_framewise_fn(cfg, cpu_model, max_seconds=10, use_kernel=True, device="cpu")
+    cpu_probs, times = cpu_fw(ten)
+    near = np.abs(cpu_probs - 0.5) <= 1e-3
+    cpu_events = [e for e in extract_events(times, cpu_probs, threshold=0.5) if e[1] < 10.0]
+    clear = {c for c in range(cpu_probs.shape[1]) if not near[:, c].any()}
+    card_ev = sorted((e["index"], e["onset"], e["offset"]) for e in events["events"]
+                     if e["index"] in clear)
+    cpu_ev = sorted((int(c), float(a), float(min(b, 10.0))) for c, a, b in cpu_events
+                    if c in clear)
+    check(card_ev == cpu_ev, f"/events differ from the CPU path on clear classes: "
+                             f"{card_ev[:5]} vs {cpu_ev[:5]}")
+    # the session's windows against a CPU tagger fed the same audio in the same slot
+    ref = MultiStreamTagger(cfg, cpu_model, n_streams=8, device="cpu",
+                            config=StreamingConfig(use_kernel=True))
+    ref_windows, pos = [], 0
+    for n in ragged:
+        ref_windows += ref.feed(slot, session_audio[pos:pos + n])
+        pos += n
+    check(len(windows) == len(ref_windows) > 0, "stream session window count")
+    sess_drift = max(max(abs(t["prob"] - float(r.probs[t["index"]])) for t in w["top"])
+                     for w, r in zip(windows, ref_windows))
+    check(sess_drift <= 1e-3, f"/stream drift {sess_drift} from the CPU tagger > 1e-3")
+    check(health["status"] == "ok" and health["platform"] == "gpu"
+          and health["device"] == torch.cuda.get_device_name(0)
+          and health["requests"] >= 1 + 64 + 1 + len(ragged) + 2, f"/healthz: {health}")
+    check(counts["tfb_fast"] > 0 and counts["row_fast"] > 0 and counts["row_exact"] > 0,
+          f"the HTTP path did not launch tfb_fast, row_fast and row_exact: {counts}")
+    # a calibrated service: apply_temperature of the uncalibrated one's output
+    temp = np.linspace(0.6, 2.4, cfg.outputdim)
+    small = ServiceConfig(dtype="int16", batch_size=64, max_seconds=1)
+    one_s = [c for c in clips if len(c) == SR][:16]
+    with TaggingService(cfg, cpu_model, small, device="cuda") as raw_svc, \
+            TaggingService(cfg, cpu_model, small, device="cuda", calibration=temp) as cal_svc:
+        raw_p = np.stack(raw_svc.infer_many(one_s))
+        cal_p = np.stack(cal_svc.infer_many(one_s))
+    cal_diff = float(np.abs(cal_p - apply_temperature(raw_p, temp)).max())
+    check(cal_diff <= 1e-6, f"calibrated service vs apply_temperature: {cal_diff} > 1e-6")
+    lat = [ms for _, _, ms in results]
+    emit({"phase": "http", "model": "uit_xs", "tag_requests": len(results),
+          "tag_formats": ["wav", "pcm16", "f32"], "tag_seconds": [1, 3],
+          "requests_per_s": len(results) / burst_s,
+          "tag_p50_ms": float(np.percentile(lat, 50)), "tag_p99_ms": float(np.percentile(lat, 99)),
+          "server_latency_ms": health["latency_ms"], "launches": counts,
+          "max_abs_drift_vs_cpu": drift, "topk_equal_up_to_ties": top_ok,
+          "events": len(events["events"]), "events_classes_compared": len(clear),
+          "events_classes_near_threshold": cpu_probs.shape[1] - len(clear),
+          "stream_windows": len(windows), "stream_max_abs_drift_vs_cpu": sess_drift,
+          "reload_drift_vs_new_weights": reload_drift,
+          "calibrated_vs_apply_temperature": cal_diff, "card": info["nvidia_smi"]})
+    return counts
+
+
+# the JAX CLI's printed name=value fields per mode (uit_mobile_tpu/cli/bench.py:137-141,
+# :364-365) and the numbers its --stream line states (:179-185), as the port names them
+BENCH_FIELDS = {
+    "serve": ("p50", "p95", "p99", "requests", "concurrency", "req_per_s"),
+    "stream": ("streams", "hop", "windows_per_s", "realtime_streams", "ms_per_hop"),
+    "frontend": ("batch", "clip", "device", "pipelined", "blocking_p50"),
+}
+
+
+def phase_bench(info) -> None:
+    """cli.bench.main in this process, three modes at small counts: each
+    prints one JSON record with the JAX CLI's field names, finite numbers,
+    and the card."""
+    import contextlib
+    import io
+
+    from uit_mobile_tpu_torch.cli.bench import main as bench_main
+
+    for mode, argv in (("serve", ["--serve", "--serve-requests", "256"]),
+                       ("stream", ["--stream", "--streams", "1024"]),
+                       ("frontend", ["--frontend-only"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            check(bench_main(argv) == 0, f"cli.bench {argv} exited non-zero")
+        rec = json.loads(buf.getvalue().splitlines()[-1])
+        missing = [k for k in BENCH_FIELDS[mode] if k not in rec]
+        check(not missing and rec["mode"] == mode, f"cli.bench {mode}: missing {missing}")
+        numbers = [rec[k] for k in BENCH_FIELDS[mode] if k != "device"]
+        check(all(isinstance(x, (int, float)) and np.isfinite(x) for x in numbers),
+              f"cli.bench {mode}: non-finite {numbers}")
+        check(rec["card"] == info["nvidia_smi"] and rec["device"] == "gpu",
+              f"cli.bench {mode}: card {rec['card']}")
+        emit({"phase": "bench", "argv": argv, "wall_s": time.perf_counter() - t0, **rec})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -1280,6 +1684,9 @@ def main() -> int:
     phase_forward(cfg, gpu_model, records, info)
     train_counts, recipe_npz = phase_train(info)
     eval_counts = phase_eval(recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
+    stream_counts = phase_stream(cfg, cpu_model, info)
+    http_counts = phase_http(cfg, cpu_model, info)
+    phase_bench(info)
 
     def timing(rec):
         return {"shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",
@@ -1299,6 +1706,8 @@ def main() -> int:
             "path": "serve" if precision == "fast" else "exact",
             "train_launches": {name: c[variant] for name, c in train_counts.items()},
             "eval_launches": {mode: c[variant] for mode, c in eval_counts.items()},
+            "stream_launches": {f"S={S}": c[variant] for S, c in stream_counts.items()},
+            "http_launches": http_counts[variant],
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

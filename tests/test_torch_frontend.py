@@ -102,6 +102,9 @@ def test_port_imports_without_jax():
     assert {f"uit_mobile_tpu_torch.evaluate.{m}" for m in
             ("harness", "calibration", "events", "psds", "metrics")} <= set(mods)
     assert "uit_mobile_tpu_torch.cli.evaluate" in mods
+    assert {f"uit_mobile_tpu_torch.{m}" for m in
+            ("serve.streaming", "serve.http", "cli.serve", "cli.stream", "cli.bench",
+             "utils.flops", "utils.profiling")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

@@ -134,5 +134,9 @@ def test_device_defaults_to_cuda(model):
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         TaggingService(cfg, m, ServiceConfig(warmup=False))
+    # calibration is served now; data-parallel serving is still to port
+    with TaggingService(cfg, m, ServiceConfig(warmup=False), device="cpu",
+                        calibration=1.5) as svc:
+        assert svc.calibration == 1.5
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        TaggingService(cfg, m, ServiceConfig(warmup=False), device="cpu", calibration=1.5)
+        TaggingService(cfg, m, ServiceConfig(warmup=False, data_parallel=True), device="cpu")

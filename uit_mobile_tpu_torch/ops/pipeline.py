@@ -127,3 +127,17 @@ def make_scanned_forward(fwd_fn):
         return torch.stack([fwd_fn(wav_block[k]) for k in range(len(wav_block))])
 
     return scanned
+
+
+def make_block_builder(k: int):
+    """-> ``mkblock(a, b, offset)``: a (K, B, T) block for
+    ``make_scanned_forward`` built on the device from two uploaded (B, T)
+    batches, batch i the rows of ``a`` (even i) or ``b`` (odd i) rolled by
+    ``offset + i``, so that the K batches differ. Benchmark plumbing: it
+    keeps the upload of a (K, B, T) block out of the set-up."""
+
+    def mkblock(a: torch.Tensor, b: torch.Tensor, offset: int) -> torch.Tensor:
+        return torch.stack([torch.roll(a if i % 2 == 0 else b, offset + i, dims=0)
+                            for i in range(k)])
+
+    return mkblock

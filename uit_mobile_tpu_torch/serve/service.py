@@ -16,12 +16,17 @@
 - On the card the forward is ``make_forward_fn(precision='fast')``: the
   fused mel kernel in the 'tfb' layout (transposed kernel for batches of
   at least 128, row kernel below).
+- Calibration (temperature scaling from ``cli.evaluate calibrate -o``) is
+  applied on the host in the completer, on the small (B, C) block of
+  probabilities; it belongs to the deployment and survives ``reload()``.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import numbers
+import os
 import queue
 import threading
 import time
@@ -31,6 +36,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..evaluate.calibration import apply_temperature, load_calibration
 from ..frontend import normalize_pcm16, quantize_pcm16
 from ..ops.pipeline import make_forward_fn, make_scanned_forward
 from ..utils.device import resolve_device
@@ -48,7 +54,7 @@ class ServiceConfig:
     # 'per_sample' (default): each clip clamps against its own max.
     # 'torch': torchaudio's batch-global clamp, for offline-eval parity.
     top_db_mode: str = "per_sample"
-    data_parallel: bool = False    # not yet ported
+    data_parallel: bool = False    # not yet ported (ROADMAP §A17)
     # 'float32' or 'int16': with 'int16' batches cross to the card as raw
     # PCM (half the bytes); the kernel folds the 1/32768 scale in exactly
     dtype: str = "float32"
@@ -65,22 +71,36 @@ class ServiceConfig:
         return cls(**base)
 
 
+def resolve_calibration(calibration):
+    """Temperature scaling as a deployment gives it -> None, a float or a
+    (C,) float64 vector: a scalar, a (C,) vector, or the path of the JSON
+    that ``cli.evaluate calibrate -o`` writes."""
+    if calibration is None:
+        return None
+    if isinstance(calibration, (str, os.PathLike)):
+        calibration = load_calibration(calibration)
+    if isinstance(calibration, numbers.Real):
+        return float(calibration)
+    return np.asarray(calibration, np.float64)
+
+
 class TaggingService:
     """Batched async tagging: submit((T,) wav) -> Future[(C,) probs].
 
     ``model`` is copied onto ``device`` (default ``"cuda"``; raises without
-    a GPU unless ``device="cpu"`` is asked for)."""
+    a GPU unless ``device="cpu"`` is asked for). ``calibration``: see
+    ``resolve_calibration``; every result is ``apply_temperature``d."""
 
     def __init__(self, model_cfg, model, config: ServiceConfig = ServiceConfig(), *,
                  device="cuda", calibration=None, _start_worker: bool = True):
-        if calibration is not None:
-            raise NotImplementedError("serving calibration is not yet ported")
         if config.data_parallel:
-            raise NotImplementedError("data_parallel serving is not yet ported")
+            raise NotImplementedError(
+                "data_parallel serving is not yet ported (ROADMAP §A17)")
         if config.dtype not in ("float32", "int16"):
             raise ValueError(f"dtype must be 'float32' or 'int16', got {config.dtype!r}")
         self.device = resolve_device(device)
         self.cfg = config
+        self.calibration = resolve_calibration(calibration)
         self._np_dtype = np.int16 if config.dtype == "int16" else np.float32
         self._model_cfg = model_cfg
         self._stream = (torch.cuda.Stream(self.device)
@@ -107,12 +127,16 @@ class TaggingService:
 
     @classmethod
     def from_artifact(cls, *args, **kwargs):
-        raise NotImplementedError("artifact serving is not yet ported")
+        raise NotImplementedError("artifact serving is not yet ported (ROADMAP §A14)")
 
     def _build_forwards(self, model):
         """(per-batch fwd, K-batch fwd | None) under the service's policy,
         over the service's own copy of the model on its device."""
         model = copy.deepcopy(model).to(self.device).eval()
+        if self._stream is not None:
+            # the weights were copied on this thread's stream; the service's
+            # stream reads them
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
         use_kernel = self.cfg.use_kernel
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
@@ -342,6 +366,8 @@ class TaggingService:
                     with torch.cuda.stream(self._stream):
                         probs = out.cpu().numpy()
                 probs = probs.reshape(-1, probs.shape[-1])  # (K, bs, C) -> rows
+                if self.calibration is not None:
+                    probs = apply_temperature(probs, self.calibration)
                 for j, (_, fut) in enumerate(chunk):
                     if not fut.done():
                         fut.set_result(probs[j])
