@@ -60,11 +60,28 @@ Phases, each printing one JSON line:
                ties, events on the classes clear of the threshold);
  11. bench   - cli.bench.main in this process: --serve, --stream, --frontend-only
                at small counts, each record checked for the JAX CLI's fields.
+The rest of training runs after the train phase:
+  bf16      - the frontier with compute_dtype bfloat16 in encoder and teacher
+              through the Trainer; its step and the float32 step from the same
+              weights timed in turns and profiled; drift of a step's loss and
+              of the serving forward against float32 (<= 5e-3, > 0);
+  psl_cache - cli.psl_cache's scoring (MobileNetV2 teacher, B=256, row_exact)
+              of every grid crop of 64 one- and ten-second eventful clips, 8 of
+              them held against the CPU teacher; 3 recipe steps with psl:
+              {mode: offline} on that in-memory cache; one offline step
+              against the online-PSL step (1e-3);
+  sed       - configs/train_sed.yaml's recipe (B=64, exact, row_exact) for 2
+              epochs of 5 steps on in-memory eventful clips with their events,
+              segment-F1 validation, best_sed.npz served framewise; one step
+              against the CPU plain path (1e-4);
+  pretrain  - configs/pretrain_mae.yaml's recipe (target_length 1012, B=64) for
+              5 steps; one MAE forward against the CPU with the same noise
+              (1e-4); the snapshot into a 102-frame Trainer, card == CPU.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Launch counters are set to 0 just before the serve, exact, train, each
-eval, each stream and the http path and read just after; comparison launches do
-not count. Any failure exits non-zero without that last line, as does a machine
+Launch counters are set to 0 just before the serve, exact, train, bf16,
+psl_cache scoring, offline, sed, pretrain, each eval, each stream and the http
+path and read just after; comparison launches do not count. Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
 
@@ -567,7 +584,7 @@ RECIPE = {
                        {"FrequencyMasking": {"freq_mask_param": 8, "iid_masks": True}}],
 }
 # the throughput frontier of configs/train_uit_xs.yaml:57-83 with the encoder
-# in float32 (bfloat16 compute is not yet ported): tfb_fast in the student
+# in float32 (FRONTIER_BF16 adds its bfloat16 lines): tfb_fast in the student
 # (B=1024) and the teacher (B=512, through 'tfb_to_bft')
 FRONTIER = dict(RECIPE, batch_size=1024, data_dtype="int16", frontend_precision="fast",
                 model_args={"target_length": 102, "mel_layout": "tfb"}, wavtransforms={},
@@ -605,8 +622,14 @@ class ClipDataset:
 
 def synth_trainer_class():
     """The port's Trainer with in-memory data from data/synthworld.py, and
-    the train step wrapped to keep its metrics."""
-    from uit_mobile_tpu_torch.data import DataLoader, MultiDataLoader
+    the train step wrapped to keep its metrics. With psl: {mode: offline}
+    the AudioSet half is the port's PSLCachedRandomCropHDF5Dataset over
+    audioset_train_data, a list of manifest rows whose hdf5path is an
+    in-memory {filename: PCM} store."""
+    import random
+
+    from uit_mobile_tpu_torch.data import (DataLoader, MultiDataLoader,
+                                           PSLCachedRandomCropHDF5Dataset)
     from uit_mobile_tpu_torch.train import Trainer
 
     class SynthTrainer(Trainer):
@@ -616,6 +639,12 @@ def synth_trainer_class():
             half, dtype = c["batch_size"] // 2, c.get("data_dtype", "float32")
 
             def ds(n, kws):
+                psl = c.get("psl") or {}
+                if not kws and psl.get("mode") == "offline":
+                    return PSLCachedRandomCropHDF5Dataset(
+                        c["audioset_train_data"], chunk_length=1.0,
+                        num_classes=c["num_classes"], cache_path=psl["cache"],
+                        rng=random.Random(c["seed"]), dtype=dtype)
                 return ClipDataset(*synth_split(rng, n, kws), c["num_classes"], dtype)
 
             train = MultiDataLoader(**{
@@ -641,8 +670,9 @@ def synth_trainer_class():
 
             self.train_step = recorded
             self.start = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
-            self.teacher_start = {k: v.detach().clone()
-                                  for k, v in self.psl_model.state_dict().items()}
+            self.teacher_start = ({} if self.psl_model is None else
+                                  {k: v.detach().clone()
+                                   for k, v in self.psl_model.state_dict().items()})
 
     return SynthTrainer
 
@@ -673,7 +703,7 @@ def drive_trainer(config: dict, info) -> tuple:
     check(all(k in moved for k in params if k not in ("cls_token", "token_pos_embed")),
           f"parameters that did not move: {sorted(set(params) - set(moved))}")
     check("init_bn.mean" in moved and "init_bn.var" in moved, "init_bn buffers did not move")
-    teacher_end = trainer.psl_model.state_dict()
+    teacher_end = {} if trainer.psl_model is None else trainer.psl_model.state_dict()
     check(all(torch.equal(v, teacher_end[k]) for k, v in trainer.teacher_start.items()),
           "the PSL teacher's weights or buffers moved")
     log_text = (out_dir / "train.log").read_text()
@@ -747,12 +777,8 @@ def train_parity(name: str, info) -> dict:
     """One train step of a configuration (PSL teacher, AdamW, constant lr,
     no augments, no dropout, no mixup) from the same weights and batch on
     the card (the mel kernels) and through the plain path on the CPU.
-    Gates: the step's two frontends (frontend_gate); loss 1e-4 relative,
-    pre-clip grad norm 1e-3 relative, every gradient within 1e-4 of the
-    CPU's relative to its tensor's largest, updated params 1e-5 over every
-    element or (PARITY) outside the elements whose gradient is below 1e-7,
-    where Adam's first step is +-lr whatever the sign of a rounding; both
-    readings and the count of those elements are printed."""
+    Gates: the step's two frontends (frontend_gate) and step_agreement,
+    params over every element where PARITY says so."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
     from uit_mobile_tpu_torch.ops import launches
@@ -796,12 +822,32 @@ def train_parity(name: str, info) -> dict:
         loss = m["total_loss"].item()
         rec[f"{dev_name}_step_s"] = time.perf_counter() - t0
         rec[f"{dev_name}_launches"] = {k: launches[k] - before[k] for k in before}
-        # after one update the first moment is (1 - b1) x the step's gradient
-        grads = {n: (mu / 0.1).cpu() for n, mu in zip(opt.names, opt.moments[0])}
         runs[dev_name] = (loss, m["grad_norm"].item(),
-                          {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
+                          {k: v.detach().cpu() for k, v in model.named_parameters()},
+                          adam_step_grads(opt))
     check(rec["cuda_launches"][variant] == 2,
           f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
+    rec.update(step_agreement(runs, all_params), card=info["nvidia_smi"])
+    emit(rec)
+    check(rec["agrees"], f"{name}: train step on the card vs CPU plain path: {rec}")
+    return rec
+
+
+def adam_step_grads(opt) -> dict:
+    """The gradients of an Adam-family optimizer's first update: its first
+    moment is then (1 - b1) x the step's gradient."""
+    return {n: (mu / 0.1).cpu() for n, mu in zip(opt.names, opt.moments[0])}
+
+
+def step_agreement(runs: dict, all_params: bool) -> dict:
+    """One step on the card against the same step on the CPU, runs[device]
+    = (loss, pre-clip grad norm, updated params, gradients) -> readings and
+    'agrees': loss 1e-4 relative, grad norm 1e-3 relative, every gradient
+    within 1e-4 of the CPU's relative to its tensor's largest, updated
+    params 1e-5 over every element (all_params) or outside the elements
+    whose gradient is below 1e-7, where Adam's first step is +-lr whatever
+    the sign of a rounding (both readings and the count of those elements
+    are given)."""
     (l_g, n_g, p_g, g_g), (l_c, n_c, p_c, g_c) = runs["cuda"], runs["cpu"]
     excluded, worst, worst_all = 0, 0.0, 0.0
     for k, v in p_g.items():
@@ -809,7 +855,7 @@ def train_parity(name: str, info) -> dict:
         excluded += int((~keep).sum())
         worst = max(worst, (v - p_c[k])[keep].abs().max().item())
         worst_all = max(worst_all, (v - p_c[k]).abs().max().item())
-    rec.update({
+    rec = {
         "loss_gpu": l_g, "loss_cpu": l_c, "loss_rel_err": abs(l_g - l_c) / abs(l_c),
         "grad_norm_gpu": n_g, "grad_norm_cpu": n_c, "grad_norm_rel_err": abs(n_g - n_c) / abs(n_c),
         "params_max_abs_diff": worst, "params_max_abs_diff_all": worst_all,
@@ -817,12 +863,10 @@ def train_parity(name: str, info) -> dict:
         "params_excluded_small_grad": excluded,
         "params_total": sum(v.numel() for v in p_g.values()),
         "max_grad_rel_diff": max(((g_g[k] - g_c[k]).abs().max() /
-                                  g_c[k].abs().max().clamp(min=1e-30)).item() for k in g_c),
-        "card": info["nvidia_smi"]})
-    emit(rec)
-    check(rec["loss_rel_err"] <= 1e-4 and rec["grad_norm_rel_err"] <= 1e-3
-          and rec["max_grad_rel_diff"] <= 1e-4 and (worst_all if all_params else worst) <= 1e-5,
-          f"{name}: train step on the card vs CPU plain path: {rec}")
+                                  g_c[k].abs().max().clamp(min=1e-30)).item() for k in g_c)}
+    rec["agrees"] = (rec["loss_rel_err"] <= 1e-4 and rec["grad_norm_rel_err"] <= 1e-3
+                     and rec["max_grad_rel_diff"] <= 1e-4
+                     and (worst_all if all_params else worst) <= 1e-5)
     return rec
 
 
@@ -956,6 +1000,494 @@ def phase_train(info) -> tuple:
         shutil.rmtree(out.parent, ignore_errors=True)
         train_parity(name, info)
     return counts, kept
+
+
+# ------------------------------------------------------- the rest of training
+
+# the frontier of configs/train_uit_xs.yaml:57-83 with its bfloat16 lines:
+# compute_dtype bfloat16 in the encoder and in the teacher
+FRONTIER_BF16 = dict(FRONTIER, model_args=dict(FRONTIER["model_args"], compute_dtype="bfloat16"),
+                     psl=dict(RECIPE["psl"], compute_dtype="bfloat16"))
+
+
+def frontier_batch(B: int, int16: bool, seed: int):
+    """A [AudioSet filler | keyword] batch on the card with its targets."""
+    rng = np.random.default_rng(seed)
+    n_as = B // 2
+    clips_as, _ = synth_split(rng, n_as, False)
+    clips_kws, labels = synth_split(rng, B - n_as, True)
+    pcm = np.stack(clips_as + clips_kws)
+    wav = torch.from_numpy(pcm if int16 else pcm.astype(np.float32) / 32768.0).cuda()
+    target = torch.zeros(B, 537, device="cuda")
+    target[:n_as, 0] = 1.0
+    target[torch.arange(n_as, B), torch.tensor(labels)] = 1.0
+    return {"wav": wav, "target": target}
+
+
+def phase_bf16(info) -> dict:
+    """The bfloat16 frontier through the Trainer (counts set to 0 before and
+    read after); its step and the float32 frontier step from the same
+    weights on the same batch, CUDA-event medians taken in turns with their
+    profiles; drift of one step's loss and of the serving forward against
+    float32 (<= 5e-3, > 0); bf16_card_vs_cpu. -> launch counts."""
+    import copy
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ops import make_forward_fn
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    trainer, out, counts, rec = drive_trainer(FRONTIER_BF16, info)
+    check(counts["tfb_fast"] > 0, f"bf16: the frontier never launched tfb_fast: {counts}")
+    check(trainer.cfg.compute_dtype == trainer.psl_cfg.compute_dtype == "bfloat16",
+          "bf16: the encoder or the teacher is not in bfloat16")
+    shutil.rmtree(out.parent, ignore_errors=True)
+    B = FRONTIER_BF16["batch_size"]
+    n_as = B // 2
+    batch = frontier_batch(B, True, 11)
+    steps = {}
+    for name, dtype in (("bf16", "bfloat16"), ("f32", "float32")):
+        cfg = dataclasses.replace(trainer.cfg, compute_dtype=dtype)
+        t_cfg = dataclasses.replace(trainer.psl_cfg, compute_dtype=dtype)
+        model = copy.deepcopy(trainer.model)
+        opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+        steps[name] = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=trainer.psl_model,
+                                      psl_split=n_as, frontend_fn=trainer.frontend,
+                                      psl_frontend_fn=trainer.psl_frontend)
+    # one step of each from the same weights: the loss drift
+    first = {name: step(batch)["total_loss"].item() for name, step in steps.items()}
+    ms = {name: [] for name in steps}
+    for _ in range(2):  # in turns, so that a clock change hits both
+        for name, step in steps.items():
+            ms[name].append(time_ms(lambda: step(batch), warmup=2, iters=10))
+    step_ms = {name: min(v) for name, v in ms.items()}
+    prof = {name: profile_steps(lambda: step(batch), step_ms[name]) for name, step in steps.items()}
+    # serving forward, uit_xs at full depth in both dtypes on the card
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
+    model = models.build(cfg, torch.Generator().manual_seed(1234), device="cuda")
+    pcm = pcm_batch(np.random.default_rng(12), 256, SR)
+    probs = {dtype: make_forward_fn(dataclasses.replace(cfg, compute_dtype=dtype), model,
+                                    precision="fast")(pcm).cpu()
+             for dtype in ("bfloat16", "float32")}
+    serve_drift = (probs["bfloat16"] - probs["float32"]).abs().max().item()
+    loss_drift = abs(first["bf16"] - first["f32"]) / abs(first["f32"])
+    rec.update({"phase": "bf16", "config": "frontier_bf16", "B": B, "teacher_B": n_as,
+                "step_ms_bf16": step_ms["bf16"], "step_ms_f32": step_ms["f32"],
+                "step_ms_rounds": ms, "bf16_step_gain": step_ms["f32"] / step_ms["bf16"] - 1.0,
+                "clips_per_s_bf16": B * 1e3 / step_ms["bf16"],
+                "clips_per_s_f32": B * 1e3 / step_ms["f32"],
+                "device_idle_share_bf16": prof["bf16"]["device_idle_share"],
+                "device_idle_share_f32": prof["f32"]["device_idle_share"],
+                "device_busy_ms_bf16": prof["bf16"]["device_busy_ms"],
+                "device_busy_ms_f32": prof["f32"]["device_busy_ms"],
+                "kernels_per_step_bf16": prof["bf16"]["kernels_per_step"],
+                "kernels_per_step_f32": prof["f32"]["kernels_per_step"],
+                "device_ms_by_kind_bf16": prof["bf16"].get("device_ms_by_kind"),
+                "device_ms_by_kind_f32": prof["f32"].get("device_ms_by_kind"),
+                "first_loss_bf16": first["bf16"], "first_loss_f32": first["f32"],
+                "step_loss_rel_drift": loss_drift, "serve_B": 256,
+                "serve_max_abs_drift": serve_drift, "vs_cpu": bf16_card_vs_cpu(trainer)})
+    emit(rec)
+    check(0 < serve_drift <= 5e-3 and loss_drift <= 5e-3,
+          f"bf16 drift against float32: serve {serve_drift}, step loss {loss_drift}")
+    vs = rec["vs_cpu"]
+    check(vs["student_max_abs"] <= 2e-3 and vs["loss_rel_err"] <= 2e-3
+          and 0 < vs["teacher_bf16_drift"] and vs["teacher_max_abs"] <= vs["teacher_drift_cpu"],
+          f"bf16 on the card vs bf16 on the CPU: {vs}")
+    return counts
+
+
+def bf16_card_vs_cpu(trainer) -> dict:
+    """The bfloat16 frontier's student (uit_xs at full depth) and teacher on
+    the card and on the CPU plain path from the same weights at B=64 (teacher
+    B=32), the teacher's BNs calibrated on the batch so that its bfloat16
+    convs change what it scores: the serving forward's probabilities (2e-3,
+    the bfloat16 bound against JAX), one step's loss (2e-3 relative), the
+    teacher's bfloat16 drift from its float32 on the card (> 0: bfloat16
+    engaged), and the teacher's bfloat16 on the card nearer the CPU's than
+    the CPU's bfloat16 is to its float32 (a bfloat16 rounding that flips on
+    one side moves the calibrated teacher by up to a few 1e-3)."""
+    import copy
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.models.mobilenetv2 import calibrate_bn
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    B, n_as = 64, 32
+    batch = frontier_batch(B, True, 25)
+    cfg, t_cfg = trainer.cfg, trainer.psl_cfg
+    t_f32 = dataclasses.replace(t_cfg, compute_dtype="float32")
+    t_model = copy.deepcopy(trainer.psl_model).cpu()
+    calibrate_bn(t_f32, t_model, batch["wav"][:n_as].cpu().float() / 32768.0)
+    student, teacher = module_to_numpy(trainer.model), module_to_numpy(t_model)
+    probs, t_probs, losses, drift = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        model = module_from_numpy(cfg, *student, device=dev)
+        t_model = module_from_numpy(t_cfg, *teacher, device=dev).requires_grad_(False)
+        wav = batch["wav"].to(dev)
+        probs[dev] = models.apply(cfg, model, wav, frontend_fn=trainer.frontend).float().cpu()
+        t_probs[dev] = models.apply(t_cfg, t_model, wav[:n_as],
+                                    frontend_fn=trainer.psl_frontend).float().cpu()
+        t32 = models.apply(t_f32, t_model, wav[:n_as], frontend_fn=trainer.psl_frontend)
+        drift[dev] = (t_probs[dev] - t32.cpu()).abs().max().item()
+        opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+        step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
+                               psl_split=n_as, frontend_fn=trainer.frontend,
+                               psl_frontend_fn=trainer.psl_frontend)
+        losses[dev] = step({"wav": wav, "target": batch["target"].to(dev)})["total_loss"].item()
+    return {"B": B, "teacher_B": n_as,
+            "student_max_abs": (probs["cuda"] - probs["cpu"]).abs().max().item(),
+            "teacher_max_abs": (t_probs["cuda"] - t_probs["cpu"]).abs().max().item(),
+            "teacher_bf16_drift": drift["cuda"], "teacher_drift_cpu": drift["cpu"],
+            "loss_gpu": losses["cuda"], "loss_cpu": losses["cpu"],
+            "loss_rel_err": abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])}
+
+
+def phase_psl_cache(info) -> tuple:
+    """cli.psl_cache's scoring on the card: every grid crop of 64 AudioSet-
+    style clips (32 of 1 s, 32 of 10 s, data/synthworld.py's eventful
+    clips) through the MobileNetV2 teacher at B=256 and the mel kernel
+    (counts set to 0 before and read after). The teacher's BNs are
+    calibrated on the clips first (at its init it scores sigmoid(bias)
+    whatever the crop), and the cache must vary across clips and between
+    neighbouring grid crops by more than its gate. Gates: the teacher's
+    frontend at B=256 (frontend_gate), rows of 8 clips against the CPU
+    plain teacher (float16 rounding + 1e-3). Then the recipe's Trainer with
+    psl: {mode: offline} for 3 steps through the port's dataset on that
+    in-memory cache (counts likewise); on 16 of its crops the online
+    teacher's scores equal the cached rows (float16 rounding, 5e-4) and
+    one offline step's loss the online-PSL step's (the float16 bound,
+    1e-3). -> (scoring counts, offline counts)."""
+    import random
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.cli.psl_cache import make_teacher_fn
+    from uit_mobile_tpu_torch.data import PSLCachedRandomCropHDF5Dataset
+    from uit_mobile_tpu_torch.data.psl_cache import score_psl_cache
+    from uit_mobile_tpu_torch.data.synthworld import eventful_labels, synth_eventful_clip
+    from uit_mobile_tpu_torch.models.mobilenetv2 import calibrate_bn
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    rng = np.random.default_rng(13)
+    clips, labels = [], []
+    for i in range(64):
+        labs = eventful_labels(rng)
+        clips.append((f"as_{i}.wav", synth_eventful_clip(rng, labs, seconds=1.0 if i % 2 else 10.0)))
+        labels.append(labs)
+    t_cfg = models.get_model_config("MobileNetV2", outputdim=527)
+    t_model = models.build(t_cfg, torch.Generator().manual_seed(0), "cpu")
+    calib = np.stack([c[:SR] for _, c in clips[:32]]).astype(np.float32) / 32768.0
+    t_init = module_to_numpy(calibrate_bn(t_cfg, t_model, torch.from_numpy(calib)))
+    teacher = module_from_numpy(t_cfg, *t_init, device="cuda").requires_grad_(False)
+    fn = make_teacher_fn(t_cfg, teacher, "exact")
+    fn(np.zeros((256, SR), np.int16))  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    cache = score_psl_cache(clips, fn, batch_size=256, teacher_name="MobileNetV2 (seed 0)")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    score_counts = dict(launches)
+    check(score_counts["row_exact"] > 0, f"psl_cache: the teacher never launched row_exact: "
+                                         f"{score_counts}")
+    crops_256 = np.stack([c[:SR] for _, c in clips[::2][:16]] * 16)
+    frontend = frontend_gate(fn.frontend, torch.from_numpy(crops_256).cuda(), "exact", "bft")
+    score_ms = time_ms(lambda: fn(crops_256), warmup=2, iters=10)
+    score_prof = profile_steps(lambda: fn(crops_256), score_ms)
+    sub = clips[:8]
+    cpu = score_psl_cache(sub, make_teacher_fn(t_cfg, module_from_numpy(t_cfg, *t_init, "cpu")),
+                          batch_size=64, teacher_name="MobileNetV2 (seed 0)")
+    worst = max(float(np.abs(cache[k].astype(np.float32) - cpu[k].astype(np.float32)).max())
+                for k, _ in sub)
+    rows = [cache[k].astype(np.float32) for k, _ in clips]
+    crops = sum(r.shape[0] for r in rows)
+    # a cache that hardly depends on the crop would pass any gate below
+    spread = float(np.concatenate(rows).std(0).mean())
+    grid_step = min(float(np.abs(np.diff(r, axis=0)).max(1).min()) for r in rows if len(r) > 1)
+    # offline training: the recipe (B=32), AudioSet rows from the cache
+    store = dict(clips)
+    manifest = [{"filename": k, "labels": labs, "hdf5path": store}
+                for (k, _), labs in zip(clips, labels)]
+    config = dict(RECIPE, psl={"mode": "offline", "cache": cache}, audioset_train_data=manifest,
+                  epochs=1, epoch_length=3, valid_every=1)
+    trainer, out, off_counts, rec = drive_trainer(config, info)
+    check(trainer.psl_model is None and off_counts["row_exact"] > 0,
+          f"offline: a teacher was loaded or the step never launched row_exact: {off_counts}")
+    shutil.rmtree(out.parent, ignore_errors=True)
+    # the first offline step against the online-PSL step on the same crops
+    audioset = PSLCachedRandomCropHDF5Dataset(manifest, 1.0, 537, cache, rng=random.Random(14))
+    drawn = [audioset[i] for i in range(16)]
+    rng_k = np.random.default_rng(15)
+    kws, kws_labels = synth_split(rng_k, 16, True)
+    wav = torch.from_numpy(np.concatenate([np.stack([r[0] for r in drawn]),
+                                           np.stack(kws).astype(np.float32) / 32768.0])).cuda()
+    cached = np.stack([r[1] for r in drawn])
+    with torch.no_grad():
+        online = models.forward(t_cfg, teacher, wav[:16], frontend_fn=trainer.frontend)
+    row_gap = float(np.abs(online.cpu().numpy() - cached[:, :527]).max())
+    kws_t = np.zeros((16, 537), np.float32)
+    kws_t[np.arange(16), kws_labels] = 1.0
+    ground = cached.copy()
+    ground[:, :527] = 0.0
+    cfg = trainer.cfg
+    init = module_to_numpy(models.build(cfg, torch.Generator().manual_seed(16), "cpu"))
+    losses = {}
+    for mode, target, kw in (("online", np.concatenate([ground, kws_t]),
+                              dict(psl_cfg=t_cfg, psl_model=teacher, psl_split=16,
+                                   psl_frontend_fn=trainer.frontend)),
+                             ("offline", np.concatenate([cached, kws_t]), {})):
+        model = module_from_numpy(cfg, *init, device="cuda")
+        step = make_train_step(cfg, model, build_optimizer("AdamW", 1e-3).init(model),
+                               frontend_fn=trainer.frontend, **kw)
+        batch = {"wav": wav, "target": torch.from_numpy(target).cuda()}
+        losses[mode] = step(batch)["total_loss"].item()
+    offline_ms = time_ms(lambda: step(batch), warmup=2, iters=10)
+    offline_prof = profile_steps(lambda: step(batch), offline_ms)
+    gap = abs(losses["online"] - losses["offline"])
+    emit({"phase": "psl_cache", "clips": 64, "crops": crops, "teacher_B": 256,
+          "scoring_s": wall, "crops_per_s": crops / wall, "scoring_launches": score_counts,
+          "teacher_frontend": frontend, "teacher_batch_ms": score_ms,
+          "teacher_batch": score_prof, "cache_std_over_crops": spread,
+          "cache_min_grid_step_diff": grid_step, "cache_vs_cpu_max_abs": worst,
+          "cpu_checked_clips": len(sub), "offline_step_ms": offline_ms,
+          "offline_step": offline_prof, "offline_trainer": rec,
+          "online_teacher_vs_cached_rows": row_gap, "online_loss": losses["online"],
+          "offline_loss": losses["offline"], "offline_vs_online_abs": gap,
+          "card": info["nvidia_smi"]})
+    check(spread > 5e-3 and grid_step > 1e-3 + 5e-4,
+          f"psl_cache: the teacher's scores hardly depend on the crop: std {spread}, "
+          f"neighbouring grid crops {grid_step}")
+    check(worst <= 1e-3 + 5e-4, f"psl_cache on the card vs the CPU teacher: {worst}")
+    check(row_gap <= 5e-4, f"offline: cached rows vs the online teacher on their crops: {row_gap}")
+    check(gap < 1e-3, f"offline vs online PSL step: {losses}")
+    return score_counts, off_counts
+
+
+# configs/train_sed.yaml as a dict, cut to 2 epochs of 5 steps on in-memory
+# eventful clips (its data files are not in the repo)
+SED = {"model": "uit_xs", "model_args": {"target_length": 102, "pooling": "dm"},
+       "num_classes": 527, "chunk_length": 1.0, "min_overlap": 0.5, "data_dtype": "int16",
+       "optimizer": "AdamW", "optimizer_args": {"lr": 0.001, "weight_decay": 5e-8},
+       "use_scheduler": True, "warmup_iters": 5, "max_grad_norm": 1.0, "batch_size": 64,
+       "epochs": 2, "epoch_length": 5, "threshold": 0.5, "seed": 42, "num_workers": 2,
+       "frontend_precision": "exact",
+       "wavtransforms": {"Gain": {"p": 0.5}, "PolarityInversion": {"p": 0.5}},
+       "spectransforms": [{"TimeMasking": {"time_mask_param": 20}},
+                          {"FrequencyMasking": {"freq_mask_param": 8}}]}
+
+
+class StrongClipDataset:
+    """SED windows of in-memory eventful clips: data/hdf5.py's
+    strong_window over arrays instead of HDF5 datasets; index-pure windows
+    when deterministic."""
+
+    def __init__(self, clips, events, n_segments, seg_seconds, seed, deterministic):
+        import random
+
+        self.clips, self.events = clips, events
+        self.n_seg, self.seg_s, self.det = n_segments, seg_seconds, deterministic
+        self.rng = random.Random(seed)
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        from uit_mobile_tpu_torch.data.hdf5 import strong_window, strong_window_rng
+
+        rng = strong_window_rng(i) if self.det else self.rng
+        data, target = strong_window(rng, self.clips[i], self.events[i], SR, SR, self.n_seg,
+                                     self.seg_s, 527, 0.5)
+        return data, target, f"sed_{i}"
+
+
+def phase_sed(info) -> dict:
+    """cli.train sed's trainer on the card (counts set to 0 before and read
+    after): configs/train_sed.yaml's recipe on 128 ten-second eventful clips,
+    validation on 32 with index-pure windows, best_sed.npz loaded back and
+    run framewise on the card; one SED step (no augments, AdamW) from the
+    same weights against the CPU: its frontend on the batch (frontend_gate),
+    the loss against the CPU plain path (1e-4 relative), and step_agreement
+    (params outside the elements whose gradient is below 1e-7) against the
+    CPU fed the card's mel. The plain mel differs from the kernel's within
+    its tolerance, and that difference alone flips enough ReLUs to move
+    this step's fc1 gradients by ~1e-3 of their largest on the CPU (1e-6
+    dB of noise on the mel: 6e-4), so the gradients are held after the
+    frontend and the frontend on its own. -> launch counts."""
+    import tempfile
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import load_model, module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.data.synthworld import eventful_labels, synth_eventful_clip
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.train import build_optimizer
+    from uit_mobile_tpu_torch.train.sed import segment_geometry, train_sed_from_config
+    from uit_mobile_tpu_torch.train.steps import make_framewise_train_step
+
+    cfg = models.get_model_config("uit_xs", outputdim=527, target_length=102, pooling="dm")
+    n_seg, seg_s = segment_geometry(cfg)
+    rng = np.random.default_rng(17)
+
+    def world(n, seed, det):
+        clips, events = [], []
+        for _ in range(n):
+            ev = []
+            clips.append(synth_eventful_clip(rng, eventful_labels(rng), events=ev))
+            events.append(ev)
+        return StrongClipDataset(clips, events, n_seg, seg_s, seed, det)
+
+    train_ds, eval_ds = world(128, 18, False), world(32, 19, True)
+    out_dir = Path(tempfile.mkdtemp(prefix="uit_sed_"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    best = train_sed_from_config(dict(SED, outputdir=str(out_dir)), device="cuda",
+                                 train_dataset=train_ds, eval_dataset=eval_ds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    check(counts["row_exact"] > 0, f"sed: the SED path never launched row_exact: {counts}")
+    log_text = (out_dir / "train.log").read_text()
+    f1 = [ln.split("segF1 micro")[1].split()[0] for ln in log_text.splitlines()
+          if "segF1 micro" in ln]
+    check(len(f1) == 2 and best.exists(), f"sed: validations {f1}, {best}")
+    b_cfg, b_model, extra = load_model(best, device="cuda")
+    pcm = np.stack([train_ds.clips[i][:SR] for i in range(4)])
+    fw, times = models.apply_framewise(b_cfg, b_model, torch.from_numpy(pcm).cuda(),
+                                       frontend_fn=make_frontend_fn(b_cfg.frontend))
+    check(tuple(fw.shape) == (4, n_seg, 527) and bool(torch.isfinite(fw).all()),
+          f"sed: best_sed.npz framewise {tuple(fw.shape)}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    # one step on the card against the CPU plain path
+    init = module_to_numpy(models.build(cfg, torch.Generator().manual_seed(20), "cpu"))
+    rows = [train_ds[i] for i in range(64)]
+    batch = {"wav": torch.from_numpy(np.stack([r[0] for r in rows])),
+             "target": torch.from_numpy(np.stack([r[1] for r in rows]))}
+    fe = make_frontend_fn(cfg.frontend, precision="exact")
+    card_batch = {k: v.cuda() for k, v in batch.items()}
+    frontend = frontend_gate(fe, card_batch["wav"], "exact", "bft")
+    card_mel = fe(card_batch["wav"]).cpu()
+    runs, steps = {}, {}
+    # the CPU step twice: through the plain mel (the whole step) and through
+    # the card's mel (the step after the frontend)
+    for run, dev, run_fe in (("cuda", "cuda", fe), ("cpu", "cpu", fe),
+                             ("cpu_card_mel", "cpu", lambda w: card_mel)):
+        model = module_from_numpy(cfg, *init, device=dev)
+        opt = build_optimizer("AdamW", 1e-3).init(model)
+        steps[run] = make_framewise_train_step(cfg, model, opt, max_grad_norm=1.0,
+                                               frontend_fn=run_fe)
+        m = steps[run]({k: v.to(dev) for k, v in batch.items()})
+        runs[run] = (m["total_loss"].item(), m["grad_norm"].item(),
+                     {k: v.detach().cpu() for k, v in model.named_parameters()},
+                     adam_step_grads(opt))
+    whole = step_agreement(runs, all_params=False)
+    agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), all_params=False)
+    step_ms = time_ms(lambda: steps["cuda"](card_batch), warmup=2, iters=10)
+    prof = profile_steps(lambda: steps["cuda"](card_batch), step_ms)
+    emit({"phase": "sed", "B": 64, "steps": 10, "wall_s": wall, "launches": counts,
+          "segment_f1_micro_by_epoch": [float(x) for x in f1], "best_epoch": extra["epoch"],
+          "best_sed_framewise": list(fw.shape), "frontend": frontend,
+          "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": agree,
+          "step_ms": step_ms, "clips_per_s": 64e3 / step_ms, **prof,
+          "card": info["nvidia_smi"]})
+    check(whole["loss_rel_err"] <= 1e-4 and agree["agrees"],
+          f"sed step on the card vs the CPU: {whole}, on the card's mel {agree}")
+    return counts
+
+
+# configs/pretrain_mae.yaml as a dict, cut to 5 steps on in-memory clips
+MAE = {"model": "uit_xs", "model_args": {"target_length": 1012}, "mask_ratio": 0.75,
+       "decoder_depth": 2, "batch_size": 64, "epochs": 1, "epoch_length": 5, "warmup_iters": 5,
+       "optimizer": "AdamW", "optimizer_args": {"lr": 0.00015, "weight_decay": 5e-8},
+       "num_workers": 2, "seed": 42}
+
+
+class UnlabeledClipDataset:
+    """MAE crops of in-memory clips: float32 waves of the window length."""
+
+    def __init__(self, clips):
+        self.clips = clips
+
+    def __len__(self):
+        return len(self.clips)
+
+    def __getitem__(self, i):
+        from uit_mobile_tpu_torch.frontend import normalize_pcm16
+
+        return normalize_pcm16(self.clips[i]), np.zeros(527, np.float32), f"u_{i}"
+
+
+def phase_pretrain(info) -> dict:
+    """cli.train pretrain's trainer on the card (counts set to 0 before and
+    read after; its frontend is the plain rfft one, as in the JAX package):
+    configs/pretrain_mae.yaml's recipe on 64 in-memory 10.12 s clips; one
+    MAE forward on the card against the CPU with the same noise (loss 1e-4
+    relative); the snapshot into a 102-frame Trainer's pretrained: load on
+    the card and on the CPU (equal). -> launch counts."""
+    import tempfile
+
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_to_numpy
+    from uit_mobile_tpu_torch.ckpt.convert import load_numpy
+    from uit_mobile_tpu_torch.data.synthworld import eventful_labels, synth_eventful_clip
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.train import Trainer
+    from uit_mobile_tpu_torch.train import pretrain as mae
+
+    rng = np.random.default_rng(21)
+    n = int(1012 * 160) + 160  # the window of target_length 1012
+    clips = [synth_eventful_clip(rng, eventful_labels(rng), seconds=n / SR) for _ in range(64)]
+    out_dir = Path(tempfile.mkdtemp(prefix="uit_mae_"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    snap = mae.pretrain_from_config(dict(MAE, outputpath=str(out_dir)), device="cuda",
+                                    dataset=UnlabeledClipDataset(clips))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(launches)
+    check(snap.exists(), f"pretrain: no snapshot at {snap}")
+    # one forward on the card and on the CPU, same weights, batch and noise
+    enc = models.get_model_config("uit_xs", outputdim=527, target_length=1012)
+    cfg = mae.MAEConfig(encoder=enc, mask_ratio=0.75, decoder_depth=2)
+    init = module_to_numpy(mae.init(cfg, torch.Generator().manual_seed(22)))
+    wav = torch.from_numpy(np.stack([UnlabeledClipDataset(clips)[i][0] for i in range(64)]))
+    noise = torch.rand((64, cfg.num_patches), generator=torch.Generator().manual_seed(23))
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = load_numpy(mae.MAE(cfg), *init).to(dev)
+        with torch.no_grad():
+            losses[dev] = mae.forward(cfg, model, wav.to(dev), noise=noise.to(dev))[0].item()
+    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
+    from uit_mobile_tpu_torch.train import build_optimizer
+
+    model = load_numpy(mae.MAE(cfg), *init).to("cuda")
+    step = mae.make_mae_step(cfg, model, build_optimizer("AdamW", 1.5e-4).init(model))
+    card_wav, gen = wav.cuda(), torch.Generator(device="cuda").manual_seed(24)
+    step_ms = time_ms(lambda: step(card_wav, gen), warmup=2, iters=10)
+    prof = profile_steps(lambda: step(card_wav, gen), step_ms)
+    # the snapshot into a 102-frame student, on the card and on the CPU
+    loaded = {}
+    for dev in ("cuda", "cpu"):
+        t = Trainer.__new__(Trainer)
+        t.config = {"model": "uit_xs", "num_classes": 537, "seed": 0,
+                    "model_args": {"target_length": 102}, "pretrained": str(snap)}
+        t.device = torch.device(dev)
+        loaded[dev] = {k: v.detach().cpu() for k, v in t._build_model()[1].named_parameters()}
+    load_diff = max((loaded["cuda"][k] - loaded["cpu"][k]).abs().max().item() for k in loaded["cpu"])
+    tpe = tuple(loaded["cuda"]["time_pos_embed"].shape)
+    emit({"phase": "pretrain", "B": 64, "steps": 5, "target_length": 1012, "wall_s": wall,
+          "launches": counts, "first_loss_gpu": losses["cuda"],
+          "first_loss_cpu": losses["cpu"], "loss_rel_err": rel,
+          "step_ms": step_ms, "clips_per_s": 64e3 / step_ms, **prof,
+          "finetune_time_pos_embed": list(tpe), "finetune_load_max_abs_diff": load_diff,
+          "card": info["nvidia_smi"]})
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(rel <= 1e-4 and load_diff == 0.0 and tpe == (6, 128),
+          f"pretrain on the card vs the CPU: loss {losses}, load diff {load_diff}, {tpe}")
+    return counts
 
 
 # ---------------------------------------------------------------- evaluation
@@ -1683,6 +2215,10 @@ def main() -> int:
     exact_counts = phase_exact(cfg, cpu_model, gpu_model)
     phase_forward(cfg, gpu_model, records, info)
     train_counts, recipe_npz = phase_train(info)
+    bf16_counts = phase_bf16(info)
+    psl_cache_counts, offline_counts = phase_psl_cache(info)
+    sed_counts = phase_sed(info)
+    pretrain_counts = phase_pretrain(info)
     eval_counts = phase_eval(recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
     stream_counts = phase_stream(cfg, cpu_model, info)
     http_counts = phase_http(cfg, cpu_model, info)
@@ -1708,6 +2244,11 @@ def main() -> int:
             "eval_launches": {mode: c[variant] for mode, c in eval_counts.items()},
             "stream_launches": {f"S={S}": c[variant] for S, c in stream_counts.items()},
             "http_launches": http_counts[variant],
+            "bf16_launches": bf16_counts[variant],
+            "psl_cache_launches": psl_cache_counts[variant],
+            "offline_launches": offline_counts[variant],
+            "sed_launches": sed_counts[variant],
+            "pretrain_launches": pretrain_counts[variant],
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

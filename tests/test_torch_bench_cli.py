@@ -81,8 +81,10 @@ def test_profile_and_refusals(tmp_path, capsys):
     rec = json.loads(capsys.readouterr().out)
     assert rec["trace"] == str(tmp_path / "prof") and rec["device_dispatch_ms"] == []
     assert list((tmp_path / "prof").glob("*.trace.json.gz"))
-    with pytest.raises(NotImplementedError, match="§A20"):
-        bench_main(TINY + ["--compute-dtype", "bfloat16", "--device", "cpu"])
+    # bfloat16 compute is ported: the bench runs it and says so
+    assert bench_main(TINY + ["--compute-dtype", "bfloat16", "--device", "cpu"]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    assert rec["compute_dtype"] == "bfloat16" and all(math.isfinite(x) for x in _numbers(rec))
     with pytest.raises(SystemExit):
         bench_main(["-m", "MobileNetV2", "-b", "4", "--train", "--train-layout", "tfb",
                     "--device", "cpu"])

@@ -68,7 +68,7 @@ def test_cli_refusals(ckpt, tmp_path, monkeypatch):
     monkeypatch.chdir(REPO)
     with pytest.raises(ValueError, match=">=2 checkpoints"):
         main([WAVS[0], "-m", f"{ckpt},", "--device", "cpu", "--events"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(FileNotFoundError, match="model.pt does not exist"):
         main([WAVS[0], "-m", "model.pt", "--device", "cpu"])
     p = tmp_path / "sr8k.wav"
     write_wav(p, np.zeros(8000, np.float32), sample_rate=8000)

@@ -102,7 +102,7 @@ def test_comma_spec_refusals(npz_members):
         resolve_model(npz_members[0] + ",", device="cpu")
     with pytest.raises(ValueError, match="share one model config"):
         resolve_model(",".join([npz_members[0], npz_members[2]]), device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(FileNotFoundError, match="model.pt does not exist"):
         resolve_model(f"{npz_members[0]},model.pt", device="cpu")
     with pytest.raises(FileNotFoundError, match="never downloads"):
         resolve_model(f"{npz_members[0]},https://example.org/m.npz", device="cpu")

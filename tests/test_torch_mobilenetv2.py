@@ -123,5 +123,8 @@ def test_train_dropout_seeded_and_guards(carried):
         models.apply(cfg, model, (wav * 3000).to(torch.int16), train=True,
                      generator=torch.Generator(),
                      wav_augment=parse_wavtransforms({"Gain": {"p": 1.0}}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.apply(dataclasses.replace(cfg, compute_dtype="bfloat16"), model, wav)
+    # bfloat16 compute runs (tests/test_torch_bf16.py holds it against JAX)
+    bf16 = models.apply(dataclasses.replace(cfg, compute_dtype="bfloat16"), model, wav)
+    assert torch.isfinite(bf16).all() and bf16.dtype == torch.float32
+    with pytest.raises(ValueError, match="compute_dtype"):
+        dataclasses.replace(cfg, compute_dtype="float16")

@@ -185,8 +185,12 @@ def test_train_guards_raise_as_in_jax(carried):
                      lengths=lengths, frontend_fn=fe_t)
     with pytest.raises(ValueError, match="positional embeddings"):
         models.apply(cfg, model, torch.zeros(2, 48000), train=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.apply(dataclasses.replace(cfg, compute_dtype="bfloat16"), model, wav, train=True)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        dataclasses.replace(cfg, compute_dtype="float16")
+    # bfloat16 compute trains (tests/test_torch_bf16.py holds it against JAX)
+    probs, _ = models.apply(dataclasses.replace(cfg, compute_dtype="bfloat16"), model, wav,
+                            train=True)
+    assert torch.isfinite(probs).all() and probs.dtype == torch.float32
 
 
 def test_length_mask_train_matches_jax():

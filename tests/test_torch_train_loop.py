@@ -173,8 +173,10 @@ def test_train_cli_yaml(tmp_path, synth_env, capsys):
     if not torch.cuda.is_available():  # the card by default: no GPU raises
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             train_main(["train", str(cfg_path), "--epochs", "1"])
-    for cmd in ("pretrain", "sed"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+    # pretrain and sed are ported (tests/test_torch_pretrain.py, test_torch_sed.py); a
+    # weak-label config lacks the data they read
+    for cmd, key in (("pretrain", "train_data"), ("sed", "strong_train_data")):
+        with pytest.raises(ValueError, match=f"needs {key}"):
             train_main([cmd, str(cfg_path), "--device", "cpu"])
 
 
@@ -182,7 +184,8 @@ def test_in_memory_trainer_needs_no_h5py_pandas_yaml_sklearn(tmp_path):
     """The card's machine has none of h5py, pandas, PyYAML, scikit-learn:
     every port module imports without them, and chip_smoke.py's in-memory
     Trainer (its train phase, cut to uit_xxxs on the CPU) trains, validates
-    and averages without them."""
+    and averages without them, with the online teacher and with psl:
+    {mode: offline} over an in-memory cache and manifest."""
     import subprocess
     import sys
     from pathlib import Path
@@ -202,6 +205,22 @@ cfg = dict(chip_smoke.RECIPE, model="uit_xxxs", model_args={{"target_length": 10
 trainer = chip_smoke.synth_trainer_class()(cfg, device="cpu")
 out = trainer.train()
 assert out.name == "averaged.npz" and len(trainer.metrics) == 2, out
+import numpy as np
+from uit_mobile_tpu_torch.data.psl_cache import score_psl_cache
+from uit_mobile_tpu_torch.data.synthworld import eventful_labels, synth_eventful_clip
+rng = np.random.default_rng(0)
+clips = [(f"as_{{i}}.wav", synth_eventful_clip(rng, eventful_labels(rng), seconds=1.0 + i % 2))
+         for i in range(8)]
+cache = score_psl_cache(clips, lambda b: np.tile(np.abs(b).mean(1, keepdims=True) / 32768,
+                                                 (1, 527)), batch_size=16)
+store = dict(clips)
+rows = [{{"filename": k, "labels": [0], "hdf5path": store}} for k, _ in clips]
+off = chip_smoke.synth_trainer_class()(dict(cfg, psl={{"mode": "offline", "cache": cache}},
+                                            audioset_train_data=rows,
+                                            outputdir={str(tmp_path / "offline")!r}),
+                                       device="cpu")
+out = off.train()
+assert off.psl_model is None and len(off.metrics) == 2, out
 print("ok")
 """
     res = subprocess.run([sys.executable, "-c", code], cwd=repo, capture_output=True,
@@ -214,10 +233,14 @@ def test_trainer_refusals(tmp_path, synth_env):
     with pytest.raises(ValueError, match="frontend_precision"):
         train_from_config(base_config(tmp_path, synth_env, frontend_precision="speedy"),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="offline"):
+    # offline PSL is ported (tests/test_torch_psl_offline.py); it needs a cache
+    with pytest.raises(ValueError, match="offline.*needs cache"):
         train_from_config(base_config(tmp_path, synth_env, psl={"model": "MobileNetV2",
                                                                   "mode": "offline"}),
                           device="cpu")
+    with pytest.raises(FileNotFoundError, match="PSL cache"):
+        train_from_config(base_config(tmp_path, synth_env, psl={
+            "mode": "offline", "cache": str(tmp_path / "nope.h5")}), device="cpu")
     with pytest.raises(NotImplementedError, match="multi-host"):
         train_from_config(base_config(tmp_path, synth_env, multihost=True), device="cpu")
     with pytest.raises(FileNotFoundError):  # a missing teacher without allow_untrained

@@ -160,9 +160,9 @@ def test_build_defaults_to_cuda_and_train_is_deferred(carried):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             models.build(cfg)
-    # training is ported; its bfloat16 compute is a later slice
+    # training and its bfloat16 compute are ported
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.apply(bf16, model, torch.zeros(1, 16000), train=True)
+    probs, _ = models.apply(bf16, model, torch.zeros(1, 16000), train=True)
+    assert probs.shape == (1, cfg.outputdim) and torch.isfinite(probs).all()
     with pytest.raises(NotImplementedError, match="not yet ported"):
         models.get_model_config("uit_xs_moe")

@@ -52,6 +52,10 @@ def polarity_inversion(generator, wav, p=0.5):
     return wav * torch.where(apply, -1.0, 1.0)[:, None]
 
 
+# the wav transforms that keep every sample at its time (SED's per-segment
+# targets stay aligned): not Shift
+TIME_PRESERVING_WAV_TRANSFORMS = frozenset({"Gain", "PolarityInversion"})
+
 WAV_TRANSFORMS = {
     "Shift": shift,
     "Gain": gain,

@@ -78,12 +78,10 @@ def unflatten_tree(flat: dict, sep: str):
 
 
 @torch.no_grad()
-def module_from_numpy(cfg, params, state, device="cuda"):
-    """JAX-layout (params, state) trees of numpy arrays -> the port's model
-    (UiT or MobileNetV2) on ``device``. Every key must match, with its
-    shape."""
-    dev = resolve_device(device)
-    model = module_class(cfg)(cfg)
+def load_numpy(model, params, state):
+    """Copy JAX-layout (params, state) trees of numpy arrays into ``model``
+    (any port container: UiT, MobileNetV2, an MAE) in place -> model.
+    Every key must match, with its shape."""
     flat = {**flatten_tree(params, "."), **flatten_tree(state or {}, ".")}
     sd = model.state_dict()
     missing, unexpected = sorted(set(sd) - set(flat)), sorted(set(flat) - set(sd))
@@ -91,11 +89,18 @@ def module_from_numpy(cfg, params, state, device="cuda"):
         raise KeyError(f"parameter trees do not match the {type(model).__name__} "
                        f"of this config: missing {missing}, unexpected {unexpected}")
     for k, v in flat.items():
-        v = to_port_layout(cfg, k, np.asarray(v))
+        v = to_port_layout(model, k, np.asarray(v))
         if tuple(v.shape) != tuple(sd[k].shape):
             raise ValueError(f"{k}: shape {v.shape} != expected {tuple(sd[k].shape)}")
         sd[k].copy_(torch.from_numpy(np.array(v, dtype=np.float32)))
-    return model.to(dev).eval()
+    return model
+
+
+def module_from_numpy(cfg, params, state, device="cuda"):
+    """JAX-layout (params, state) trees of numpy arrays -> the port's model
+    of ``cfg`` (UiT or MobileNetV2) on ``device``, in eval mode."""
+    dev = resolve_device(device)
+    return load_numpy(module_class(cfg)(cfg), params, state).to(dev).eval()
 
 
 def module_to_numpy(model, named_params=None):

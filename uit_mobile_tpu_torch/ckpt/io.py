@@ -22,8 +22,8 @@ import torch
 from ..frontend import FrontendConfig
 from ..models.mobilenetv2 import MobileNetV2Config
 from ..models.uit import UITConfig
-from .convert import (flatten_tree, module_from_numpy, module_to_numpy, to_port_layout,
-                      unflatten_tree)
+from .convert import (flatten_tree, load_numpy, module_from_numpy, module_to_numpy,
+                      to_port_layout, unflatten_tree)
 
 _SEP = "/"
 _CONFIGS = {"UITConfig": UITConfig, "MobileNetV2Config": MobileNetV2Config}
@@ -162,9 +162,7 @@ def load_training_state(path, model, optimizer):
     """Load a ``save_training_state`` snapshot into ``model`` and
     ``optimizer`` (built the same way) in place -> (cfg, extra)."""
     params, state, cfg, extra, opt = _read(path)
-    loaded = module_from_numpy(cfg or model.cfg, params, state, device="cpu")
-    for dst, src in zip(model.state_dict().values(), loaded.state_dict().values()):
-        dst.copy_(src)
+    load_numpy(model, params, state)
     optimizer.load_state_leaves([torch.from_numpy(np.asarray(v)) for v in opt])
     return cfg, extra
 
@@ -173,8 +171,8 @@ def load_pretrained_partial(model, params) -> int:
     """Shape-filtered partial load: copy every JAX-layout leaf of ``params``
     whose key and shape match one of ``model``'s parameters, keep the rest
     -> the number of tensors loaded. Positional embeddings of another
-    target length do not match and are kept (their resize is not yet
-    ported)."""
+    target length do not match; retarget them first with
+    ``retarget_pos_embeds``, as the Trainer's ``pretrained:`` load does."""
     own = dict(model.named_parameters())
     n = 0
     with torch.no_grad():
@@ -186,3 +184,18 @@ def load_pretrained_partial(model, params) -> int:
     if n == 0:
         raise ValueError("couldn't load pretrained model (no overlapping parameters)")
     return n
+
+
+def retarget_pos_embeds(params: dict, model) -> dict:
+    """``params`` with its ``time_pos_embed``/``freq_pos_embed`` resized to
+    ``model``'s (``torch_convert.resize_pos_embed``: slice to shrink,
+    bilinear to grow), e.g. MAE pretraining at target_length 1012 ->
+    fine-tuning at 102, as the JAX Trainer does before its partial load."""
+    from .torch_convert import resize_pos_embed
+
+    own = dict(model.named_parameters())
+    out = dict(params)
+    for key in ("time_pos_embed", "freq_pos_embed"):
+        if key in out and key in own and tuple(np.shape(out[key])) != tuple(own[key].shape):
+            out[key] = resize_pos_embed(np.asarray(out[key]), own[key].shape[0])
+    return out

@@ -52,11 +52,12 @@ def _percentiles(ms) -> dict:
     return {f"p{p}": float(np.percentile(ms, p)) for p in (50, 95, 99)}
 
 
-def _bench_cfg(name):
+def _bench_cfg(name, compute_dtype: str = "float32"):
     """Model config with the bench's UiT-oriented kwargs filtered to the
     fields the family's config declares."""
     fields = {f.name for f in dataclasses.fields(models.get_model_config(name))}
-    extra = {k: v for k, v in dict(target_length=102).items() if k in fields}
+    wanted = dict(target_length=102, compute_dtype=compute_dtype)
+    extra = {k: v for k, v in wanted.items() if k in fields}
     return models.get_model_config(name, outputdim=537, **extra)
 
 
@@ -85,7 +86,7 @@ def main(argv=None):
                         help="exact DFT precision instead of the fast 3-pass-bf16 mode")
     parser.add_argument("--frontend-only", action="store_true")
     parser.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
-                        help="encoder matmul dtype (bfloat16 is not yet ported, ROADMAP §A20)")
+                        help="compute dtype of the benchmarked model")
     parser.add_argument("--scan", type=int, default=None, metavar="K",
                         help="run the forward (or the train step) as K batches per call")
     parser.add_argument("--train", action="store_true",
@@ -113,10 +114,6 @@ def main(argv=None):
                         help="capture a torch.profiler trace of 3 batches")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"--compute-dtype {args.compute_dtype}: the port's models run float32 only; "
-            f"bfloat16 is not yet ported (ROADMAP §A20)")
 
     dev = resolve_device(args.device)
     cuda = dev.type == "cuda"
@@ -128,7 +125,7 @@ def main(argv=None):
     record = {"model": args.model, "device": "gpu" if cuda else "cpu",
               "device_name": torch.cuda.get_device_name(dev) if cuda else "cpu",
               "card": card_line() if cuda else None, "dtype": args.dtype,
-              "kernel": use_kernel, "precision": prec}
+              "kernel": use_kernel, "precision": prec, "compute_dtype": args.compute_dtype}
 
     def emit(rec):
         print(json.dumps({**record, **rec}), flush=True)
@@ -137,7 +134,7 @@ def main(argv=None):
     if args.serve:
         from ..serve import ServiceConfig, TaggingService
 
-        cfg = _bench_cfg(args.model)
+        cfg = _bench_cfg(args.model, args.compute_dtype)
         svc = TaggingService(
             cfg, _build(cfg, dev),
             ServiceConfig(batch_size=min(B, 256), max_seconds=max(2, int(np.ceil(args.seconds))),
@@ -177,7 +174,7 @@ def main(argv=None):
     if args.stream:
         from ..serve import MultiStreamTagger, StreamingConfig
 
-        cfg = _bench_cfg(args.model)
+        cfg = _bench_cfg(args.model, args.compute_dtype)
         S = args.streams
         sc = StreamingConfig(hop_seconds=args.hop, use_kernel=use_kernel, dtype=args.dtype)
         tagger = MultiStreamTagger(cfg, _build(cfg, dev), n_streams=S, config=sc, device=dev)
@@ -220,7 +217,7 @@ def main(argv=None):
                                                       precision=prec))
         label = f"frontend({'kernel' if use_kernel else 'rfft'})"
     else:
-        cfg = _bench_cfg(args.model)
+        cfg = _bench_cfg(args.model, args.compute_dtype)
         # the serving policy (tfb for UiT, tfb_to_bft mel for MobileNetV2)
         fwd = make_forward_fn(cfg, _build(cfg, dev), use_kernel=use_kernel, precision=prec)
         label = f"{args.model}({'kernel' if use_kernel else 'rfft'} frontend)"
@@ -287,7 +284,7 @@ def _bench_train(args, dev, use_kernel, prec) -> dict:
 
     B = args.batch_size
     T = int(16000 * args.seconds)
-    cfg = _bench_cfg(args.model)
+    cfg = _bench_cfg(args.model, args.compute_dtype)
     psl_cfg = models.get_model_config("MobileNetV2", outputdim=527)
     if args.train_layout != "bft":
         if not isinstance(cfg, models.UITConfig):

@@ -2,13 +2,16 @@
 
     python -m uit_mobile_tpu_torch.cli.train train configs/train_uit_xs.yaml [--key value ...]
     python -m uit_mobile_tpu_torch.cli.train run   configs/train_uit_xs.yaml   # train + eval
+    python -m uit_mobile_tpu_torch.cli.train sed   configs/train_sed.yaml
+    python -m uit_mobile_tpu_torch.cli.train pretrain configs/pretrain_mae.yaml
     python -m uit_mobile_tpu_torch.cli.train train cfg.yaml --device cpu
 
 Any ``--key value`` pair overrides the YAML config. Training runs on the
 card unless ``--device cpu`` asks for the CPU. ``run`` trains, then
 evaluates the deliverable with the Evaluator: GSC on ``kws_test_data`` and
-AudioSet on ``audioset_eval_data``. ``pretrain`` (MAE) and ``sed`` are not
-yet ported and raise.
+AudioSet on ``audioset_eval_data``. ``sed`` trains strong-label framewise
+(train/sed.py) and prints best_sed.npz; ``pretrain`` runs MAE pretraining
+(train/pretrain.py) and prints mae_pretrained.npz.
 """
 
 from __future__ import annotations
@@ -17,12 +20,6 @@ import argparse
 import sys
 
 from ..utils import parse_config_or_kwargs, parse_override
-
-_LATER = {
-    "pretrain": "MAE pretraining (ROADMAP §A15)",
-    "sed": "SED training (ROADMAP §A13)",
-}
-
 
 def _parse_overrides(pairs) -> dict:
     out, key = {}, None
@@ -45,10 +42,17 @@ def main(argv=None) -> int:
     parser.add_argument("config")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args, rest = parser.parse_known_args(argv)
-    if args.command in _LATER:
-        raise NotImplementedError(f"'{args.command}' needs {_LATER[args.command]}, "
-                                  f"which is not yet ported; use 'train'")
     config = parse_config_or_kwargs(args.config, **_parse_overrides(rest))
+    if args.command == "pretrain":
+        from ..train.pretrain import pretrain_from_config
+
+        print(pretrain_from_config(config, device=args.device))
+        return 0
+    if args.command == "sed":
+        from ..train.sed import train_sed_from_config
+
+        print(train_sed_from_config(config, device=args.device))
+        return 0
     from ..train.loop import train_from_config
 
     output_model = train_from_config(config, device=args.device)

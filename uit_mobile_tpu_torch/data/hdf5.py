@@ -15,7 +15,7 @@ import queue
 import random as _random
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Optional, Sequence
+from typing import Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -37,14 +37,27 @@ def _convert(data: np.ndarray, dtype) -> np.ndarray:
     return np.asarray(data, dtype=np.float32)
 
 
+class _Rows:
+    """A list of manifest rows, read as the datasets read a DataFrame."""
+
+    def __init__(self, rows):
+        self.iloc = list(rows)
+
+    def __len__(self) -> int:
+        return len(self.iloc)
+
+
 class WeakHDF5Dataset:
     """Full-clip dataset over a manifest DataFrame: index -> (waveform,
-    multihot target, filename)."""
+    multihot target, filename). The manifest may also be a list of row
+    mappings whose ``hdf5path`` is an in-memory {filename: PCM array}
+    store, which needs neither pandas nor h5py."""
 
     def __init__(self, data_frame, num_classes: int, dtype: str = "float32"):
         if dtype not in ("float32", "int16"):
             raise ValueError(f"dtype must be 'float32' or 'int16', got {dtype!r}")
-        self._dataframe = data_frame.reset_index(drop=True)
+        self._dataframe = (data_frame.reset_index(drop=True)
+                           if hasattr(data_frame, "reset_index") else _Rows(data_frame))
         self._num_classes = num_classes
         self._dtype = np.int16 if dtype == "int16" else np.float32
         self._local = threading.local()  # per-thread h5 handle cache
@@ -52,7 +65,9 @@ class WeakHDF5Dataset:
     def __len__(self) -> int:
         return len(self._dataframe)
 
-    def _file(self, hdf5path: str):
+    def _file(self, hdf5path):
+        if isinstance(hdf5path, Mapping):  # an in-memory store
+            return hdf5path
         from h5py import File
 
         cache = getattr(self._local, "cache", None)
@@ -66,8 +81,9 @@ class WeakHDF5Dataset:
         try:
             return self._file(hdf5path)[fname]
         except KeyError:
+            where = "the in-memory store" if isinstance(hdf5path, Mapping) else hdf5path
             raise KeyError(
-                f"waveform key {fname!r} not found in {hdf5path} — check the manifest's "
+                f"waveform key {fname!r} not found in {where} — check the manifest's "
                 f"filename column against the HDF5 keys (a basename=True/False mismatch "
                 f"drops or mangles paths)") from None
 
@@ -140,6 +156,93 @@ class WeakChunkedHDF5Dataset(WeakHDF5Dataset):
             data = _crop_or_pad(self._rng, hi - lo, self._fixed,
                                 lambda a, b: node[lo + a:lo + b])
         return _convert(data, self._dtype), target, row["filename"]
+
+
+def strong_window(rng: _random.Random, node, events, chunk: int, sample_rate: int,
+                  n_segments: int, seg_seconds: float, num_classes: int,
+                  min_overlap: float):
+    """One SED training window of a clip (``node``: an array or h5py
+    dataset of n samples): a random ``chunk``-sample crop (long clip) or a
+    random-offset zero pad (short clip), and its (n_segments, num_classes)
+    targets, the clip's (class, onset_s, offset_s) events moved into window
+    time and rasterized onto segments of ``seg_seconds``
+    (evaluate.metrics.segment_events_to_targets) -> (data, target)."""
+    from ..evaluate.metrics import segment_events_to_targets
+
+    n, L = node.shape[-1], chunk
+    if n > L:
+        ws = rng.randint(0, n - L - 1)
+        data, off = node[ws:ws + L], 0
+    else:
+        loaded = node[:]
+        data = np.zeros(L, dtype=loaded.dtype)
+        off = rng.randint(0, L - n - 1) if L > n else 0
+        data[off:off + n] = loaded
+        ws = 0
+    shift = (off - ws) / sample_rate
+    moved = [(c, on + shift, end + shift) for c, on, end in events]
+    times = np.asarray([[k * seg_seconds, (k + 1) * seg_seconds] for k in range(n_segments)],
+                       dtype=np.float64)
+    return data, segment_events_to_targets(times, moved, num_classes, min_overlap=min_overlap)
+
+
+def strong_window_rng(index: int) -> _random.Random:
+    """The window stream of item ``index`` in deterministic (evaluation)
+    mode: a function of the index only, so threaded loaders score the same
+    windows every epoch."""
+    return _random.Random(0x5ED0 + index)
+
+
+class StrongFramewiseHDF5Dataset(WeakHDF5Dataset):
+    """SED training dataset: one item per file (the manifest rows of a
+    filename are its labeled event intervals, filename/labels/hdf5path/
+    from/to) -> (random window, (n_segments, num_classes) targets,
+    filename), by ``strong_window``. ``deterministic=True`` draws each
+    item's window from ``strong_window_rng(index)``."""
+
+    def __init__(self, data_frame, num_classes: int, n_segments: int, seg_seconds: float,
+                 chunk_length: float = 1.0, sample_rate: int = 16000,
+                 min_overlap: float = 0.5, rng: Optional[_random.Random] = None,
+                 dtype: str = "float32", deterministic: bool = False):
+        import pandas as pd
+
+        from .manifest import events_by_file
+
+        groups = events_by_file(data_frame)
+        df = pd.DataFrame([(f, [e[0] for e in ev], h) for f, h, ev in groups],
+                          columns=["filename", "labels", "hdf5path"])
+        super().__init__(df, num_classes, dtype=dtype)
+        self._events = [ev for _, _, ev in groups]
+        self._sr = sample_rate
+        self._chunk = int(chunk_length * sample_rate)
+        self._n_seg, self._seg_s, self._min_ov = n_segments, seg_seconds, min_overlap
+        self._rng = rng or _random.Random()
+        self._det = deterministic
+
+    def __getitem__(self, index: int):
+        row = self._dataframe.iloc[index]
+        rng = strong_window_rng(index) if self._det else self._rng
+        data, target = strong_window(rng, self._node(row["hdf5path"], row["filename"]),
+                                     self._events[index], self._chunk, self._sr, self._n_seg,
+                                     self._seg_s, self._num_classes, self._min_ov)
+        return _convert(data, self._dtype), target, row["filename"]
+
+
+class UnlabeledRandomChunkedHDF5Dataset(WeakRandomCropHDF5Dataset):
+    """Self-supervised variant: random chunks, all-zero targets; a manifest
+    without a labels column is accepted."""
+
+    def __init__(self, data_frame, chunk_length: float = 2.0, sample_rate: int = 16000,
+                 num_classes: int = 527, rng=None):
+        df = data_frame.copy()
+        if "labels" not in df.columns:
+            df["labels"] = [[] for _ in range(len(df))]
+        super().__init__(df, chunk_length, num_classes, sample_rate, rng)
+
+    def __getitem__(self, index: int):
+        row = self._dataframe.iloc[index]
+        data = self._read(row["hdf5path"], row["filename"])
+        return data, np.zeros(self._num_classes, np.float32), row["filename"]
 
 
 # ----------------------------------------------------------------- batching

@@ -45,7 +45,7 @@ _FAMILIES = {
 
 def get_model_config(name: str, **kwargs):
     if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported")
+        raise NotImplementedError(f"model {name!r} is not yet ported (ROADMAP §A16)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](**kwargs)

@@ -14,6 +14,13 @@ Parameter names mirror the JAX pytree (``features.3.layers.1.conv.kernel``,
 ``features.3.layers.1.bn.mean`` as a buffer). Train mode returns
 ``(probs, new_state)`` with every BN's running statistics (momentum 0.1)
 keyed by buffer name, as ``models.uit.forward`` does.
+
+``compute_dtype='bfloat16'`` rounds each conv's input and kernel to
+bfloat16 and convolves them in float32: the products of two bfloat16
+values are exact in float32, so this is the JAX conv with
+``preferred_element_type=float32`` (bfloat16 operands, float32
+accumulation) up to the order of the sums. BN, ReLU6, the residual adds,
+the classifier and the sigmoid stay float32.
 """
 
 from __future__ import annotations
@@ -30,6 +37,8 @@ from ..augment.mixup import mixup_tensor
 from ..frontend import FrontendConfig, log_mel_spectrogram
 from .common import (BatchNorm, Linear, batch_norm_inference, batch_norm_train, dropout,
                      linear)
+
+BN_MOMENTUM = 0.1  # the running statistics' step toward a train batch's
 
 # (expand_ratio t, out_channels c, repeats n, stride s), reference table
 INVERTED_RESIDUAL_SETTING = (
@@ -53,6 +62,11 @@ class MobileNetV2Config:
     n_mels: int = 64
     frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
     compute_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                             f"got {self.compute_dtype!r}")
 
 
 def _c(ch, width_mult):
@@ -138,12 +152,43 @@ def init(cfg: MobileNetV2Config, generator: torch.Generator) -> MobileNetV2:
     return model
 
 
+def calibrate_bn(cfg: MobileNetV2Config, model: MobileNetV2, wav: torch.Tensor,
+                 frontend_fn=None) -> MobileNetV2:
+    """Set every BN's running statistics to those of ``wav``'s batch as a
+    train forward sees them (new = old + 0.1 (batch - old), solved for
+    batch), each variance floored at the mean of its BN's -> ``model``.
+
+    At ``init`` every BN is the identity and each conv shrinks the
+    activations, so the probabilities are sigmoid(classifier bias) whatever
+    the input. Calibrated on a batch of clips, a teacher with random weights
+    scores what it hears. The floor keeps a near-constant channel from
+    amplifying roundings: without it the calibrated network is chaotic
+    (1e-3 dB on the mel moves a probability by 1e-3)."""
+    with torch.no_grad():
+        _, new_state = forward(cfg, model, wav, train=True, frontend_fn=frontend_fn)
+        buffers = dict(model.named_buffers())
+        for name, value in new_state.items():
+            buf = buffers[name]
+            buf.add_(value - buf, alpha=1.0 / BN_MOMENTUM)
+            if name.endswith(".var"):
+                buf.clamp_(min=buf.mean().item())
+    return model
+
+
 # -------------------------------------------------------------------- forward
 
+def _bf16_rounded(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).float()
+
+
 def _conv_bn_relu6(p: ConvBN, x, stride: int, groups: int, name: str, new_state: dict,
-                   train: bool, momentum: float = 0.1, relu: bool = True):
+                   train: bool, momentum: float = BN_MOMENTUM, relu: bool = True,
+                   bf16: bool = False):
     k = p.conv.kernel.shape[-1]
-    x = F.conv2d(x, p.conv.kernel, stride=stride, padding=(k - 1) // 2, groups=groups)
+    kernel = p.conv.kernel
+    if bf16:
+        x, kernel = _bf16_rounded(x), _bf16_rounded(kernel)
+    x = F.conv2d(x, kernel, stride=stride, padding=(k - 1) // 2, groups=groups)
     if train:
         x, bn = batch_norm_train(p.bn, x, axis=1, momentum=momentum)
         new_state.update({f"{name}.bn.{k}": v for k, v in bn.items()})
@@ -152,18 +197,20 @@ def _conv_bn_relu6(p: ConvBN, x, stride: int, groups: int, name: str, new_state:
     return torch.clamp(x, 0.0, 6.0) if relu else x
 
 
-def _invres_forward(spec, p: InvertedResidual, x, name: str, new_state: dict, train: bool):
+def _invres_forward(spec, p: InvertedResidual, x, name: str, new_state: dict, train: bool,
+                    bf16: bool):
     _, c_in, c_out, stride, t = spec
     hidden = int(round(c_in * t))
     h = x
     layers = list(p.layers)
     i = 0
     if t != 1:
-        h = _conv_bn_relu6(layers[0], h, 1, 1, f"{name}.layers.0", new_state, train)
+        h = _conv_bn_relu6(layers[0], h, 1, 1, f"{name}.layers.0", new_state, train, bf16=bf16)
         i = 1
-    h = _conv_bn_relu6(layers[i], h, stride, hidden, f"{name}.layers.{i}", new_state, train)
+    h = _conv_bn_relu6(layers[i], h, stride, hidden, f"{name}.layers.{i}", new_state, train,
+                       bf16=bf16)
     h = _conv_bn_relu6(layers[i + 1], h, 1, 1, f"{name}.layers.{i + 1}", new_state, train,
-                       relu=False)
+                       relu=False, bf16=bf16)
     return x + h if stride == 1 and c_in == c_out else h
 
 
@@ -173,13 +220,14 @@ def features_forward(cfg: MobileNetV2Config, model: MobileNetV2, mel: torch.Tens
     features, new_state) (new_state empty in eval mode)."""
     x = mel[:, None]  # (B, 1, F, T)
     new_state: dict = {}
+    bf16 = cfg.compute_dtype == "bfloat16"
     for i, (spec, p) in enumerate(zip(layer_specs(cfg), model.features)):
         name = f"features.{i}"
         if spec[0] == "convbnrelu":
             _, _, _, _, stride, groups = spec
-            x = _conv_bn_relu6(p, x, stride, groups, name, new_state, train)
+            x = _conv_bn_relu6(p, x, stride, groups, name, new_state, train, bf16=bf16)
         else:
-            x = _invres_forward(spec, p, x, name, new_state, train)
+            x = _invres_forward(spec, p, x, name, new_state, train, bf16)
     # AdaptiveAvgPool2d((1, None)): average the freq axis, keep time
     return x.mean(dim=2).transpose(1, 2), new_state
 
@@ -190,9 +238,6 @@ def forward(cfg: MobileNetV2Config, model: MobileNetV2, wav: torch.Tensor, *,
     """(B, T_wav) waveform -> (B, outputdim) probs ('dm' head); in train
     mode (probs, new_state). Mixup and the augments follow
     ``models.uit.forward``'s 'bft' rules."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
     if train and wav.dtype == torch.int16 and wav_augment is not None:
         raise ValueError("wav augments expect normalized float32 waveforms; "
                          "train int16 PCM only with wavtransforms: []")
@@ -232,9 +277,6 @@ def forward_framewise(cfg: MobileNetV2Config, model: MobileNetV2, wav: torch.Ten
     (S, 2) float64 seconds). The network is fully convolutional in time, so
     the per-timestep classifier probabilities are the segments: one per
     feature step, total_time_stride mel frames long (0.32 s at defaults)."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
     if frontend_fn is None:
         frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
     feats, _ = features_forward(cfg, model, frontend_fn(wav))

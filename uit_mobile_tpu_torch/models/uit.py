@@ -20,6 +20,13 @@ init_bn running statistics after this batch as a dict keyed by buffer name
 (``init_bn.mean``/``init_bn.var``, momentum 0.01), which the caller writes
 back (``load_state``); the module itself is not changed. Dropout, drop-path,
 patch dropout and the augments draw from an explicit ``torch.Generator``.
+
+``compute_dtype='bfloat16'`` follows the JAX rule: the residual stream is
+bfloat16 from the end of ``_prepare_tokens``; LayerNorm inputs go to
+float32 and come back; the attention and MLP weights and the LayerScale
+gammas are cast to bfloat16 per use (the float32 parameters stay the
+master copy and take the gradients); attention logits and softmax stay
+float32; the final norm and the head run in float32.
 """
 
 from __future__ import annotations
@@ -105,6 +112,8 @@ class UITConfig:
               f"overlapping patches")
         check(not (self.pooling == "dm" and self.freq_patch_out),
               "pooling='dm' is incompatible with freq_patch_out")
+        check(self.compute_dtype in ("float32", "bfloat16"),
+              f"compute_dtype must be 'float32' or 'bfloat16', got {self.compute_dtype!r}")
 
     @property
     def grid_size(self):  # (freq, time) patch grid
@@ -201,6 +210,27 @@ def init(cfg: UITConfig, generator: torch.Generator) -> UiT:
 
 
 # ------------------------------------------------------------------- encoder
+
+def compute_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+class Cast:
+    """A parameter container seen with every tensor cast to ``dtype``, for
+    the functions of models/common.py; the casts are differentiable, so
+    the gradients reach the float32 parameters."""
+
+    def __init__(self, module: nn.Module, dtype: torch.dtype):
+        self._module, self._dtype = module, dtype
+
+    def __getattr__(self, name):
+        value = getattr(self._module, name)
+        if isinstance(value, torch.Tensor):
+            return value.to(self._dtype)
+        if isinstance(value, nn.Module):
+            return Cast(value, self._dtype)
+        return value
+
 
 def _too_few_frames(cfg: UITConfig, T: int):
     ps = cfg.patch_size
@@ -350,7 +380,7 @@ def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None
             ones = torch.ones(B, 1, dtype=torch.bool, device=x.device)
             token_mask = torch.cat([ones, token_mask], dim=1)
     x = dropout(generator, x, cfg.drop_rate, deterministic=not train)
-    return x, token_mask
+    return x.to(compute_dtype(cfg)), token_mask
 
 
 def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor, token_mask=None,
@@ -358,19 +388,22 @@ def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor, token_mask=None,
     """One pre-LN transformer block: (B, N, D) -> (B, N, D); in train mode
     with attention/MLP dropout and drop-path at rate ``dpr_i``."""
     det = not train
-    h = layer_norm(blk.norm1, x, eps=1e-6)
-    h = multihead_attention(blk.attn, h, num_heads=cfg.num_heads,
+    cdt = compute_dtype(cfg)
+    cast = (lambda m: m) if cdt == torch.float32 else (lambda m: Cast(m, cdt))  # noqa: E731
+    # LayerNorm in float32, the matmuls in the compute dtype
+    h = layer_norm(blk.norm1, x.float(), eps=1e-6).to(cdt)
+    h = multihead_attention(cast(blk.attn), h, num_heads=cfg.num_heads,
                             scale=cfg.attn_scale, inner_dim=cfg.inner_dim,
                             causal=cfg.causal, key_mask=token_mask,
                             attn_drop=cfg.attn_drop_rate, proj_drop=cfg.drop_rate,
                             generator=generator, deterministic=det)
     if hasattr(blk, "ls1"):
-        h = h * blk.ls1.gamma
+        h = h * blk.ls1.gamma.to(cdt)
     x = x + drop_path(generator, h, dpr_i, det)
-    h = mlp(blk.mlp, layer_norm(blk.norm2, x, eps=1e-6), act=cfg.act,
+    h = mlp(cast(blk.mlp), layer_norm(blk.norm2, x.float(), eps=1e-6).to(cdt), act=cfg.act,
             drop=cfg.drop_rate, generator=generator, deterministic=det)
     if hasattr(blk, "ls2"):
-        h = h * blk.ls2.gamma
+        h = h * blk.ls2.gamma.to(cdt)
     return x + drop_path(generator, h, dpr_i, det)
 
 
@@ -383,7 +416,7 @@ def _finish_features(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=Non
     for blk, rate in zip(model.blocks, dpr):
         x = block_forward(cfg, blk, x, token_mask=token_mask, dpr_i=rate,
                           train=train, generator=generator)
-    return layer_norm(model.norm, x, eps=1e-6)
+    return layer_norm(model.norm, x.float(), eps=1e-6)
 
 
 def forward_features(cfg: UITConfig, model: UiT, mel: torch.Tensor, token_mask=None,
@@ -416,6 +449,15 @@ def forward_head(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None):
         w = tmask.to(probs_t.dtype)[:, :, None]
         return (probs_t * w).sum(dim=1) / torch.clamp(w.sum(dim=1), min=1.0)
     return probs_t.mean(dim=1)
+
+
+def encode_window(cfg: UITConfig, model: UiT, mel: torch.Tensor, *, train: bool = False,
+                  generator=None) -> torch.Tensor:
+    """Normalized-input core: (B, n_mels, T) mel dB -> (B, outputdim) probs
+    (init_bn with its running statistics, then features and head)."""
+    x = apply_init_bn(cfg, model, mel)
+    feats = forward_features(cfg, model, x, train=train, generator=generator)
+    return forward_head(cfg, model, feats)
 
 
 def apply_init_bn(cfg: UITConfig, model: UiT, mel: torch.Tensor) -> torch.Tensor:
@@ -547,9 +589,6 @@ def forward(cfg: UITConfig, model: UiT, wav: torch.Tensor, *, train: bool = Fals
     Train mode takes ``generator`` for its stochastic parts, mixup lambdas
     (mixed in the mel domain against the flipped batch) and the parsed
     wav/spec augments."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
     masked = cfg.use_length_mask and lengths is not None
     if masked and cfg.mel_layout != "bft":
         raise ValueError(
@@ -616,9 +655,6 @@ def forward_framewise(cfg: UITConfig, model: UiT, wav: torch.Tensor, *,
     windows of the long-clip forward, the tail window overlapping the one
     before as the crop rule sets it. The mean over S is the forward's
     eval_avg='mean' output."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r} is not yet ported; use float32")
     if cfg.mel_layout != "bft":
         raise ValueError("framewise tagging uses the bft layout")
     if frontend_fn is None:
@@ -661,6 +697,46 @@ def forward_head_framewise(cfg: UITConfig, model: UiT, x: torch.Tensor) -> torch
     B, N, D = x.shape
     h = x.reshape(B, fg, N // fg, D).mean(dim=1)  # (B, tg, D)
     return torch.sigmoid(linear(model.head, layer_norm(model.head_norm, h, eps=1e-5)))
+
+
+def forward_train_framewise(cfg: UITConfig, model: UiT, wav: torch.Tensor, *,
+                            generator=None, wav_augment=None, spec_augment=None,
+                            frontend_fn: Optional[Callable] = None):
+    """Train-mode framewise forward for SED: (B, T_wav) single-window clips
+    -> ((B, tg, outputdim) per-time-patch probabilities, new_state).
+
+    The train path of ``forward`` ('bft': wav augments, mel, spec augments,
+    init_bn on batch statistics, features with dropout and drop-path)
+    keeping the dm head's per-segment probabilities for a strong-label
+    loss. No mixup (it has no per-segment target), and a wav augment must
+    preserve time (a shift would move the audio off its targets)."""
+    if cfg.mel_layout != "bft":
+        raise ValueError("framewise training uses the bft layout")
+    if wav.dtype == torch.int16 and wav_augment is not None:
+        raise ValueError(_INT16_WAV_AUGMENT)
+    if spec_augment is not None and getattr(spec_augment, "layout", "bft") != "bft":
+        raise ValueError("framewise training needs spec transforms built with "
+                         "parse_spectransforms(..., layout='bft')")
+    if (wav_augment is not None or spec_augment is not None) and generator is None:
+        raise ValueError("wav/spec augments in train mode need a torch.Generator")
+    if frontend_fn is None:
+        frontend_fn = lambda w: log_mel_spectrogram(w, cfg.frontend)  # noqa: E731
+    if wav_augment is not None:
+        wav = wav_augment(generator, wav)
+    mel = frontend_fn(wav)  # (B, n_mels, T)
+    if spec_augment is not None:
+        mel = spec_augment(generator, mel)
+    new_state = {}
+    if cfg.init_bn:
+        x, bn = batch_norm_train(model.init_bn, mel, axis=-2, momentum=0.01)
+        new_state = {f"init_bn.{k}": v for k, v in bn.items()}
+    else:
+        x = (mel + 10.0) / 40.0
+    if x.shape[-1] > cfg.target_length:
+        raise ValueError("framewise training takes single-window clips of at most "
+                         f"target_length={cfg.target_length} frames")
+    feats = forward_features(cfg, model, x, train=True, generator=generator)
+    return forward_head_framewise(cfg, model, feats), new_state
 
 
 # ------------------------------------------------------------------ factories

@@ -12,10 +12,13 @@ package's npz format. Both the student and the teacher take the fused mel
 kernel through ``ops.mel.make_frontend_fn`` (on a CUDA device the kernel
 launches; a CPU device takes its plain version): the student in its
 ``mel_layout`` at ``frontend_precision``, the teacher through
-``'tfb_to_bft'``.
+``'tfb_to_bft'``. ``psl: {mode: offline, cache: ...}`` loads no teacher:
+the AudioSet dataset draws grid crops whose targets come from a PSL cache
+(data/psl_cache.py) and the step is the plain one. ``pretrained:``
+retargets the positional embeddings to the student's grid before its
+shape-filtered load.
 
-Not yet ported, and raising: ``psl: {mode: offline}`` (the cached-teacher
-dataset), multi-host/mesh training, bfloat16 ``compute_dtype``.
+Not yet ported, and raising: multi-host/mesh training (ROADMAP §A17).
 """
 
 from __future__ import annotations
@@ -34,9 +37,10 @@ import torch
 
 from .. import models
 from ..augment import parse_spectransforms, parse_wavtransforms
-from ..ckpt.convert import module_from_numpy, module_to_numpy
+from ..ckpt.convert import module_from_numpy
 from ..ckpt.io import (average_checkpoints, load_pretrained_partial, load_training_state,
-                       save_checkpoint, save_numpy_checkpoint, save_training_state)
+                       retarget_pos_embeds, save_checkpoint, save_numpy_checkpoint,
+                       save_training_state)
 from ..data import (BalancedSampler, DataLoader, MultiDataLoader, WeakHDF5Dataset,
                     WeakRandomCropHDF5Dataset, device_prefetch, read_tsv_data)
 from ..evaluate.metrics import compute_metrics
@@ -74,6 +78,18 @@ def _json_safe_config(c: dict) -> dict:
     return out
 
 
+def with_ema(model, ema: Optional[dict]):
+    """The model validation scores: ``model``, or a copy of it with the EMA
+    parameters (name -> tensor)."""
+    if ema is None:
+        return model
+    m = copy.deepcopy(model)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(ema[name])
+    return m.eval()
+
+
 class Trainer:
     """One training run on ``device`` ("cuda" unless the caller asks for
     "cpu"; no GPU raises). ``setup()`` builds the model, teacher, loaders,
@@ -105,23 +121,32 @@ class Trainer:
                              device=self.device)
         pretrained = c.get("pretrained")
         if pretrained:
-            from ..cli.common import resolve_model
+            from ..cli.common import resolve_params
 
             log.info(f"initializing from pretrained {pretrained}")
-            _, p_model = resolve_model(pretrained, device="cpu")
-            n = load_pretrained_partial(model, module_to_numpy(p_model)[0])
+            # e.g. MAE pretraining at target_length 1012 -> fine-tuning at 102
+            p_params = retarget_pos_embeds(resolve_params(pretrained)[1], model)
+            n = load_pretrained_partial(model, p_params)
             log.info(f"Loading {n} parameter tensors")
         return cfg, model
 
     def _load_psl(self):
-        """The frozen distillation teacher -> (cfg, model) or (None, None)."""
+        """The frozen distillation teacher -> (cfg, model), or (None, None)
+        without PSL and in offline mode (the targets come from the cache)."""
         psl = self.config.get("psl")
         if psl is None:
             return None, None
         if psl.get("mode") == "offline":
-            raise NotImplementedError(
-                "psl: {mode: offline} (cached teacher targets) is not yet ported; "
-                "train with the in-step teacher (psl: {mode: psl})")
+            if not psl.get("cache"):
+                raise ValueError("psl: {mode: offline} needs cache: <psl_cache.h5> (one file, "
+                                 "a shard glob, or a list — build with cli.psl_cache "
+                                 "[--shard i/N])")
+            from ..data.psl_cache import resolve_cache_paths
+
+            caches = resolve_cache_paths(psl["cache"])  # raises on missing/empty
+            log.info(f"offline PSL: cached teacher targets from "
+                     f"{caches if len(caches) > 1 else caches[0]} (teacher-free train step)")
+            return None, None
         from ..cli.common import resolve_model
 
         spec = psl.get("pretrained")
@@ -150,9 +175,21 @@ class Trainer:
         data_dtype = c.get("data_dtype", "float32")
         ds_counter = iter(range(1000))
         data_seed = c.get("seed", 42)
+        psl = c.get("psl") or {}
+        psl_cache = psl.get("cache") if psl.get("mode") == "offline" else None
 
-        def make_ds(df):
+        def make_ds(df, psl_cache=None):
             rng = _random.Random(data_seed * 1000 + next(ds_counter))
+            if psl_cache is not None:
+                if "from" in df.columns and "to" in df.columns:
+                    raise ValueError("psl: {mode: offline} expects a weak (filename/labels/"
+                                     "hdf5path) audioset manifest — strong interval "
+                                     "manifests have no cached-crop grid")
+                from ..data import PSLCachedRandomCropHDF5Dataset
+
+                return PSLCachedRandomCropHDF5Dataset(
+                    df, chunk_length=chunk_length or 1.0, num_classes=num_classes,
+                    cache_path=psl_cache, rng=rng, dtype=data_dtype)
             if "from" in df.columns and "to" in df.columns:
                 from ..data import WeakChunkedHDF5Dataset
 
@@ -183,15 +220,16 @@ class Trainer:
         batch_size = c["batch_size"]
         num_workers = c.get("num_workers", 2)
 
-        def loader(df, which, bs):
+        def loader(df, which, bs, psl_cache=None):
             sampler = (BalancedSampler(df["labels"], random_state=data_seed)
                        if c.get(which) == "balanced" else None)
-            return DataLoader(make_ds(df), batch_size=bs, num_workers=num_workers,
+            return DataLoader(make_ds(df, psl_cache), batch_size=bs, num_workers=num_workers,
                               sampler=sampler, shuffle=True, drop_last=True, seed=data_seed)
 
         train_loader = MultiDataLoader(
             kws=loader(kws_train, "kws_sampler", c.get("kws_batch_size", batch_size // 2)),
-            audioset=loader(as_train, "as_sampler", c.get("as_batch_size", batch_size // 2)))
+            audioset=loader(as_train, "as_sampler", c.get("as_batch_size", batch_size // 2),
+                            psl_cache))
         import pandas as pd
 
         test_loader = DataLoader(WeakHDF5Dataset(pd.concat((as_eval, kws_eval)),
@@ -234,7 +272,9 @@ class Trainer:
             loss_name=c.get("loss", "BCELoss"), loss_args=c.get("loss_args") or {},
             mixup_alpha=c.get("mixup"), max_grad_norm=c.get("max_grad_norm"),
             psl_cfg=self.psl_cfg, psl_model=self.psl_model,
-            distill_mode=psl.get("mode", "psl"), distill_alpha=psl.get("alpha", 1.0),
+            # offline mode loads no teacher: the step is the plain one
+            distill_mode="psl" if psl.get("mode") == "offline" else psl.get("mode", "psl"),
+            distill_alpha=psl.get("alpha", 1.0),
             distill_classes=psl.get("classes", 527),
             psl_split=c.get("as_batch_size", c["batch_size"] // 2),
             wav_augment=parse_wavtransforms(c.get("wavtransforms", {})),
@@ -360,15 +400,7 @@ class Trainer:
         return output_model
 
     def _eval_model(self, ema: Optional[dict]):
-        """The model validation scores: the student, or a copy of it with
-        the EMA parameters."""
-        if ema is None:
-            return self.model
-        m = copy.deepcopy(self.model)
-        with torch.no_grad():
-            for name, p in m.named_parameters():
-                p.copy_(ema[name])
-        return m.eval()
+        return with_ema(self.model, ema)
 
     def _validate(self, model, epoch, metric: str = "mAP") -> float:
         """Score the test loader; each batch right-pads to the next multiple

@@ -247,7 +247,8 @@ def build_optimizer(name: str, schedule_or_lr, **kwargs) -> OptimizerSpec:
     """Config ``optimizer:`` + ``optimizer_args:`` -> an OptimizerSpec.
     ``schedule_or_lr`` is a float or a function of the update count."""
     if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not yet ported; use Adam, AdamW or SGD")
+        raise NotImplementedError(f"optimizer {name!r} is not yet ported (ROADMAP §A22); "
+                                  f"use Adam, AdamW or SGD")
     if name not in _OPTIMIZERS:
         raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS + _NOT_YET_PORTED)}")
     kwargs = dict(kwargs)
@@ -301,6 +302,23 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
+                     max_grad_norm: Optional[float] = None) -> torch.Tensor:
+    """The tail of every train step: the gradients of ``loss`` over the
+    optimizer's parameters (those the config leaves unused, the cls token
+    under mean pooling, get zero gradients, as JAX gives them), their
+    pre-clip global norm, with ``max_grad_norm`` the scaling by ``min(1,
+    max / (norm + 1e-6))``, the new BN state and the optimizer update ->
+    the pre-clip norm."""
+    grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
+    gnorm = global_norm(grads)
+    if max_grad_norm is not None:
+        grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
+    models.load_state(model, new_state)
+    optimizer.update(list(grads))
+    return gnorm
+
+
 def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = "BCELoss",
                     loss_args: Optional[dict] = None, mixup_alpha: Optional[float] = None,
                     max_grad_norm: Optional[float] = None, psl_cfg=None, psl_model=None,
@@ -333,7 +351,6 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             "(the teacher reads 'bft' mel; build one with "
             "make_frontend_fn(psl_cfg.frontend, layout='tfb_to_bft'))")
     loss_fn = make_loss(loss_name, **(loss_args or {}))
-    params = optimizer.params
 
     def teacher(wav):
         with torch.no_grad():
@@ -379,15 +396,40 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             model_cfg, model, wav, train=True, generator=generator, mixup_lamb=mixup_lamb,
             wav_augment=wav_augment, spec_augment=spec_augment, frontend_fn=frontend_fn)
         loss = loss_fn(probs, target)
-        # parameters the config leaves unused (the cls token under mean
-        # pooling) get zero gradients, as JAX gives them
-        grads = torch.autograd.grad(loss, params, materialize_grads=True)
-        gnorm = global_norm(grads)
-        if max_grad_norm is not None:
-            scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-            grads = torch._foreach_mul(grads, scale)
-        models.load_state(model, new_state)
-        optimizer.update(list(grads))
+        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm)
+        return {"total_loss": loss.detach(), "grad_norm": gnorm}
+
+    return train_step
+
+
+def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
+                              loss_name: str = "BCELoss", loss_args: Optional[dict] = None,
+                              max_grad_norm: Optional[float] = None,
+                              wav_augment: Optional[Callable] = None,
+                              spec_augment: Optional[Callable] = None,
+                              frontend_fn: Optional[Callable] = None) -> Callable:
+    """SED step -> ``train_step(batch, generator) -> {'total_loss',
+    'grad_norm'}``: batch = {'wav': (B, T), 'target': (B, S, C)} per-segment
+    strong-label targets (data.StrongFramewiseHDF5Dataset) against
+    ``models.uit.forward_train_framewise``'s (B, tg, C) probabilities; the
+    loss, backward, pre-clip norm, clipping and optimizer update of
+    ``make_train_step``. No PSL or mixup: neither has per-segment
+    targets."""
+    from ..models import uit as uit_model
+
+    loss_fn = make_loss(loss_name, **(loss_args or {}))
+
+    def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+        wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
+        probs, new_state = uit_model.forward_train_framewise(
+            model_cfg, model, wav, generator=generator, wav_augment=wav_augment,
+            spec_augment=spec_augment, frontend_fn=frontend_fn)
+        if probs.shape != target.shape:
+            raise ValueError(f"segment grid mismatch: model {tuple(probs.shape)} vs targets "
+                             f"{tuple(target.shape)} — chunk_length and target_length must "
+                             f"describe the same window")
+        loss = loss_fn(probs, target)
+        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
     return train_step
