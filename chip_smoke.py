@@ -77,16 +77,34 @@ The rest of training runs after the train phase:
   pretrain  - configs/pretrain_mae.yaml's recipe (target_length 1012, B=64) for
               5 steps; one MAE forward against the CPU with the same noise
               (1e-4); the snapshot into a 102-frame Trainer, card == CPU.
+  export    - uit_xs exported with the kernel (ckpt/artifact.py) at the serving
+              shape (B=256 x 1 s int16 fast: tfb_fast) and at B=4 float32 exact
+              (row_exact), each reloaded from its file and held bitwise or
+              within 1e-6 of make_forward_fn on the card and within 1e-3 of the
+              CPU plain path; batch-polymorphic plain artifacts of 1 s and 3 s
+              clips served through TaggingService.from_artifact (1e-3 of the
+              CPU); cli.export --artifact --kernel --verify, cli.export -o .pt
+              and cli.average; export and load seconds, file sizes, call ms
+              against make_forward_fn's;
+  moe       - uit_xs_moe at full width (8 experts, top-2, target_length 1012)
+              served at B=32 x 10 s int16 exact (row_exact, 1e-3 of the CPU),
+              5 make_moe_train_step steps (AdamW) with step ms, kernels a
+              step, idle share, peak memory and the routed MLP's share; one
+              step against the CPU (frontend and the step after it gated
+              apart, tokens routed differently counted); 3 recipe steps with
+              optimizer Adafactor through the Trainer, one step against the
+              CPU.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Launch counters are set to 0 just before the serve, exact, train, bf16,
-psl_cache scoring, offline, sed, pretrain, each eval, each stream and the http
-path and read just after; comparison launches do not count. Any failure exits non-zero without that last line, as does a machine
+psl_cache scoring, offline, sed, pretrain, each artifact call, each moe path,
+each eval, each stream and the http path and read just after; comparison launches do not count. Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import re
@@ -773,12 +791,12 @@ def frontend_gate(fe, wav: torch.Tensor, precision: str, layout: str) -> dict:
     return rec
 
 
-def train_parity(name: str, info) -> dict:
-    """One train step of a configuration (PSL teacher, AdamW, constant lr,
-    no augments, no dropout, no mixup) from the same weights and batch on
-    the card (the mel kernels) and through the plain path on the CPU.
-    Gates: the step's two frontends (frontend_gate) and step_agreement,
-    params over every element where PARITY says so."""
+def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -> dict:
+    """One train step of a configuration (PSL teacher, AdamW or
+    ``optimizer``, constant lr, no augments, no dropout, no mixup) from the
+    same weights and batch on the card (the mel kernels) and through the
+    plain path on the CPU. Gates: the step's two frontends (frontend_gate)
+    and step_agreement, params over every element where PARITY says so."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
     from uit_mobile_tpu_torch.ops import launches
@@ -803,7 +821,8 @@ def train_parity(name: str, info) -> dict:
     fe = make_frontend_fn(cfg.frontend, precision=precision, layout=layout)
     psl_fe = make_frontend_fn(t_cfg.frontend, precision=precision, layout="tfb_to_bft")
     wav_gpu = torch.from_numpy(wav).to(resolve_device("cuda"))
-    rec = {"phase": "train_parity", "config": name, "B": B, "teacher_B": n_as,
+    rec = {"phase": "train_parity", "config": name, "optimizer": optimizer[0], "B": B,
+           "teacher_B": n_as,
            "mel_layout": layout, "precision": precision, "input": str(wav.dtype),
            "frontend_student": frontend_gate(fe, wav_gpu, precision, layout),
            "frontend_teacher": frontend_gate(psl_fe, wav_gpu[:n_as], precision, "bft")}
@@ -812,7 +831,8 @@ def train_parity(name: str, info) -> dict:
         dev = resolve_device(dev_name)
         model = module_from_numpy(cfg, *student, device=dev)
         t_model = module_from_numpy(t_cfg, *teacher, device=dev).requires_grad_(False)
-        opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+        opt = build_optimizer(optimizer[0], 1e-3, **optimizer[1]).init(model)
+        grads = step_grads(opt)
         step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
                                psl_split=n_as, frontend_fn=fe, psl_frontend_fn=psl_fe)
         before = dict(launches)
@@ -823,8 +843,7 @@ def train_parity(name: str, info) -> dict:
         rec[f"{dev_name}_step_s"] = time.perf_counter() - t0
         rec[f"{dev_name}_launches"] = {k: launches[k] - before[k] for k in before}
         runs[dev_name] = (loss, m["grad_norm"].item(),
-                          {k: v.detach().cpu() for k, v in model.named_parameters()},
-                          adam_step_grads(opt))
+                          {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
     check(rec["cuda_launches"][variant] == 2,
           f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
     rec.update(step_agreement(runs, all_params), card=info["nvidia_smi"])
@@ -833,10 +852,17 @@ def train_parity(name: str, info) -> dict:
     return rec
 
 
-def adam_step_grads(opt) -> dict:
-    """The gradients of an Adam-family optimizer's first update: its first
-    moment is then (1 - b1) x the step's gradient."""
-    return {n: (mu / 0.1).cpu() for n, mu in zip(opt.names, opt.moments[0])}
+def step_grads(opt) -> dict:
+    """{name: gradient} of the optimizer's next update, filled in when it
+    is applied (the gradients after any clipping)."""
+    grads, update = {}, opt.update
+
+    def recorded(g):
+        grads.update({n: v.detach().cpu().clone() for n, v in zip(opt.names, g)})
+        return update(g)
+
+    opt.update = recorded
+    return grads
 
 
 def step_agreement(runs: dict, all_params: bool) -> dict:
@@ -855,6 +881,8 @@ def step_agreement(runs: dict, all_params: bool) -> dict:
         excluded += int((~keep).sum())
         worst = max(worst, (v - p_c[k])[keep].abs().max().item())
         worst_all = max(worst_all, (v - p_c[k]).abs().max().item())
+    rel = {k: (g_g[k] - g_c[k]).abs() / g_c[k].abs().max().clamp(min=1e-30) for k in g_c}
+    worst_grad = max(rel, key=lambda k: rel[k].max().item())
     rec = {
         "loss_gpu": l_g, "loss_cpu": l_c, "loss_rel_err": abs(l_g - l_c) / abs(l_c),
         "grad_norm_gpu": n_g, "grad_norm_cpu": n_c, "grad_norm_rel_err": abs(n_g - n_c) / abs(n_c),
@@ -862,8 +890,8 @@ def step_agreement(runs: dict, all_params: bool) -> dict:
         "params_gate_every_element": all_params,
         "params_excluded_small_grad": excluded,
         "params_total": sum(v.numel() for v in p_g.values()),
-        "max_grad_rel_diff": max(((g_g[k] - g_c[k]).abs().max() /
-                                  g_c[k].abs().max().clamp(min=1e-30)).item() for k in g_c)}
+        "max_grad_rel_diff": rel[worst_grad].max().item(), "worst_grad_tensor": worst_grad,
+        "grad_elements_over_1e-4": int(sum((r > 1e-4).sum() for r in rel.values()))}
     rec["agrees"] = (rec["loss_rel_err"] <= 1e-4 and rec["grad_norm_rel_err"] <= 1e-3
                      and rec["max_grad_rel_diff"] <= 1e-4
                      and (worst_all if all_params else worst) <= 1e-5)
@@ -942,21 +970,25 @@ KERNEL_GROUPS = (("mel", ("mel_kernel",)), ("conv", ("conv", "cudnn", "implicit"
                  ("reduce", ("reduce", "norm", "softmax")))
 
 
-def profile_steps(step, step_ms: float, n: int = 5) -> dict:
+def profile_steps(step, step_ms: float, n: int = 5, spans: dict | None = None) -> dict:
     """torch.profiler over n steps: the device's busy time a step (the union
     of its kernels', memcpys' and memsets' intervals), its idle share of the
     CUDA-event step time, the kernels launched a step, and the busy time by
-    kind of kernel. None where the trace holds no device event."""
+    kind of kernel. ``spans`` {name: device_us(events)} (moe_mlp_span's)
+    adds each span's device ms a step and its share of the busy time. None
+    where the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    spans = spans or {}
     step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a span's record_function range also shows on the device's timeline
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in spans]
     if not dev:
         return {"device_busy_ms": None, "device_idle_share": None, "kernels_per_step": None}
     busy, end = 0.0, float("-inf")
@@ -972,9 +1004,13 @@ def profile_steps(step, step_ms: float, n: int = 5) -> dict:
     busy_ms = busy / n / 1e3
     # not clamped: a busy time above the CUDA-event step shows as a negative
     # share, i.e. the two readings disagree
-    return {"device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / step_ms,
-            "kernels_per_step": len(dev) / n,
-            "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    out = {"device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / step_ms,
+           "kernels_per_step": len(dev) / n,
+           "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    for name, device_us in spans.items():
+        out[f"{name}_device_ms"] = device_us(prof.events()) / n / 1e3
+        out[f"{name}_share_of_busy"] = out[f"{name}_device_ms"] / busy_ms
+    return out
 
 
 def phase_train(info) -> tuple:
@@ -1376,12 +1412,12 @@ def phase_sed(info) -> dict:
                              ("cpu_card_mel", "cpu", lambda w: card_mel)):
         model = module_from_numpy(cfg, *init, device=dev)
         opt = build_optimizer("AdamW", 1e-3).init(model)
+        grads = step_grads(opt)
         steps[run] = make_framewise_train_step(cfg, model, opt, max_grad_norm=1.0,
                                                frontend_fn=run_fe)
         m = steps[run]({k: v.to(dev) for k, v in batch.items()})
         runs[run] = (m["total_loss"].item(), m["grad_norm"].item(),
-                     {k: v.detach().cpu() for k, v in model.named_parameters()},
-                     adam_step_grads(opt))
+                     {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
     whole = step_agreement(runs, all_params=False)
     agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), all_params=False)
     step_ms = time_ms(lambda: steps["cuda"](card_batch), warmup=2, iters=10)
@@ -1488,6 +1524,385 @@ def phase_pretrain(info) -> dict:
     check(rel <= 1e-4 and load_diff == 0.0 and tpe == (6, 128),
           f"pretrain on the card vs the CPU: loss {losses}, load diff {load_diff}, {tpe}")
     return counts
+
+
+# ------------------------------------------------------ deployable artifacts
+
+# (artifact, B, input dtype, precision, the kernel its program launches): the
+# serving shape (int16 fast, the transposed kernel), exported here, and the
+# exact path's B=4, exported by cli.export --artifact --kernel --verify
+EXPORTS = (("serving", 256, "int16", "fast", "tfb_fast"),
+           ("exact", 4, "float32", "exact", "row_exact"))
+
+
+def phase_export(cfg, cpu_model, info) -> dict:
+    """The deployable artifact of uit_xs (ckpt/artifact.py) on the card: each
+    of EXPORTS exported with the kernel at a fixed batch (the exact one by
+    cli.export --artifact --kernel --verify from the seed-1234 checkpoint),
+    written, reloaded from its file and called (counts set to 0 just before
+    each call and read just after: its kernel once, no other); held bitwise
+    or within 1e-6 of make_forward_fn on the card and within 1e-3 of the
+    CPU plain path. One batch-polymorphic plain artifact of 3 s clips
+    served through TaggingService.from_artifact on the card, 1 s clips
+    (right-zero-padded to its bucket) and 3 s clips, within 1e-3 of the
+    CPU's plain forward of the padded clips. cli.export -o x.pt and
+    cli.average in this process. -> summed launch counts."""
+    from uit_mobile_tpu_torch.ckpt.artifact import export_serving, load_artifact, save_artifact
+    from uit_mobile_tpu_torch.cli.average import main as average_main
+    from uit_mobile_tpu_torch.cli.export import main as export_main
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
+
+    rng = np.random.default_rng(30)
+    gpu_model = copy.deepcopy(cpu_model).cuda().eval()
+    counts = {k: 0 for k in launches}
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    npz = OUT_DIR / "uit_xs_seed1234.npz"
+    for name, B, dtype, precision, variant in EXPORTS:
+        path = OUT_DIR / f"uit_xs_{name}.uitx"
+        t0 = time.perf_counter()
+        if name == "exact":
+            cli_stdout(export_main, [str(npz), "-o", str(path), "--artifact", "--kernel",
+                                     "--batch-size", str(B), "--dtype", dtype,
+                                     "--precision", precision, "--verify"])
+        else:
+            save_artifact(path, export_serving(cfg, cpu_model, batch_size=B, dtype=dtype,
+                                               precision=precision, use_kernel=True,
+                                               device="cuda"), cfg=cfg)
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fn, meta = load_artifact(path)
+        load_s = time.perf_counter() - t0
+        pcm = pcm_batch(rng, B, SR)
+        wav = pcm if dtype == "int16" else pcm.astype(np.float32) / 32768.0
+        x = torch.from_numpy(wav).cuda()
+        torch.cuda.synchronize()
+        reset_launches()
+        got = fn(x)
+        torch.cuda.synchronize()
+        run = dict(launches)
+        for k, v in run.items():
+            counts[k] += v
+        fwd = make_forward_fn(cfg, gpu_model, use_kernel=True, precision=precision,
+                              top_db_mode="per_sample")
+        card = (got - fwd(x)).abs().max().item()
+        cpu = float(np.abs(got.cpu().numpy()
+                           - cpu_reference(cfg, cpu_model, wav, precision, "per_sample")).max())
+        rec = {"phase": "export", "artifact": name, "B": B, "input": dtype,
+               "precision": precision, "launches": run,
+               "exported_by": "cli.export --verify" if name == "exact" else "export_serving",
+               "export_s": export_s, "load_s": load_s,
+               "file_bytes": path.stat().st_size, "max_abs_diff_vs_forward_on_card": card,
+               "max_abs_drift_vs_cpu": cpu, "call_ms": time_ms(lambda: fn(x)),
+               "make_forward_fn_ms": time_ms(lambda: fwd(x)), "card": info["nvidia_smi"]}
+        emit(rec)
+        check(meta["use_kernel"] and meta["input_shape"] == [str(B), str(SR)],
+              f"export {name}: meta {meta['input_shape']}")
+        check(run[variant] == 1 and sum(run.values()) == 1,
+              f"export {name}: the reloaded artifact did not launch {variant} once: {run}")
+        check(card <= 1e-6 and cpu <= 1e-3,
+              f"export {name}: {card} from make_forward_fn on the card, {cpu} from the CPU")
+    # a batch-polymorphic plain artifact behind TaggingService.from_artifact
+    t0 = time.perf_counter()
+    exported = export_serving(cfg, cpu_model, n_samples=3 * SR, dtype="int16", device="cuda")
+    export_s = time.perf_counter() - t0
+    path = save_artifact(OUT_DIR / "uit_xs_poly_3s.uitx", exported, cfg=cfg,
+                         labels={"0": "Speech"})
+    clips = list(pcm_batch(rng, 32, SR)) + list(pcm_batch(rng, 16, 3 * SR))
+    svc = TaggingService.from_artifact(path, ServiceConfig(batch_size=16, dtype="int16"))
+    try:
+        check(svc.artifact_meta["labels"] == {"0": "Speech"} and svc.cfg.max_seconds == 3,
+              f"from_artifact: {svc.cfg}")
+        got = np.stack(svc.infer_many(clips))
+    finally:
+        svc.close()
+    padded = np.stack([np.pad(c, (0, 3 * SR - len(c))) for c in clips])
+    want = make_forward_fn(cfg, cpu_model, use_kernel=False,
+                           top_db_mode="per_sample")(padded).numpy()
+    drift = {f"{secs}s": float(np.abs(got[sl] - want[sl]).max())
+             for secs, sl in ((1, slice(0, 32)), (3, slice(32, None)))}
+    emit({"phase": "export", "artifact": "poly_3s", "served_clips": {"1s": 32, "3s": 16},
+          "export_s": export_s, "file_bytes": path.stat().st_size,
+          "max_abs_drift_vs_cpu": drift, "card": info["nvidia_smi"]})
+    check(got.shape == (len(clips), cfg.outputdim) and max(drift.values()) <= 1e-3,
+          f"from_artifact 1 s and 3 s clips: {got.shape}, drift {drift} from the CPU")
+    t0 = time.perf_counter()
+    cli_stdout(export_main, [str(npz), "-o", str(OUT_DIR / "cli.pt")])
+    cli_stdout(average_main, [str(npz), str(npz), "-o", str(OUT_DIR / "cli_avg.npz")])
+    pt = torch.load(OUT_DIR / "cli.pt")
+    check("patch_embed.proj.weight" in pt, f"cli.export .pt keys {sorted(pt)[:4]}")
+    emit({"phase": "export", "clis": ["export -o .pt", "average"],
+          "wall_s": time.perf_counter() - t0})
+    return counts
+
+
+# --------------------------------------------------------------------- MoE
+
+MOE_B = 32  # clips of 10 s (target_length 1012: 252 tokens a clip)
+
+
+def moe_batch(seed: int):
+    """(MOE_B, 10 s) int16 eventful clips of data/synthworld.py and their
+    multihot targets (537 classes)."""
+    from uit_mobile_tpu_torch.data import multihot
+    from uit_mobile_tpu_torch.data.synthworld import eventful_labels, synth_eventful_clip
+
+    rng = np.random.default_rng(seed)
+    labels = [eventful_labels(rng) for _ in range(MOE_B)]
+    pcm = np.stack([synth_eventful_clip(rng, lab) for lab in labels])
+    return pcm, np.stack([multihot(lab, 537) for lab in labels])
+
+
+def record_routing(moe_mod, sink: list):
+    """Wrap models/moe.py's _top_k so that each call's expert indices are
+    appended to ``sink`` (on the CPU) -> a function that restores it."""
+    orig = moe_mod._top_k
+
+    def recorded(gates, k):
+        values, idx = orig(gates, k)
+        sink.append(idx.detach().cpu())
+        return values, idx
+
+    moe_mod._top_k = recorded
+    return lambda: setattr(moe_mod, "_top_k", orig)
+
+
+def expert_relu(moe_mod, record: list | None = None, masks: list | None = None):
+    """Route the experts' ReLU (models/moe.py looks it up in ACTIVATIONS at
+    each call; nothing else in uit_xs_moe does) through a wrapper, one call
+    a block in forward order: ``record`` gets each call's input on the CPU;
+    ``masks`` (one bool tensor a call) replace the sign test, so that the
+    input and its gradient pass where the mask is set -> a function that
+    restores the table."""
+    table, relu = moe_mod.ACTIVATIONS, moe_mod.ACTIVATIONS["relu"]
+    forced = iter(masks or ())
+
+    def wrapped(x):
+        if record is not None:
+            record.append(x.detach().cpu())
+        if masks is None:
+            return relu(x)
+        return torch.where(next(forced).to(x.device), x, torch.zeros((), dtype=x.dtype,
+                                                                      device=x.device))
+
+    table["relu"] = wrapped
+    return lambda: table.__setitem__("relu", relu)
+
+
+def relu_flips(a: list, b: list) -> dict:
+    """The experts' ReLU inputs of two runs (one tensor a block) -> how many
+    fall on different sides of 0, the largest |input| among those on either
+    run, and the largest |input| of all."""
+    n, near = 0, 0.0
+    for x, y in zip(a, b):
+        d = (x > 0) != (y > 0)
+        n += int(d.sum())
+        if d.any():
+            near = max(near, x[d].abs().max().item(), y[d].abs().max().item())
+    return {"relu_inputs": sum(x.numel() for x in a), "relu_sign_flips": n,
+            "relu_flip_max_abs_input": near,
+            "relu_max_abs_input": max(x.abs().max().item() for x in a)}
+
+
+def moe_mlp_span(moe_mod):
+    """Wrap models/moe.py's moe_mlp (block_forward looks it up at each call)
+    in a record_function range, and note the autograd nodes of each call
+    (those between its outputs and its input, by name and sequence number)
+    -> (restore, device_us): device_us(profiler events) sums the device
+    time of the kernels launched inside the ranges (the forward) and inside
+    those nodes (their backward)."""
+    from torch.autograd import DeviceType
+
+    orig, nodes = moe_mod.moe_mlp, set()
+
+    def wrapped(cfg, p, x):
+        with torch.profiler.record_function("moe_mlp"):
+            y, aux = orig(cfg, p, x)
+        key = lambda fn: (fn.name(), fn._sequence_nr())  # noqa: E731
+        todo, seen = [y.grad_fn, aux.grad_fn], set()
+        stop = None if x.grad_fn is None else key(x.grad_fn)
+        while todo:
+            fn = todo.pop()
+            if fn is None or key(fn) == stop or key(fn) in seen:
+                continue
+            seen.add(key(fn))
+            if "AccumulateGrad" not in fn.name():
+                nodes.add(key(fn))
+            todo.extend(f for f, _ in fn.next_functions)
+        return y, aux
+
+    def device_us(events) -> float:
+        return sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU
+                   and (e.name == "moe_mlp" or (e.name, e.sequence_nr) in nodes))
+
+    moe_mod.moe_mlp = wrapped
+    return (lambda: setattr(moe_mod, "moe_mlp", orig)), device_us
+
+
+def profile_moe(moe_mod, step, step_ms: float) -> dict:
+    """profile_steps over 3 steps with moe_mlp's span: its device time a
+    step and its share of the device's busy time."""
+    restore, device_us = moe_mlp_span(moe_mod)
+    try:
+        prof = profile_steps(step, step_ms, n=3, spans={"moe_mlp": device_us})
+    finally:
+        restore()
+    share = prof.get("moe_mlp_share_of_busy")
+    check(share is None or 0.0 < share <= 1.0, f"moe_mlp's share of the busy time: {share}")
+    return prof
+
+
+def phase_moe(info) -> dict:
+    """uit_xs_moe at full width (D=128, depth 12, 8 experts, top-2, capacity
+    2.0, target_length 1012, outputdim 537) on the card, counts set to 0
+    just before each path and read just after:
+      serve - make_forward_fn with the kernel at B=32 x 10 s int16 exact
+              (row_exact through 'tfb_to_bft'), within 1e-3 of the CPU plain
+              path; profiled, moe_mlp's share of the busy time;
+      train - 5 make_moe_train_step steps (B=32 x 10 s, AdamW, the exact
+              kernel), timed and profiled (moe_mlp's share), peak memory;
+              one step from the same weights held against the CPU with the
+              frontend (frontend_gate) and the step after it gated apart,
+              as the SED phase does, the tokens whose experts differ and
+              the experts' ReLU inputs whose sign differs counted;
+      adafactor - 3 recipe steps through the Trainer with optimizer
+              Adafactor, one step held against the CPU (train_parity).
+    -> {path: launch counts}."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.models import moe
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.parallel import make_moe_train_step
+    from uit_mobile_tpu_torch.train import build_optimizer
+
+    cfg = models.get_model_config("uit_xs_moe", outputdim=537, target_length=1012)
+    init = module_to_numpy(models.build(cfg, torch.Generator().manual_seed(40), "cpu"))
+    cpu_model = module_from_numpy(cfg, *init, device="cpu")
+    gpu_model = module_from_numpy(cfg, *init, device="cuda")
+    counts = {}
+    # serve
+    pcm, target = moe_batch(41)
+    x = torch.from_numpy(pcm).cuda()
+    fwd = make_forward_fn(cfg, gpu_model, use_kernel=True, precision="exact")
+    torch.cuda.synchronize()
+    reset_launches()
+    probs = fwd(x)
+    torch.cuda.synchronize()
+    counts["serve"] = dict(launches)
+    want = cpu_reference(cfg, cpu_model, pcm, "exact", None, chunk=MOE_B)
+    serve_drift = float(np.abs(probs.cpu().numpy() - want).max())
+    forward_ms = time_ms(lambda: fwd(x), warmup=1, iters=5)
+    rec = {"phase": "moe", "path": "serve", "B": MOE_B, "seconds": 10, "input": "int16",
+           "precision": "exact", "launches": counts["serve"], "max_abs_drift_vs_cpu": serve_drift,
+           "forward_ms": forward_ms, "clips_per_s": MOE_B * 1e3 / forward_ms,
+           **profile_moe(moe, lambda: fwd(x), forward_ms), "card": info["nvidia_smi"]}
+    emit(rec)
+    check(probs.shape == (MOE_B, 537) and serve_drift <= 1e-3,
+          f"moe serve: {tuple(probs.shape)}, drift {serve_drift} from the CPU plain path")
+    check(counts["serve"]["row_exact"] == 1, f"moe serve did not launch row_exact: {counts['serve']}")
+    # train
+    fe = make_frontend_fn(cfg.frontend, precision="exact", layout="bft")
+    model = module_from_numpy(cfg, *init, device="cuda").train()
+    opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+    step = make_moe_train_step(cfg, model, opt, frontend_fn=fe)
+    t = torch.from_numpy(target).cuda()
+    start = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    metrics = [step(x, t) for _ in range(5)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts["train"] = dict(launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["total_loss"].item() for m in metrics]
+    moved = [k for k, v in model.state_dict().items() if not torch.equal(v, start[k])]
+    check(counts["train"]["row_exact"] == 5 and all(np.isfinite(losses)),
+          f"moe train: launches {counts['train']}, losses {losses}")
+    last = f"blocks.{cfg.base.depth - 1}.moe"
+    check("init_bn.mean" in moved and f"{last}.router.kernel" in moved
+          and f"{last}.fc2.kernel" in moved,
+          f"moe train: moved {len(moved)} tensors")
+    step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
+    prof = profile_moe(moe, lambda: step(x, t), step_ms)
+    # one step on the card against the CPU, from the same weights: through
+    # the plain mel (the whole step), through the card's mel (the step after
+    # the frontend), and through the card's mel and the card's expert ReLU
+    # signs (the step after the frontend but for the ReLUs whose input the
+    # two devices' sums put on different sides of 0)
+    pcm1, target1 = moe_batch(43)
+    batch = (torch.from_numpy(pcm1), torch.from_numpy(target1))
+    frontend = frontend_gate(fe, batch[0].cuda(), "exact", "bft")
+    card_mel = fe(batch[0].cuda()).cpu()
+    runs, routes, relu_in, run_s = {}, {}, {"cuda": [], "cpu_card_mel": []}, {}
+    for run, dev, run_fe in (("cuda", "cuda", fe), ("cpu", "cpu", fe),
+                             ("cpu_card_mel", "cpu", lambda w: card_mel),
+                             ("cpu_card_mel_card_relu", "cpu", lambda w: card_mel)):
+        m = module_from_numpy(cfg, *init, device=dev).train()
+        o = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
+        grads = step_grads(o)
+        routes[run] = []
+        masks = [v > 0 for v in relu_in["cuda"]] if run.endswith("card_relu") else None
+        restores = (record_routing(moe, routes[run]),
+                    expert_relu(moe, record=relu_in.get(run), masks=masks))
+        t0 = time.perf_counter()
+        try:
+            r = make_moe_train_step(cfg, m, o, frontend_fn=run_fe)(*(v.to(dev) for v in batch))
+            runs[run] = (r["total_loss"].item(), r["grad_norm"].item(),
+                         {k: v.detach().cpu() for k, v in m.named_parameters()}, grads)
+        finally:
+            for restore in restores:
+                restore()
+        run_s[run] = time.perf_counter() - t0
+
+    def flips(a, b):  # tokens whose chosen experts differ, summed over the blocks
+        return int(sum((x != y).any(-1).sum() for x, y in zip(routes[a], routes[b])))
+
+    whole = step_agreement(runs, all_params=False)
+    after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), all_params=False)
+    masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), all_params=False)
+    rec = {"phase": "moe", "path": "train", "B": MOE_B, "steps": 5, "optimizer": "AdamW",
+           "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
+           "clips_per_s": MOE_B * 1e3 / step_ms, "peak_memory_bytes": peak, **prof,
+           "frontend": frontend, "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": after,
+           "step_vs_cpu_on_card_mel_and_relu_signs": masked,
+           "relu_card_vs_cpu_on_card_mel": relu_flips(relu_in["cuda"], relu_in["cpu_card_mel"]),
+           "routing_decisions": int(sum(r.shape[0] * r.shape[1] for r in routes["cuda"])),
+           "tokens_routed_differently_vs_cpu_plain": flips("cuda", "cpu"),
+           "tokens_routed_differently_vs_cpu_on_card_mel": flips("cuda", "cpu_card_mel"),
+           "tokens_routed_differently_vs_cpu_on_card_mel_and_relu_signs":
+               flips("cuda", "cpu_card_mel_card_relu"),
+           "parity_run_s": run_s, "card": info["nvidia_smi"]}
+    emit(rec)
+    # After the frontend the routing must be identical. Every gate of
+    # step_agreement holds once the CPU takes the card's ReLU signs; without
+    # them the gradients are held at 1e-3 of their tensor's largest: an
+    # expert's ReLU input that the two devices' sums put on either side of
+    # 0 moves that slot's share of its expert's fc1/fc2 gradient, and an
+    # expert sums at most C = 1,008 slots where the dense MLP sums 8,064
+    # tokens (relu_card_vs_cpu_on_card_mel counts those inputs).
+    check(whole["loss_rel_err"] <= 1e-4 and masked["agrees"]
+          and after["loss_rel_err"] <= 1e-4 and after["grad_norm_rel_err"] <= 1e-3
+          and after["max_grad_rel_diff"] <= 1e-3 and after["params_max_abs_diff"] <= 1e-5
+          and rec["tokens_routed_differently_vs_cpu_on_card_mel"] == 0
+          and rec["tokens_routed_differently_vs_cpu_on_card_mel_and_relu_signs"] == 0,
+          f"moe step on the card vs the CPU: {whole}, on the card's mel {after}, "
+          f"and its ReLU signs {masked}")
+    # Adafactor through the Trainer: 3 recipe steps, one step against the CPU
+    trainer, out, counts["adafactor"], trec = drive_trainer(ADAFACTOR, info)
+    check(counts["adafactor"]["row_exact"] > 0,
+          f"adafactor: the train path never launched row_exact: {counts['adafactor']}")
+    emit({"phase": "moe", "path": "adafactor", **trec})
+    shutil.rmtree(out.parent, ignore_errors=True)
+    train_parity("recipe", info, optimizer=("Adafactor", {}))
+    return counts
+
+
+# configs/train_uit_xs.yaml's recipe with optimizer Adafactor, cut to 3 steps
+ADAFACTOR = dict(RECIPE, optimizer="Adafactor", optimizer_args={"lr": 0.001}, epochs=1,
+                 epoch_length=3, valid_every=1)
 
 
 # ---------------------------------------------------------------- evaluation
@@ -2204,25 +2619,36 @@ def main() -> int:
     dev = resolve_device("cuda")  # also switches TF32 off
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    wall = {}
+
+    def timed(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        wall[name] = time.perf_counter() - t0
+        return out
+
     info = phase_device()
-    phase_build()
-    records = phase_kernels(dev)
+    timed("build", phase_build)
+    records = timed("kernels", phase_kernels, dev)
 
     cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
     cpu_model = models.build(cfg, torch.Generator().manual_seed(1234), device="cpu")
     gpu_model = models.build(cfg, torch.Generator().manual_seed(1234), device="cuda")
-    serve_counts = phase_serve(cfg, cpu_model, info)
-    exact_counts = phase_exact(cfg, cpu_model, gpu_model)
-    phase_forward(cfg, gpu_model, records, info)
-    train_counts, recipe_npz = phase_train(info)
-    bf16_counts = phase_bf16(info)
-    psl_cache_counts, offline_counts = phase_psl_cache(info)
-    sed_counts = phase_sed(info)
-    pretrain_counts = phase_pretrain(info)
-    eval_counts = phase_eval(recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
-    stream_counts = phase_stream(cfg, cpu_model, info)
-    http_counts = phase_http(cfg, cpu_model, info)
-    phase_bench(info)
+    serve_counts = timed("serve", phase_serve, cfg, cpu_model, info)
+    exact_counts = timed("exact", phase_exact, cfg, cpu_model, gpu_model)
+    timed("forward", phase_forward, cfg, gpu_model, records, info)
+    train_counts, recipe_npz = timed("train", phase_train, info)
+    bf16_counts = timed("bf16", phase_bf16, info)
+    psl_cache_counts, offline_counts = timed("psl_cache", phase_psl_cache, info)
+    sed_counts = timed("sed", phase_sed, info)
+    pretrain_counts = timed("pretrain", phase_pretrain, info)
+    export_counts = timed("export", phase_export, cfg, cpu_model, info)
+    moe_counts = timed("moe", phase_moe, info)
+    eval_counts = timed("eval", phase_eval, recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
+    stream_counts = timed("stream", phase_stream, cfg, cpu_model, info)
+    http_counts = timed("http", phase_http, cfg, cpu_model, info)
+    timed("bench", phase_bench, info)
+    emit({"phase_wall_s": wall})
 
     def timing(rec):
         return {"shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",
@@ -2249,6 +2675,8 @@ def main() -> int:
             "offline_launches": offline_counts[variant],
             "sed_launches": sed_counts[variant],
             "pretrain_launches": pretrain_counts[variant],
+            "export_launches": export_counts[variant],
+            "moe_launches": {path: c[variant] for path, c in moe_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

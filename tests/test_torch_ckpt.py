@@ -63,5 +63,10 @@ def test_config_round_trip_and_unported_kinds():
     assert config_from_dict(config_to_dict(cfg)) == cfg
     teacher = models.get_model_config("MobileNetV2", outputdim=527)
     assert config_from_dict(config_to_dict(teacher)) == teacher
+    # the MoE's config nests its base; neither package rebuilds it from a dict
+    moe = config_to_dict(models.get_model_config("uit_xs_moe", outputdim=37))
+    assert moe["base"]["outputdim"] == 37 and moe["__model_config__"] == "MoEUITConfig"
+    with pytest.raises(NotImplementedError, match="cannot rebuild an MoEUITConfig"):
+        config_from_dict(moe)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        config_from_dict({"__model_config__": "MoEUITConfig"})
+        config_from_dict({"__model_config__": "SomeOtherConfig"})

@@ -108,6 +108,9 @@ def test_port_imports_without_jax():
     assert {f"uit_mobile_tpu_torch.{m}" for m in
             ("ckpt.torch_convert", "data.psl_cache", "cli.psl_cache", "train.sed",
              "train.pretrain")} <= set(mods)
+    assert {f"uit_mobile_tpu_torch.{m}" for m in
+            ("ckpt.artifact", "ckpt.dcp_io", "cli.export", "cli.average", "models.moe",
+             "parallel.ep")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

@@ -136,3 +136,23 @@ def test_fast_kernel_hop_not_a_multiple_of_8(cuda):
 @pytest.mark.gpu
 def test_exact_kernel_hop_not_a_multiple_of_8(cuda):
     _check_variants(cuda, 65, 16001, 157, "exact")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B, variant", [(4, "row_fast"), (mel_ops.TFB_MIN_BATCH, "tfb_fast"),
+                                        (4, "row_exact"), (mel_ops.TFB_MIN_BATCH, "tfb_exact")])
+def test_eager_log_mel_through_the_op_is_the_ctypes_launch(cuda, B, variant):
+    """log_mel calls the kernel through the custom op
+    (uit_mobile_tpu_torch::log_mel_rows): bitwise the direct ctypes launch,
+    counted once per call."""
+    layout, precision = variant.split("_")
+    fe = FrontendConfig()
+    pcm = torch.from_numpy(_pcm(B, seed=11)).to(cuda)
+    before = mel_ops.launches[variant]
+    got = mel_ops.log_mel(pcm, fe, precision=precision, layout="tfb" if layout == "tfb" else "btf")
+    assert mel_ops.launches[variant] == before + 1
+    wp = mel_ops.reflect_pad(pcm, fe.n_fft // 2).contiguous()
+    mats = mel_ops._matrices(fe, True, precision, cuda)
+    raw = mel_ops.cuda_log_mel_rows(wp, mats, precision, fe.hop_length, layout == "tfb")
+    assert fe.top_db_mode == "torch"  # the batch-global clamp
+    assert torch.equal(got, torch.maximum(raw, raw.max() - fe.top_db))

@@ -172,8 +172,9 @@ def test_serve_cli_low_latency_preset(ckpts, capsys, monkeypatch):
 
 
 def test_serve_cli_refusals_name_their_roadmap_items(ckpts):
-    with pytest.raises(NotImplementedError, match="§A14"):
-        serve_main(["--artifact", "model.uitx", "--device", "cpu"])
+    # artifact serving is ported: a missing artifact is a missing file
+    with pytest.raises(FileNotFoundError):
+        serve_main(["--artifact", "no_such_model.uitx", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="§A17"):
         serve_main(["-m", str(ckpts[0]), "--data-parallel", "--device", "cpu"])
 

@@ -107,3 +107,25 @@ def test_tag_and_events_round_trip_on_the_card(cuda, model):
     card_probs, _ = fw(pcm.astype(np.float32) / 32768.0)
     assert np.abs(card_probs - probs).max() <= TOL
     assert ev["duration"] == 2.5 and isinstance(ev["events"], list)
+
+
+@pytest.mark.gpu
+def test_kernel_artifact_on_the_card_counts_its_launches(cuda, model, tmp_path):
+    """An artifact exported with the kernel at a fixed batch, reloaded from
+    its file: each call launches the kernel once (the op's CUDA
+    implementation counts it) and agrees with make_forward_fn on the card."""
+    from uit_mobile_tpu_torch.ckpt.artifact import export_serving, load_artifact, save_artifact
+
+    cfg, cpu_model = model
+    pcm = np.random.default_rng(12).integers(-3000, 3000, (4, 16000), dtype=np.int16)
+    path = save_artifact(tmp_path / "k.uitx", export_serving(
+        cfg, cpu_model, batch_size=4, dtype="int16", precision="fast", use_kernel=True,
+        device="cuda"), cfg=cfg)
+    fn, meta = load_artifact(path)
+    assert meta["device"] == "cuda" and meta["use_kernel"]
+    _reset()
+    got = fn(pcm)
+    assert launches["row_fast"] == 1 and sum(launches.values()) == 1
+    want = make_forward_fn(cfg, cpu_model.to(cuda), precision="fast",
+                           top_db_mode="per_sample")(pcm)
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)

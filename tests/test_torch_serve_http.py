@@ -444,8 +444,9 @@ def test_refusals_name_their_roadmap_items(pair):
     _, (cfg, model) = pair["carried"]
     with pytest.raises(NotImplementedError, match="§A17"):
         serve.TaggingService(cfg, model, serve.ServiceConfig(data_parallel=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="§A14"):
-        serve.TaggingService.from_artifact("model.uitx")
+    # artifact serving is ported: a missing artifact is a missing file
+    with pytest.raises(FileNotFoundError):
+        serve.TaggingService.from_artifact("no_such_model.uitx", device="cpu")
 
 
 def test_burst_beyond_the_stdlib_listen_backlog():

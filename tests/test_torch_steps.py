@@ -67,9 +67,10 @@ def test_unknown_loss_and_optimizer_raise():
         make_loss("BCEWithLogitsLoss")
     with pytest.raises(KeyError, match="unknown optimizer"):
         build_optimizer("Lion", 1e-3)
-    for name in ("Adam8bit", "Adafactor"):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            build_optimizer(name, 1e-3)
+    # Adafactor and Adam8bit are ported; an option optax.adafactor has and
+    # the port does not take fails as loudly as an unknown one
+    with pytest.raises(TypeError, match="unexpected options"):
+        build_optimizer("Adafactor", 1e-3, weight_decay_mask=None)
     with pytest.raises(TypeError, match="unexpected options"):
         build_optimizer("AdamW", 1e-3, weight_decay=1e-2, amsgrad=True)
     with pytest.raises(ValueError, match="decay"):
@@ -96,22 +97,38 @@ def test_cosine_with_warmup_matches_optax(warmup):
 OPT_CASES = [
     ("SGD", {}), ("SGD", {"momentum": 0.9}), ("SGD", {"momentum": 0.9, "nesterov": True}),
     ("Adam", {}), ("Adam", {"b1": 0.8, "eps": 1e-6}), ("AdamW", {"weight_decay": 0.05}),
+    ("Adafactor", {}), ("Adafactor", {"momentum": 0.9, "weight_decay_rate": 1e-3}),
+    ("Adafactor", {"multiply_by_parameter_scale": False, "clipping_threshold": None,
+                   "decay_rate": 0.5}),
+    ("Adam8bit", {}),
 ]
+# Adafactor's leaves at uit_xs widths: factored (the MLP's 128 x 384 and
+# 384 x 128 kernels: row/column accumulators over the two largest dims) and
+# unfactored (a bias, the 16 x 16 x 128 reshaped patch kernel's small dims, a
+# leaf whose RMS is under the 1e-3 parameter-scale floor)
+ADAFACTOR_SHAPES = {"w": (128, 384), "k": (384, 128), "b": (384,), "p": (16, 16, 4),
+                    "s": (5, 3)}
 
 
 @pytest.mark.parametrize("name, kw", OPT_CASES)
 @pytest.mark.parametrize("ema", [None, 0.9])
 def test_optimizer_rules_match_optax(name, kw, ema):
-    """Four updates with given gradients under a warmup+cosine schedule
-    peaking at the recipe's lr 1e-3. optax computes Adam's bias corrections
+    """Four updates (Adafactor: five, at uit_xs widths) with given gradients
+    under a warmup+cosine schedule peaking at the recipe's lr 1e-3. optax computes Adam's bias corrections
     1 - b**t in float32 (1 - 0.999f is 1.3e-5 from 1e-3), the port in
     float64 as torch.optim does: early Adam updates differ by ~6e-6
     relative, 6e-9 at this lr, inside the 1e-6 relative gate on the params."""
     r = np.random.default_rng(1)
-    p0 = {"w": r.standard_normal((3, 5)).astype(np.float32),
-          "b": r.standard_normal(5).astype(np.float32)}
+    if name in ("Adafactor", "Adam8bit"):  # five updates at uit_xs widths
+        p0 = {k: r.standard_normal(v).astype(np.float32) * (1e-4 if k == "s" else 1.0)
+              for k, v in ADAFACTOR_SHAPES.items()}
+        n_updates = 5
+    else:
+        p0 = {"w": r.standard_normal((3, 5)).astype(np.float32),
+              "b": r.standard_normal(5).astype(np.float32)}
+        n_updates = 4
     grads = [{k: r.standard_normal(v.shape).astype(np.float32) for k, v in p0.items()}
-             for _ in range(4)]
+             for _ in range(n_updates)]
     jopt = jax_wrap_optimizer(jax_build_optimizer(name, jax_cosine(1e-3, 10, 2), **kw),
                               ema_decay=ema)
     jp = jax.tree.map(jnp.asarray, p0)
@@ -135,6 +152,57 @@ def test_optimizer_rules_match_optax(name, kw, ema):
                                        rtol=1e-6, atol=1e-7)
     else:
         assert find_ema_params(opt) is None
+
+
+def test_adam8bit_warns_and_takes_adafactor():
+    import logging
+
+    from uit_mobile_tpu_torch.utils import get_logger
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    logger = get_logger()
+    logger.addHandler(handler)
+    try:
+        spec = build_optimizer("Adam8bit", 1e-3, momentum=0.9)
+    finally:
+        logger.removeHandler(handler)
+    assert spec.name == "Adafactor" and spec.hparams == {"momentum": 0.9}
+    msg = " ".join(r.getMessage() for r in records)
+    assert "Adam8bit" in msg and "substituting Adafactor" in msg
+
+
+def test_adafactor_training_state_round_trip(tmp_path):
+    """save_training_state / load_training_state carry Adafactor's factored
+    row and column accumulators, its full ones, momentum and count: the
+    reloaded optimizer's next update equals the uninterrupted one's."""
+    from uit_mobile_tpu_torch.ckpt import load_training_state, save_training_state
+
+    cfg = models.get_model_config("uit_xxxs", outputdim=C, target_length=102, depth=1)
+
+    def fresh():
+        model = models.build(cfg, torch.Generator().manual_seed(0), "cpu")
+        return model, build_optimizer("Adafactor", 1e-3, momentum=0.9).init(model)
+
+    r = np.random.default_rng(2)
+    model, opt = fresh()
+    grads = [[torch.from_numpy(r.standard_normal(p.shape).astype(np.float32))
+              for p in opt.params] for _ in range(3)]
+    for g in grads[:2]:
+        opt.update(g)
+    factored = opt.base.state[dict(model.named_parameters())["blocks.0.mlp.fc1.kernel"]]
+    assert factored["v_row"].shape == (128,) and factored["v_col"].shape == (384,)
+    save_training_state(tmp_path / "s.npz", model, opt, cfg, extra={"step": 2})
+    model2, opt2 = fresh()
+    _, extra = load_training_state(tmp_path / "s.npz", model2, opt2)
+    assert extra == {"step": 2} and opt2.count == 2
+    for a, b in zip(opt.state_leaves(), opt2.state_leaves()):
+        assert torch.equal(a, b)
+    opt.update(grads[2])
+    opt2.update(grads[2])
+    for a, b in zip(model.parameters(), model2.parameters()):
+        assert torch.equal(a, b)
 
 
 def test_ema_math_and_real_copy():

@@ -120,3 +120,20 @@ def test_tfb_to_bft_on_card_is_bitwise_the_row_kernel(cuda, precision, B, varian
     want = make_frontend_fn(precision=precision, layout="bft")(wav)
     assert got.shape == want.shape == (B, 64, 101)
     assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_moe_forward_on_the_card_matches_cpu(cuda):
+    """The MoE UiT served on the card (the exact row kernel through
+    'tfb_to_bft') within 1e-3 of the CPU plain path."""
+    from uit_mobile_tpu_torch.ops import make_forward_fn
+
+    cfg = models.get_model_config("uit_xs_moe", outputdim=537, target_length=1012, depth=2)
+    gpu_model, cpu_model = (models.build(cfg, torch.Generator().manual_seed(5), device=d)
+                            for d in ("cuda", "cpu"))
+    pcm = np.random.default_rng(13).integers(-3000, 3000, (4, 160000), dtype=np.int16)
+    before = mel_ops.launches["row_exact"]
+    got = make_forward_fn(cfg, gpu_model, precision="exact")(pcm).cpu()
+    assert mel_ops.launches["row_exact"] == before + 1
+    want = make_forward_fn(cfg, cpu_model, use_kernel=True, precision="exact")(pcm)
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=0)

@@ -164,5 +164,10 @@ def test_build_defaults_to_cuda_and_train_is_deferred(carried):
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     probs, _ = models.apply(bf16, model, torch.zeros(1, 16000), train=True)
     assert probs.shape == (1, cfg.outputdim) and torch.isfinite(probs).all()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        models.get_model_config("uit_xs_moe")
+    # the MoE UiT is ported: it builds; an unknown name is the registry's KeyError
+    moe_cfg = models.get_model_config("uit_xs_moe")
+    assert isinstance(moe_cfg, models.MoEUITConfig)
+    moe_model = models.build(moe_cfg, torch.Generator().manual_seed(0), "cpu")
+    assert moe_model.blocks[0].moe.fc1.kernel.shape == (8, 128, 384)
+    with pytest.raises(KeyError, match="unknown model"):
+        models.get_model_config("uit_nonexistent")

@@ -30,6 +30,7 @@ _CONFIGS = {"UITConfig": UITConfig, "MobileNetV2Config": MobileNetV2Config}
 
 
 def config_to_dict(cfg) -> dict:
+    """The config as a JSON-able dict (an MoEUITConfig nests its ``base``)."""
     d = dataclasses.asdict(cfg)
     d["__model_config__"] = type(cfg).__name__
     return d
@@ -38,6 +39,11 @@ def config_to_dict(cfg) -> dict:
 def config_from_dict(d: dict):
     d = dict(d)
     kind = d.pop("__model_config__")
+    if kind == "MoEUITConfig":
+        # the JAX package's config_from_dict has no MoE entry either
+        raise NotImplementedError(
+            "config_from_dict cannot rebuild an MoEUITConfig (neither package can); "
+            "build it with models.get_model_config('uit_xs_moe', ...)")
     if kind not in _CONFIGS:
         raise NotImplementedError(f"model config {kind!r} is not yet ported")
     if isinstance(d.get("frontend"), dict):

@@ -10,6 +10,7 @@ from urllib.parse import urlparse
 
 from .. import models
 from ..ckpt.convert import module_from_numpy
+from ..ckpt.dcp_io import is_dcp_dir, load_dcp
 from ..ckpt.io import load_checkpoint
 from ..models import PRETRAINED_CHECKPOINTS
 from ..utils import get_logger
@@ -119,7 +120,8 @@ def resolve_params(spec: str, **cfg_overrides):
     numpy trees: a local pretrained name (``checkpoints/<name>.npz``, else
     ``checkpoints/<name>*.pt``), a URL whose file name lies under
     ``checkpoints/`` (nothing is downloaded), a native ``.npz``, a
-    reference ``.pt`` (converted), or an experiment directory."""
+    reference ``.pt`` (converted), a DCP checkpoint directory
+    (``ckpt/dcp_io.py``), or an experiment directory."""
     ckpt_dir = REPO_ROOT / "checkpoints"
     if spec.startswith(("http://", "https://")):
         local = ckpt_dir / Path(urlparse(spec).path).name
@@ -142,6 +144,11 @@ def resolve_params(spec: str, **cfg_overrides):
             f"{entry['path']}")
     p = Path(spec)
     if p.is_dir():
+        if is_dcp_dir(p):
+            params, state, cfg, extra = load_dcp(p)
+            if cfg is None:
+                raise ValueError(f"DCP checkpoint {p} has no embedded config")
+            return cfg, params, state, extra
         p = _pick_checkpoint_in_dir(p)
     if p.suffix == ".npz":
         params, state, cfg, extra = load_checkpoint(p)

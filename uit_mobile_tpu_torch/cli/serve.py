@@ -3,6 +3,7 @@
     python -m uit_mobile_tpu_torch.cli.serve -m ckpt.npz [-k 5] [--batch-size 256]
     python -m uit_mobile_tpu_torch.cli.serve -m ckpt.npz --http 8000
     python -m uit_mobile_tpu_torch.cli.serve -m ckpt.npz --device cpu < paths.txt
+    python -m uit_mobile_tpu_torch.cli.serve --artifact model.uitx [--dtype float32]
 
 Reads wav paths (one per line) on stdin, emits one JSON line per clip:
     {"path": ..., "top": [[label, prob], ...]}
@@ -27,8 +28,10 @@ from .common import load_label_map, resolve_model
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="uit-serve-torch")
     parser.add_argument("-m", "--model", default="uit_xs")
-    parser.add_argument("--artifact", default=None, metavar="MODEL",
-                        help="serve an exported artifact (not yet ported, ROADMAP §A14)")
+    parser.add_argument("--artifact", default=None, metavar="MODEL.uitx",
+                        help="serve an exported artifact (cli.export --artifact, "
+                             "batch-polymorphic) instead of -m: no model code runs; "
+                             "/events, /stream/* and /reload are unavailable")
     parser.add_argument("-k", "--topk", type=int, default=5)
     parser.add_argument("--batch-size", type=int, default=256)
     parser.add_argument("--max-seconds", type=int, default=10)
@@ -65,35 +68,46 @@ def main(argv=None):
 
     from ..serve import ServiceConfig, TaggingService
 
-    if args.artifact is not None:
-        TaggingService.from_artifact(args.artifact)  # raises: not yet ported
     labels = load_label_map()
-    # the model is read onto the CPU; every serving surface copies it to --device
-    cfg, model = resolve_model(args.model, device="cpu")
-    if args.low_latency:
-        # preset fields win; non-default CLI values still override
-        overrides = dict(max_seconds=args.max_seconds, warmup=not args.no_warmup,
-                         data_parallel=args.data_parallel, top_db_mode=args.top_db_mode)
-        if args.batch_size != parser.get_default("batch_size"):
-            overrides["batch_size"] = args.batch_size
-        if args.dtype != parser.get_default("dtype"):
-            overrides["dtype"] = args.dtype
-        svc_cfg = ServiceConfig.low_latency(**overrides)
+    cfg = model = None
+    if args.artifact is not None:
+        service = TaggingService.from_artifact(
+            args.artifact, ServiceConfig(batch_size=args.batch_size, warmup=not args.no_warmup,
+                                         dtype=args.dtype),
+            device=args.device, calibration=args.calibration)
+        # prefer the label map sealed into the artifact at export time
+        if service.artifact_meta.get("labels"):
+            labels = {int(k): v for k, v in service.artifact_meta["labels"].items()}
+        model_name = args.artifact
     else:
-        svc_cfg = ServiceConfig(batch_size=args.batch_size, max_seconds=args.max_seconds,
-                                warmup=not args.no_warmup, data_parallel=args.data_parallel,
-                                top_db_mode=args.top_db_mode, dtype=args.dtype,
-                                scan_batches=args.scan_batches)
-    service = TaggingService(cfg, model, svc_cfg, device=args.device,
-                             calibration=args.calibration)
+        # the model is read onto the CPU; every serving surface copies it to --device
+        cfg, model = resolve_model(args.model, device="cpu")
+        if args.low_latency:
+            # preset fields win; non-default CLI values still override
+            overrides = dict(max_seconds=args.max_seconds, warmup=not args.no_warmup,
+                             data_parallel=args.data_parallel, top_db_mode=args.top_db_mode)
+            if args.batch_size != parser.get_default("batch_size"):
+                overrides["batch_size"] = args.batch_size
+            if args.dtype != parser.get_default("dtype"):
+                overrides["dtype"] = args.dtype
+            svc_cfg = ServiceConfig.low_latency(**overrides)
+        else:
+            svc_cfg = ServiceConfig(batch_size=args.batch_size, max_seconds=args.max_seconds,
+                                    warmup=not args.no_warmup,
+                                    data_parallel=args.data_parallel,
+                                    top_db_mode=args.top_db_mode, dtype=args.dtype,
+                                    scan_batches=args.scan_batches)
+        service = TaggingService(cfg, model, svc_cfg, device=args.device,
+                                 calibration=args.calibration)
+        model_name = args.model
     print("ready", file=sys.stderr, flush=True)
 
-    if getattr(cfg, "outputdim", len(labels)) != len(labels):
+    if cfg is not None and getattr(cfg, "outputdim", len(labels)) != len(labels):
         # custom-head checkpoint: index names instead of the AudioSet table
         labels = {i: f"class_{i}" for i in range(cfg.outputdim)}
 
     if args.http is not None:
-        return _serve_http(args, cfg, model, service, labels)
+        return _serve_http(args, cfg, model, service, labels, model_name)
 
     pending: deque = deque()
 
@@ -123,13 +137,19 @@ def main(argv=None):
     return 0
 
 
-def _serve_http(args, cfg, model, service, labels) -> int:
+def _serve_http(args, cfg, model, service, labels, model_name) -> int:
     from ..serve import StreamSessions, make_framewise_fn, serve_http
 
+    if cfg is None:  # an artifact: the exported program is all there is
+        with service:
+            print(f"http://{args.host}:{args.http}", file=sys.stderr, flush=True)
+            serve_http(service, labels=labels, host=args.host, port=args.http,
+                       topk=args.topk, model_name=model_name, quiet=False)
+        return 0
     try:  # temporal tagging (/events) for the families that support it
         framewise_fn = make_framewise_fn(cfg, model, max_seconds=args.max_seconds,
                                          device=args.device)
-    except TypeError:
+    except TypeError:  # e.g. the MoE: no framewise forward
         framewise_fn = None
     stream_sessions = StreamSessions(cfg, model, max_sessions=args.stream_sessions,
                                      calibration=args.calibration, device=args.device)
@@ -153,7 +173,7 @@ def _serve_http(args, cfg, model, service, labels) -> int:
     with service:
         print(f"http://{args.host}:{args.http}", file=sys.stderr, flush=True)
         serve_http(service, labels=labels, host=args.host, port=args.http, topk=args.topk,
-                   model_name=args.model, quiet=False, framewise_fn=framewise_fn,
+                   model_name=model_name, quiet=False, framewise_fn=framewise_fn,
                    stream_sessions=stream_sessions, reload_fn=reload_fn)
     return 0
 

@@ -1,7 +1,8 @@
 """Model registry: explicit name -> config factory, plus build/apply.
 
-Counterpart of ``uit_mobile_tpu/models/__init__.py`` for the UiT family and
-MobileNetV2. The MoE UiT is not yet ported and raises.
+Counterpart of ``uit_mobile_tpu/models/__init__.py``: the UiT family,
+MobileNetV2 and the MoE UiT (which, as in the JAX package, has no framewise
+forward).
 """
 
 from __future__ import annotations
@@ -9,8 +10,9 @@ from __future__ import annotations
 import torch
 
 from ..utils.device import resolve_device
-from . import mobilenetv2, uit
+from . import mobilenetv2, moe, uit
 from .mobilenetv2 import MobileNetV2, MobileNetV2Config
+from .moe import MoEUiT, MoEUITConfig, uit_xs_moe
 from .uit import (
     PRETRAINED_CHECKPOINTS,
     UiT,
@@ -33,19 +35,18 @@ MODEL_REGISTRY = {
     "audio_transformer_h128_d6_m3": audio_transformer_h128_d6_m3,
     "audio_transformer_h128_d6_m3_relu": audio_transformer_h128_d6_m3_relu,
     "MobileNetV2": mobilenetv2.mobilenetv2,
+    "uit_xs_moe": uit_xs_moe,
 }
-NOT_YET_PORTED = ("uit_xs_moe",)
 # config type -> (module class, init, forward, framewise forward)
 _FAMILIES = {
     UITConfig: (UiT, uit.init, uit.forward, uit.forward_framewise),
     MobileNetV2Config: (MobileNetV2, mobilenetv2.init, mobilenetv2.forward,
                         mobilenetv2.forward_framewise),
+    MoEUITConfig: (MoEUiT, moe.init, moe.forward, None),
 }
 
 
 def get_model_config(name: str, **kwargs):
-    if name in NOT_YET_PORTED:
-        raise NotImplementedError(f"model {name!r} is not yet ported (ROADMAP §A16)")
     if name not in MODEL_REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name](**kwargs)
@@ -58,7 +59,7 @@ def _family(cfg):
 
 
 def module_class(cfg):
-    """The parameter-container class of a config (UiT, MobileNetV2)."""
+    """The parameter-container class of a config (UiT, MobileNetV2, MoEUiT)."""
     return _family(cfg)[0]
 
 
@@ -92,9 +93,13 @@ def apply(cfg, model, wav: torch.Tensor, train: bool = False, **kwargs):
 
 def apply_framewise(cfg, model, wav: torch.Tensor, **kwargs):
     """Temporal tagging under ``torch.inference_mode`` -> (probs (B, S, C),
-    times (S, 2) float64 numpy seconds)."""
+    times (S, 2) float64 numpy seconds). TypeError for a family without a
+    framewise forward (the MoE)."""
+    framewise = _family(cfg)[3]
+    if framewise is None:
+        raise TypeError(f"unknown config type {type(cfg)} for framewise tagging")
     with torch.inference_mode():
-        return _family(cfg)[3](cfg, model, wav, **kwargs)
+        return framewise(cfg, model, wav, **kwargs)
 
 
 @torch.no_grad()
@@ -110,6 +115,8 @@ __all__ = [
     "PRETRAINED_CHECKPOINTS",
     "MobileNetV2",
     "MobileNetV2Config",
+    "MoEUITConfig",
+    "MoEUiT",
     "UITConfig",
     "UiT",
     "apply",

@@ -1,0 +1,303 @@
+"""Mixture-of-Experts UiT variant, counterpart of ``uit_mobile_tpu/models/moe.py``.
+
+Each block's MLP becomes a routed expert bank (GShard/Switch-style top-k
+token routing with a fixed per-expert capacity). Everything outside the
+MLP (frontend, patch embed, pos embeds, attention with the full-dim-scale
+quirk, pooling, head) is the UiT code itself (models/uit.py, through
+``block_forward``'s ``mlp_fn`` hook).
+
+Parameters mirror the JAX pytree key for key: a block holds
+``moe.router.kernel`` (D, E), ``moe.fc1.kernel`` (E, D, H),
+``moe.fc1.bias`` (E, H), ``moe.fc2.kernel`` (E, H, D) and ``moe.fc2.bias``
+(E, D) in place of ``mlp``, so ``ckpt/convert.py`` carries them as they are.
+
+Routing is the JAX package's formulation: two einsums against dense
+one-hot dispatch/combine tensors of static shape (G groups of S tokens, E
+experts, C slots), no sorting of tokens and no ragged shapes; the expert
+computation is one batched (E, G*C, D) x (E, D, H) product. JAX computes
+these einsums outside any Pallas kernel, and so does the port (plain
+``torch.einsum``). Three points where PyTorch differs are handled here:
+
+- the slot one-hot is built by comparing against ``arange(C)``, which
+  gives a row of zeros where a token's slot is past the capacity, as
+  ``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` raises there);
+- ``_top_k`` breaks ties toward the lower expert index, as
+  ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` on CUDA
+  promises no order among equal values);
+- the router softmax, top-k and the combine bookkeeping stay float32 under
+  ``compute_dtype='bfloat16'``; the expert products run in the compute dtype.
+
+Memory: the float32 ``combine`` tensor is (G, S, E, C) per block. At full
+width with 10 s clips (target_length 1012: 252 tokens a clip) the auto
+group is gcd(B, 8) clips = 2,016 tokens and C = 1,008 (8 experts, top-2,
+capacity 2.0), so combine is 65 MB a group, 260 MB a block at B=32; a
+train step keeps one for each of the 12 blocks for the backward pass. That
+is the formulation's own cost, kept as the JAX package has it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Optional
+
+import torch
+from torch import nn
+
+from . import uit
+from .common import ACTIVATIONS, batch_norm_train, layer_norm, trunc_normal
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEUITConfig:
+    """UiT geometry (``base``) + routing hyperparameters."""
+
+    base: uit.UITConfig
+    n_experts: int = 8
+    top_k: int = 2
+    # per-expert slot budget C = ceil(top_k * group_tokens / n_experts *
+    # factor); tokens routed past an expert's budget are dropped (their
+    # residual passes through unchanged)
+    capacity_factor: float = 2.0
+    # Switch-style load-balancing auxiliary loss weight
+    router_aux_weight: float = 1e-2
+    # tokens per routing group; None = auto: groups of gcd(B, 8) clips.
+    # Must divide the total token count when set.
+    group_size: Optional[int] = None
+
+    def __post_init__(self):
+        if not (self.n_experts >= 1 and 1 <= self.top_k <= self.n_experts):
+            raise ValueError(f"need n_experts >= 1 and 1 <= top_k <= n_experts, got "
+                             f"{self.n_experts}, {self.top_k}")
+        if self.base.pooling != "mean":
+            raise ValueError("MoE factories ship 'mean' pooling")
+
+    # the registry-facing fields of UITConfig, read by the harness paths
+    @property
+    def outputdim(self) -> int:
+        return self.base.outputdim
+
+    @property
+    def frontend(self):
+        return self.base.frontend
+
+    @property
+    def target_length(self) -> int:
+        return self.base.target_length
+
+    @property
+    def mel_layout(self) -> str:
+        return self.base.mel_layout
+
+    @property
+    def compute_dtype(self) -> str:
+        return self.base.compute_dtype
+
+
+# ------------------------------------------------------------------- modules
+
+class Router(nn.Module):
+    def __init__(self, d: int, e: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(d, e))
+
+
+class ExpertLinear(nn.Module):
+    """E stacked Linears: kernel (E, in, out), bias (E, out)."""
+
+    def __init__(self, e: int, d_in: int, d_out: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.zeros(e, d_in, d_out))
+        self.bias = nn.Parameter(torch.zeros(e, d_out))
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg: MoEUITConfig):
+        super().__init__()
+        D = cfg.base.embed_dim
+        H = int(D * cfg.base.mlp_ratio)
+        E = cfg.n_experts
+        self.router = Router(D, E)
+        self.fc1 = ExpertLinear(E, D, H)
+        self.fc2 = ExpertLinear(E, H, D)
+
+
+class MoEUiT(uit.UiT):
+    """The UiT parameter container with every block's ``mlp`` replaced by
+    ``moe``."""
+
+    def __init__(self, cfg: MoEUITConfig):
+        super().__init__(cfg.base)
+        self.cfg = cfg
+        for blk in self.blocks:
+            del blk.mlp
+            blk.moe = MoE(cfg)
+
+
+@torch.no_grad()
+def init(cfg: MoEUITConfig, generator: torch.Generator) -> MoEUiT:
+    """A CPU MoEUiT: ``uit.init``'s trunk, then per block a router drawn
+    0.02 * N(0, 1) and every expert initialized like the dense MLP
+    (trunc_normal(0.02) kernels, zero biases), from ``generator``."""
+    dense = uit.init(cfg.base, generator)
+    model = MoEUiT(cfg)
+    trunk = {k: v for k, v in dense.state_dict().items() if ".mlp." not in k}
+    missing, unexpected = model.load_state_dict(trunk, strict=False)
+    if unexpected or any(".moe." not in k for k in missing):
+        raise RuntimeError(f"MoE trunk mismatch: missing {missing}, unexpected {unexpected}")
+    E = cfg.n_experts
+    for blk in model.blocks:
+        m = blk.moe
+        for lin in (m.fc1, m.fc2):
+            _, d_in, d_out = lin.kernel.shape
+            lin.kernel.copy_(torch.stack([trunc_normal(generator, (d_in, d_out))
+                                          for _ in range(E)]))
+            lin.bias.zero_()
+        m.router.kernel.copy_(0.02 * torch.randn(m.router.kernel.shape, generator=generator))
+    return model
+
+
+# ------------------------------------------------------------------- routing
+
+def _group_size(cfg: MoEUITConfig, B: int, N: int) -> int:
+    """Tokens per routing group. Auto: groups of gcd(B, 8) clips."""
+    T = B * N
+    if cfg.group_size is not None:
+        if T % cfg.group_size:
+            raise ValueError(f"group_size {cfg.group_size} must divide {T} tokens")
+        return cfg.group_size
+    return N * math.gcd(B, 8)
+
+
+def _top_k(gates: torch.Tensor, k: int):
+    """(values, indices) of the k largest along the last dim, ties to the
+    lower index (jax.lax.top_k's order)."""
+    values, indices = torch.sort(gates, dim=-1, descending=True, stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
+    """Routed MLP: (B, N, D) -> ((B, N, D), aux_loss).
+
+    Tokens split into G groups of S; per group, top-k softmax routing with
+    combine weights renormalized over the selected experts and a fixed
+    per-expert capacity C:
+
+        expert_in  = dispatch^T x          (E, G, C, D)
+        expert_out = fc2(act(fc1(expert_in)))
+        y          = combine . expert_out  (G, S, D)
+
+    aux = E * sum_e f_e * P_e (Switch load balancing: f = fraction of tokens
+    whose top-1 choice is e, P = mean router probability of e)."""
+    B, N, D = x.shape
+    T = B * N
+    E, k = cfg.n_experts, cfg.top_k
+    cdt = uit.compute_dtype(cfg.base)
+    S = _group_size(cfg, B, N)
+    G = T // S
+    C = max(1, min(int(math.ceil(k * S / E * cfg.capacity_factor)), k * S))
+    xt = x.reshape(G, S, D)
+
+    gates = torch.softmax(torch.einsum("gsd,de->gse", xt.float(), p.router.kernel), dim=-1)
+    topv, topi = _top_k(gates, k)  # (G, S, k)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+
+    experts = torch.arange(E, device=x.device)
+    slots = torch.arange(C, device=x.device, dtype=torch.float32)
+    counts = torch.zeros(G, E, device=x.device)
+    combine = torch.zeros(G, S, E, C, device=x.device)
+    for j in range(k):
+        oh = (topi[:, :, j, None] == experts).float()  # (G, S, E)
+        # slot each token would take in expert e: tokens before it in the
+        # group this round + slots consumed by earlier rounds
+        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+        keep = oh * (pos < C)
+        slot = (pos[..., None] == slots).float()  # zeros past the capacity
+        combine = combine + topv[:, :, j, None, None] * keep[..., None] * slot
+        counts = counts + oh.sum(dim=1)
+    dispatch = (combine > 0).float()
+
+    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xt.to(cdt))
+    h = ACTIVATIONS[cfg.base.act](
+        torch.einsum("egcd,edh->egch", expert_in, p.fc1.kernel.to(cdt))
+        + p.fc1.bias.to(cdt)[:, None, None, :])
+    out_e = (torch.einsum("egch,ehd->egcd", h, p.fc2.kernel.to(cdt))
+             + p.fc2.bias.to(cdt)[:, None, None, :])
+    y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), out_e)
+
+    f = (topi[:, :, 0, None] == experts).float().mean(dim=(0, 1))
+    P = gates.mean(dim=(0, 1))
+    aux = E * torch.sum(f * P)
+    return y.reshape(B, N, D).to(x.dtype), aux
+
+
+# ------------------------------------------------------------------- forward
+
+def block_forward(cfg: MoEUITConfig, blk, x: torch.Tensor, *, dpr_i: float = 0.0,
+                  train: bool = False, generator=None):
+    """uit.block_forward with the MLP routed -> (tokens, aux_loss)."""
+    return uit.block_forward(cfg.base, blk, x, dpr_i=dpr_i, train=train, generator=generator,
+                             mlp_fn=lambda b_, h: moe_mlp(cfg, b_.moe, h))
+
+
+def _encode(cfg: MoEUITConfig, model: MoEUiT, mel: torch.Tensor, *, train: bool = False,
+            generator=None):
+    """(B, n_mels, T<=target) mel -> ((B, outputdim) probs, mean aux,
+    new_state). Train mode: batch-stat init_bn whose running statistics
+    (momentum 0.01) come back in new_state keyed by buffer name, dropout
+    and drop-path from ``generator``; eval: inference BN, new_state {}."""
+    b = cfg.base
+    new_state = {}
+    if train and b.init_bn:
+        x, bn = batch_norm_train(model.init_bn, mel, axis=-2, momentum=0.01)
+        new_state = {f"init_bn.{k}": v for k, v in bn.items()}
+    else:
+        x = uit.apply_init_bn(b, model, mel)
+    x = uit.patch_embed(b, model.patch_embed, x)
+    x, _ = uit._prepare_tokens(b, model, x, train=train, generator=generator)
+    aux_total = 0.0
+    dpr = torch.linspace(0.0, b.drop_path_rate, b.depth, dtype=torch.float64).tolist()
+    for blk, rate in zip(model.blocks, dpr):
+        x, aux = block_forward(cfg, blk, x, dpr_i=rate, train=train, generator=generator)
+        aux_total = aux_total + aux
+    x = layer_norm(model.norm, x.float(), eps=1e-6)
+    return uit.forward_head(b, model, x), aux_total / b.depth, new_state
+
+
+def forward_with_aux(cfg: MoEUITConfig, model: MoEUiT, wav: torch.Tensor, *,
+                     train: bool = False, generator=None,
+                     frontend_fn: Optional[Callable] = None):
+    """(B, T_wav) waveform -> ((B, outputdim) probs, aux_loss, new_state).
+    Eval: long clips take the reference crop rule (windows fold into the
+    batch; aux averages over crops with everything else) and new_state is
+    {}. Train (single window, as uit.forward's train path): init_bn on
+    batch statistics, new_state its updated running statistics."""
+    b = cfg.base
+    if b.mel_layout != "bft":
+        raise ValueError("the MoE forward runs the canonical 'bft' layout")
+    fe = frontend_fn or (lambda w: uit.log_mel_spectrogram(w, b.frontend))
+    mel = fe(wav)
+    if not train and mel.shape[-1] > b.target_length:
+        crops, n_crops = uit.chunk_long_mel(b, mel)
+        probs, aux, _ = _encode(cfg, model, crops)
+        probs = probs.reshape(-1, n_crops, b.outputdim)
+        return uit._reduce_crops(b, probs, 1), aux, {}
+    return _encode(cfg, model, mel, train=train, generator=generator)
+
+
+def forward(cfg: MoEUITConfig, model: MoEUiT, wav: torch.Tensor, *,
+            frontend_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Registry-facing eval forward: (B, T_wav) -> (B, outputdim) probs."""
+    return forward_with_aux(cfg, model, wav, frontend_fn=frontend_fn)[0]
+
+
+def uit_xs_moe(outputdim: int = 527, target_length: int = 1012, n_experts: int = 8,
+               top_k: int = 2, capacity_factor: float = 2.0,
+               router_aux_weight: float = 1e-2, group_size: Optional[int] = None,
+               **kwargs) -> MoEUITConfig:
+    """uit_xs geometry (D=128, depth 12, bneck attention, ReLU, 'mean'
+    pooling) with the block MLPs routed over ``n_experts`` experts."""
+    return MoEUITConfig(
+        base=uit.uit_xs(outputdim=outputdim, target_length=target_length, **kwargs),
+        n_experts=n_experts, top_k=top_k, capacity_factor=capacity_factor,
+        router_aux_weight=router_aux_weight, group_size=group_size)

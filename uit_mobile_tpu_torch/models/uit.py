@@ -384,9 +384,15 @@ def _prepare_tokens(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None
 
 
 def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor, token_mask=None,
-                  dpr_i: float = 0.0, train: bool = False, generator=None) -> torch.Tensor:
+                  dpr_i: float = 0.0, train: bool = False, generator=None,
+                  mlp_fn: Optional[Callable] = None):
     """One pre-LN transformer block: (B, N, D) -> (B, N, D); in train mode
-    with attention/MLP dropout and drop-path at rate ``dpr_i``."""
+    with attention/MLP dropout and drop-path at rate ``dpr_i``.
+
+    ``mlp_fn``: optional MLP replacement ``(blk, h) -> (h, aux)``
+    (models/moe.py routes experts through it), so every variant runs this
+    block's casting, DropPath and LayerScale; with it the return value is
+    ``(tokens, aux)``."""
     det = not train
     cdt = compute_dtype(cfg)
     cast = (lambda m: m) if cdt == torch.float32 else (lambda m: Cast(m, cdt))  # noqa: E731
@@ -400,11 +406,18 @@ def block_forward(cfg: UITConfig, blk: Block, x: torch.Tensor, token_mask=None,
     if hasattr(blk, "ls1"):
         h = h * blk.ls1.gamma.to(cdt)
     x = x + drop_path(generator, h, dpr_i, det)
-    h = mlp(cast(blk.mlp), layer_norm(blk.norm2, x.float(), eps=1e-6).to(cdt), act=cfg.act,
-            drop=cfg.drop_rate, generator=generator, deterministic=det)
+    h = layer_norm(blk.norm2, x.float(), eps=1e-6).to(cdt)
+    aux = None
+    if mlp_fn is not None:
+        h, aux = mlp_fn(blk, h)
+        h = h.to(cdt)
+    else:
+        h = mlp(cast(blk.mlp), h, act=cfg.act, drop=cfg.drop_rate, generator=generator,
+                deterministic=det)
     if hasattr(blk, "ls2"):
         h = h * blk.ls2.gamma.to(cdt)
-    return x + drop_path(generator, h, dpr_i, det)
+    out = x + drop_path(generator, h, dpr_i, det)
+    return out if mlp_fn is None else (out, aux)
 
 
 def _finish_features(cfg: UITConfig, model: UiT, x: torch.Tensor, token_mask=None,

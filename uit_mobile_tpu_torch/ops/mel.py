@@ -19,10 +19,13 @@ hi/lo split; the DFT runs as 6 bf16 passes of a hi/mid/lo split
 (``exact``, FP32-grade, what the Pallas kernel's Precision.HIGHEST runs on
 the TPU) or 3 of a hi/lo split (``fast``). The kernel reads copies of G and
 the filterbank pre-packed in the order its wgmma reads them (``_matrices``
-builds them once, with ``pack_operands``). A tensor on the CPU takes the
-plain PyTorch version of the same computation; a CUDA tensor launches the
-kernel or raises. The top_db clamp stays outside the kernel: it needs a max over
-frames (per sample) or over the batch (``top_db_mode='torch'``).
+builds them once, with ``pack_operands``). The launch is the operator
+``torch.ops.uit_mobile_tpu_torch.log_mel_rows`` (``log_mel_rows``), so that
+an exported program (``ckpt/artifact.py``) can call it: a tensor on the CPU
+takes its CPU implementation, the plain PyTorch version of the same
+computation; a CUDA tensor launches the kernel or raises. The top_db clamp
+stays outside the kernel: it needs a max over frames (per sample) or over
+the batch (``top_db_mode='torch'``).
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ..frontend.mel import (FrontendConfig, log_mel_spectrogram, mel_filterbank,
                             padded_window, reflect_pad)
@@ -121,9 +126,25 @@ def _bf16_split3(M: torch.Tensor):
     return hi, mid, lo
 
 
-@functools.lru_cache(maxsize=16)
-def _matrices(config: FrontendConfig, pcm16: bool, precision: str,
-              device: torch.device):
+_MATRICES: dict = {}
+
+
+def _matrices(config: FrontendConfig, pcm16: bool, precision: str, device):
+    """The kernel's constant operands on ``device`` (``_build_matrices``),
+    built once per key. Under a trace (``torch.export``) the tensors are
+    the trace's and never cached: a caller that exports builds them first,
+    so that the program holds them as constants (ckpt/artifact.py)."""
+    key = (config, pcm16, precision, torch.device(device))
+    mats = _MATRICES.get(key)
+    if mats is None:
+        mats = _build_matrices(*key)
+        if not torch.compiler.is_compiling():
+            _MATRICES[key] = mats
+    return mats
+
+
+def _build_matrices(config: FrontendConfig, pcm16: bool, precision: str,
+                    device: torch.device):
     """Host prep of the kernel's constant operands, on ``device``:
     exact -> (G float32, None, fb_hi, fb_lo, gpack, fbpack); fast -> (G_hi,
     G_lo, fb_hi, fb_lo, gpack, fbpack), the pieces bf16. gpack and fbpack
@@ -284,6 +305,51 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
     return out
 
 
+@torch.library.custom_op("uit_mobile_tpu_torch::log_mel_rows", mutates_args=(),
+                         device_types="cpu")
+def log_mel_rows(wavp: torch.Tensor, g_a: torch.Tensor, g_b: Optional[torch.Tensor],
+                 fb_hi: torch.Tensor, fb_lo: torch.Tensor, gpack: torch.Tensor,
+                 fbpack: torch.Tensor, precision: str, hop: int,
+                 transposed: bool) -> torch.Tensor:
+    """The mel kernel as an operator that ``torch.export`` can carry:
+    reflect-padded (B, Tp) wave and ``_matrices``' six operands ->
+    (B, n_frames, 64), or (n_frames, 64, B) when ``transposed``. On CUDA
+    tensors it launches the kernel (``cuda_log_mel_rows``, which counts
+    the launch); this CPU implementation is the plain version."""
+    mel = plain_log_mel_rows(wavp, (g_a, g_b, fb_hi, fb_lo), precision, hop)
+    return mel.permute(1, 2, 0).contiguous() if transposed else mel
+
+
+@log_mel_rows.register_kernel("cuda")
+def _log_mel_rows_cuda(wavp, g_a, g_b, fb_hi, fb_lo, gpack, fbpack, precision, hop,
+                       transposed):
+    return cuda_log_mel_rows(wavp, (g_a, g_b, fb_hi, fb_lo, gpack, fbpack), precision, hop,
+                             transposed)
+
+
+@register_flop_formula(torch.ops.uit_mobile_tpu_torch.log_mel_rows)
+def _log_mel_rows_flops(wavp, g_a, g_b, fb_hi, fb_lo, gpack, fbpack, precision, hop,
+                        transposed, out_shape=None, **kwargs) -> int:
+    """FLOPs of the plain version's products, as FlopCounterMode counted them
+    when the plain version ran outside the op (arguments are shapes): the
+    DFT once (exact) or as 3 bf16-split products (fast), the filterbank as
+    3."""
+    B, Tp = wavp
+    rows = B * ((Tp - KERNEL_N_FFT) // hop + 1)
+    dft = 2 * rows * g_a[0] * g_a[1]
+    fbank = 2 * rows * fb_hi[0] * fb_hi[1]
+    return (1 if precision == "exact" else 3) * dft + 3 * fbank
+
+
+@log_mel_rows.register_fake
+def _log_mel_rows_fake(wavp, g_a, g_b, fb_hi, fb_lo, gpack, fbpack, precision, hop,
+                       transposed):
+    B, Tp = wavp.shape
+    n_frames = (Tp - KERNEL_N_FFT) // hop + 1
+    shape = (n_frames, KERNEL_N_MELS, B) if transposed else (B, n_frames, KERNEL_N_MELS)
+    return wavp.new_empty(shape, dtype=torch.float32)
+
+
 def log_mel(wav: torch.Tensor, config: FrontendConfig | None = None,
             precision: str = "exact", layout: str = "bft",
             framing: str = "auto") -> torch.Tensor:
@@ -317,14 +383,9 @@ def log_mel(wav: torch.Tensor, config: FrontendConfig | None = None,
     wavp = wavp.contiguous()
     mats = _matrices(config, wav.dtype == torch.int16, precision, wav.device)
     transposed = layout == "tfb" and B >= TFB_MIN_BATCH
-    if wav.device.type == "cuda":
-        mel = cuda_log_mel_rows(wavp, mats, precision, config.hop_length, transposed)
-    elif wav.device.type == "cpu":
-        mel = plain_log_mel_rows(wavp, mats, precision, config.hop_length)
-        if transposed:
-            mel = mel.permute(1, 2, 0).contiguous()
-    else:
+    if wav.device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {wav.device}")
+    mel = log_mel_rows(wavp, *mats, precision, config.hop_length, transposed)
     if layout == "tfb":
         x_db = mel if transposed else mel.permute(1, 2, 0)
         per_sample_dims = (0, 1)

@@ -4,8 +4,8 @@
 ``make_forward_fn`` is the one place that encodes the layout/precision
 policy: where the kernel is available (the model lives on a CUDA device),
 the fused mel kernel feeds the UiT encoder in the transposed 'tfb' layout
-with init_bn folded into the patch embed, and other families (MobileNetV2)
-the canonical mel through 'tfb_to_bft'; elsewhere the rfft reference
+with init_bn folded into the patch embed, and other families (MobileNetV2,
+the MoE UiT) the canonical mel through 'tfb_to_bft'; elsewhere the rfft reference
 frontend feeds the canonical 'bft' path. A list of models is an ensemble:
 the frontend runs once and the member probabilities are averaged.
 """
@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from .. import models
+from ..models.moe import MoEUITConfig
 from ..models.uit import UITConfig
 from ..utils.device import resolve_device
 from .mel import make_frontend_fn
@@ -47,19 +48,33 @@ def _policy(cfg, model, use_kernel, precision, top_db_mode, btf, framewise=False
     if not use_kernel or btf is False or framewise:
         layout = "bft"
     else:
-        # bft consumers (MobileNetV2) take the transposed kernel plus one
-        # transpose back where that is bitwise the row kernel
+        # bft consumers (MobileNetV2, the MoE UiT) take the transposed
+        # kernel plus one transpose back where that is bitwise the row kernel
         layout = "tfb" if uit_family else "tfb_to_bft"
     fe_cfg = cfg.frontend
     if top_db_mode is not None:
         fe_cfg = dataclasses.replace(fe_cfg, top_db_mode=top_db_mode)
     # the model config's mel_layout is always pinned to the frontend's
     # actual layout (non-UiT configs have no layout branch)
-    run_cfg = (dataclasses.replace(cfg, mel_layout=layout, frontend=fe_cfg) if uit_family
-               else dataclasses.replace(cfg, frontend=fe_cfg))
+    if uit_family:
+        run_cfg = dataclasses.replace(cfg, mel_layout=layout, frontend=fe_cfg)
+    elif isinstance(cfg, MoEUITConfig):  # its frontend lives in its UiT base
+        run_cfg = dataclasses.replace(cfg, base=dataclasses.replace(cfg.base, frontend=fe_cfg))
+    else:
+        run_cfg = dataclasses.replace(cfg, frontend=fe_cfg)
     frontend = make_frontend_fn(fe_cfg, use_kernel=use_kernel, precision=precision,
                                 layout=layout)
     return members, device, run_cfg, frontend, use_kernel
+
+
+def ensemble_forward(members: list, run_cfg, frontend, wav: torch.Tensor) -> torch.Tensor:
+    """(B, T) wave -> (B, C) probs of one member, or the mean of the
+    members' probabilities over one frontend run (an ensemble)."""
+    if len(members) == 1:
+        return models.forward(run_cfg, members[0], wav, frontend_fn=frontend)
+    mel = frontend(wav)
+    probs = [models.forward(run_cfg, m, wav, frontend_fn=lambda _: mel) for m in members]
+    return torch.stack(probs).mean(dim=0)
 
 
 def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
@@ -83,12 +98,7 @@ def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
 
     @torch.inference_mode()
     def fn(wav):
-        wav = torch.as_tensor(wav).to(device)
-        if len(members) == 1:
-            return models.forward(run_cfg, members[0], wav, frontend_fn=frontend)
-        mel = frontend(wav)
-        probs = [models.forward(run_cfg, m, wav, frontend_fn=lambda _: mel) for m in members]
-        return torch.stack(probs).mean(dim=0)
+        return ensemble_forward(members, run_cfg, frontend, torch.as_tensor(wav).to(device))
 
     fn.uses_kernel = use_kernel
     fn.top_db_mode = run_cfg.frontend.top_db_mode

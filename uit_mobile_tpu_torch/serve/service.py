@@ -92,7 +92,8 @@ class TaggingService:
     ``resolve_calibration``; every result is ``apply_temperature``d."""
 
     def __init__(self, model_cfg, model, config: ServiceConfig = ServiceConfig(), *,
-                 device="cuda", calibration=None, _start_worker: bool = True):
+                 device="cuda", calibration=None, _start_worker: bool = True,
+                 _forward_fn=None, _fixed_samples: Optional[int] = None):
         if config.data_parallel:
             raise NotImplementedError(
                 "data_parallel serving is not yet ported (ROADMAP §A17)")
@@ -106,6 +107,9 @@ class TaggingService:
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
         self._scan_k = max(1, config.scan_batches)
+        # sealed program injected by from_artifact: no layout/frontend policy
+        # to apply, and no hot reload (the program is the weights)
+        self._sealed_fwd = _forward_fn
         self._fwd, self._scanned_fwd = self._build_forwards(model)
         self.weights_version = 1
         self._reload_lock = threading.Lock()
@@ -116,8 +120,13 @@ class TaggingService:
         self._closed = False
         self._close_lock = threading.Lock()
         sr = config.sample_rate
-        self._buckets = [(s * sr, max(1, config.batch_size // s))
-                         for s in range(1, config.max_seconds + 1)]
+        if _fixed_samples is not None:
+            # artifact serving: one bucket at the artifact's clip length
+            # (its time dim is part of the exported program)
+            self._buckets = [(_fixed_samples, config.batch_size)]
+        else:
+            self._buckets = [(s * sr, max(1, config.batch_size // s))
+                             for s in range(1, config.max_seconds + 1)]
         if config.warmup:
             self._warmup(self._fwd, self._scanned_fwd)
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -126,17 +135,57 @@ class TaggingService:
             self._start()
 
     @classmethod
-    def from_artifact(cls, *args, **kwargs):
-        raise NotImplementedError("artifact serving is not yet ported (ROADMAP §A14)")
+    def from_artifact(cls, path, config: ServiceConfig = ServiceConfig(), *,
+                      device="cuda", calibration=None):
+        """Serve a ``.uitx`` artifact (ckpt/artifact.py): the exported
+        program is the whole model, so no model code, weights or config
+        are needed. The artifact must be batch-polymorphic (the
+        ``export_serving`` default) on a whole-second clip length, and its
+        input dtype must match ``config.dtype``. One length bucket (the
+        artifact's clip length); shorter clips right-zero-pad to it.
+        ``data_parallel``/``scan_batches`` are rejected: the artifact is a
+        sealed single-device program. ``artifact_meta`` holds its
+        metadata (the label map among it)."""
+        from ..ckpt.artifact import load_artifact
+
+        fn, meta = load_artifact(path, device=device)
+        shape = meta["input_shape"]
+        if shape[0] != "b":
+            raise ValueError(
+                f"artifact has fixed batch {shape[0]}: serving needs a batch-polymorphic "
+                f"export (export_serving batch_size=None)")
+        n_samples = int(shape[1])
+        sr = config.sample_rate
+        if n_samples % sr:
+            raise ValueError(
+                f"artifact clip length {n_samples} is not a whole second at {sr} Hz: "
+                f"bucket padding cannot target it")
+        if meta["input_dtype"] != config.dtype:
+            raise ValueError(
+                f"artifact input dtype {meta['input_dtype']} != service dtype {config.dtype}")
+        if config.data_parallel:
+            raise ValueError("data_parallel is unavailable for artifact serving (sealed "
+                             "single-device program)")
+        if config.scan_batches > 1:
+            raise ValueError("scan_batches is unavailable for artifact serving (the "
+                             "artifact is the whole program)")
+        config = dataclasses.replace(config, max_seconds=n_samples // sr)
+        service = cls(None, None, config, device=device, calibration=calibration,
+                      _forward_fn=fn, _fixed_samples=n_samples)
+        service.artifact_meta = meta
+        return service
 
     def _build_forwards(self, model):
         """(per-batch fwd, K-batch fwd | None) under the service's policy,
         over the service's own copy of the model on its device."""
-        model = copy.deepcopy(model).to(self.device).eval()
+        if self._sealed_fwd is None:
+            model = copy.deepcopy(model).to(self.device).eval()
         if self._stream is not None:
             # the weights were copied on this thread's stream; the service's
             # stream reads them
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        if self._sealed_fwd is not None:
+            return self._sealed_fwd, None
         use_kernel = self.cfg.use_kernel
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
@@ -172,7 +221,12 @@ class TaggingService:
     def reload(self, model, model_cfg=None) -> int:
         """Hot-swap the weights: build and warm the new forwards off the hot
         path, then swap them in. In-flight batches finish on the old
-        weights. Returns the new weights version (starts at 1)."""
+        weights. Returns the new weights version (starts at 1). An
+        artifact-backed service raises: the sealed program is the weights;
+        restart with the new artifact instead."""
+        if self._sealed_fwd is not None:
+            raise RuntimeError("artifact-backed service cannot hot-reload: the exported "
+                               "program is the weights; restart with the new artifact")
         with self._reload_lock:
             if model_cfg is not None:
                 self._model_cfg = model_cfg

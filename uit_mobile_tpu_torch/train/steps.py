@@ -10,7 +10,9 @@ and returns its metrics as device tensors (no host sync).
 
 The optimizers are ``torch.optim``'s Adam, AdamW and SGD, the same update
 rules as optax's (AdamW's ``p * (1 - lr * wd)`` before the Adam step is
-optax's ``wd * p`` added to the Adam direction). The learning rate of
+optax's ``wd * p`` added to the Adam direction), and ``Adafactor``, a port
+of optax 0.2.6's ``adafactor`` (``torch.optim.Adafactor`` is another rule);
+``Adam8bit`` takes Adafactor's rule, as in the JAX package. The learning rate of
 update n is ``schedule(n)``, n counted before the update, as optax counts
 it: the wrapper sets it on the param groups before each step.
 ``wrap_optimizer`` adds a parameter EMA and gradient accumulation (the mean
@@ -23,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from .. import models
@@ -126,6 +129,105 @@ def params_ema(decay: float) -> float:
     return float(decay)
 
 
+def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
+    """optax's choice of the two axes a second moment is factored over
+    (the two largest, by numpy's argsort), or None."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax 0.2.6's ``adafactor`` as a ``torch.optim`` rule, the chain
+    ``scale_by_factored_rms`` -> ``clip_by_block_rms`` -> the learning rate
+    -> ``scale_by_param_block_rms`` -> optional ``ema`` momentum (not
+    debiased) -> optional ``add_decayed_weights`` -> descent:
+
+    - second moments factored into row and column accumulators for leaves
+      with two dims of at least ``min_dim_size_to_factor`` (the two largest
+      dims), a full accumulator elsewhere, decayed by
+      1 - (step + 1 - decay_offset) ** -decay_rate (float32, as optax);
+    - the update's RMS clipped to ``clipping_threshold`` per leaf;
+    - scaled by the lr and by max(RMS(param), 1e-3) per leaf;
+    - ``weight_decay_rate`` adds wd * param after the lr (optax's order).
+
+    The accumulators live in ``state[p]`` as ``v_row``, ``v_col`` and ``v``
+    (optax's shapes: a (1,) placeholder where unused) and ``momentum``;
+    ``step`` counts the updates, as Adam's does; ``dims`` holds the leaf's
+    factored axes (None: a full accumulator), chosen once here."""
+
+    def __init__(self, params, lr: float = 1e-3, min_dim_size_to_factor: int = 128,
+                 decay_rate: float = 0.8, decay_offset: int = 0,
+                 multiply_by_parameter_scale: bool = True,
+                 clipping_threshold: Optional[float] = 1.0, momentum: Optional[float] = None,
+                 weight_decay_rate: Optional[float] = None, eps: float = 1e-30,
+                 factored: bool = True):
+        super().__init__(params, dict(
+            lr=lr, min_dim_size_to_factor=min_dim_size_to_factor, decay_rate=decay_rate,
+            decay_offset=decay_offset, multiply_by_parameter_scale=multiply_by_parameter_scale,
+            clipping_threshold=clipping_threshold, momentum=momentum,
+            weight_decay_rate=weight_decay_rate, eps=eps, factored=factored))
+        self.slots = ("v_row", "v_col", "v") + (("momentum",) if momentum is not None else ())
+        for group in self.param_groups:
+            for p in group["params"]:
+                dims = _factored_dims(tuple(p.shape), factored, min_dim_size_to_factor)
+                one = torch.zeros(1, dtype=p.dtype, device=p.device)
+                st = self.state[p]
+                if dims is None:
+                    st.update(v_row=one, v_col=one.clone(), v=torch.zeros_like(p))
+                else:
+                    d1, d0 = dims
+                    st.update(v_row=torch.zeros([n for i, n in enumerate(p.shape) if i != d0],
+                                                dtype=p.dtype, device=p.device),
+                              v_col=torch.zeros([n for i, n in enumerate(p.shape) if i != d1],
+                                                dtype=p.dtype, device=p.device),
+                              v=one)
+                if momentum is not None:
+                    st["momentum"] = torch.zeros_like(p)
+                st["step"], st["dims"] = torch.tensor(0.0), dims
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is not None:
+                    self._update(group, p, p.grad, self.state[p])
+
+    @staticmethod
+    def _update(h: dict, p: torch.Tensor, g: torch.Tensor, st: dict) -> None:
+        t = np.float32(int(st["step"]) - h["decay_offset"] + 1)
+        decay = float(np.float32(1.0) - t ** np.float32(-h["decay_rate"]))
+        grad_sqr = g * g + h["eps"]
+        if st["dims"] is not None:
+            d1, d0 = st["dims"]
+            st["v_row"].copy_(decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0))
+            st["v_col"].copy_(decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1))
+            reduced_d1 = d1 - 1 if d1 > d0 else d1
+            row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
+            row_factor = (st["v_row"] / row_col_mean) ** -0.5
+            col_factor = st["v_col"] ** -0.5
+            u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+        else:
+            st["v"].copy_(decay * st["v"] + (1.0 - decay) * grad_sqr)
+            u = g * st["v"] ** -0.5
+        if h["clipping_threshold"] is not None:
+            u = u / torch.clamp(torch.sqrt((u * u).mean()) / h["clipping_threshold"], min=1.0)
+        u = u * h["lr"]
+        if h["multiply_by_parameter_scale"]:
+            rms = torch.sqrt((p * p).mean())
+            u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+        if h["momentum"] is not None:
+            st["momentum"].copy_(h["momentum"] * st["momentum"] + (1.0 - h["momentum"]) * u)
+            u = st["momentum"]
+        if h["weight_decay_rate"] is not None:
+            u = u + h["weight_decay_rate"] * p
+        p.sub_(u)
+        st["step"] += 1
+
+
 @dataclasses.dataclass(frozen=True)
 class OptimizerSpec:
     """What ``build_optimizer`` returns and ``wrap_optimizer`` extends;
@@ -142,7 +244,7 @@ class OptimizerSpec:
 
 class Optimizer:
     """The optimizer state of one model: ``torch.optim``'s Adam, AdamW or
-    SGD (``foreach``) as the base rule, the update count that drives the
+    SGD (``foreach``), or ``Adafactor``, as the base rule, the update count that drives the
     schedule, the parameter EMA and the gradient accumulator, all allocated
     at construction (``state_leaves`` is fixed for a spec and a model).
     ``update(grads)`` takes one micro-step's gradients; it applies an
@@ -164,12 +266,17 @@ class Optimizer:
             # a zero trace makes the first update's trace the gradient, as
             # in optax (and keeps the state's leaves fixed from the start)
             self._slots = ("momentum_buffer",) if h["momentum"] else ()
+        elif spec.name == "Adafactor":
+            # allocates its factored accumulators itself (their shapes are
+            # not the parameters')
+            self.base = Adafactor(self.params, lr=0.0, **h)
+            self._slots = self.base.slots
         else:
             rule = torch.optim.AdamW if spec.name == "AdamW" else torch.optim.Adam
             self.base = rule(self.params, lr=0.0, betas=(h["b1"], h["b2"]), eps=h["eps"],
                              weight_decay=h["weight_decay"], foreach=True)
             self._slots = ("exp_avg", "exp_avg_sq")
-        for p in self.params:
+        for p in self.params if spec.name != "Adafactor" else ():
             self.base.state[p].update({k: torch.zeros_like(p, memory_format=torch.preserve_format)
                                        for k in self._slots})
             if spec.name != "SGD":
@@ -181,7 +288,8 @@ class Optimizer:
     @property
     def moments(self) -> list[list[torch.Tensor]]:
         """The base rule's state per slot: Adam's first and second moments,
-        or SGD's momentum trace."""
+        SGD's momentum trace, or Adafactor's row, column and full second
+        moments (and momentum)."""
         return [[self.base.state[p][k] for p in self.params] for k in self._slots]
 
     @torch.no_grad()
@@ -238,24 +346,37 @@ def find_ema_params(optimizer: Optimizer) -> Optional[dict]:
     return None if optimizer.ema is None else dict(zip(optimizer.names, optimizer.ema))
 
 
-_OPTIMIZERS = ("Adam", "AdamW", "SGD")
-# optax.adafactor is not torch.optim.Adafactor: these wait for their own port
-_NOT_YET_PORTED = ("Adam8bit", "Adafactor")
+_OPTIMIZERS = ("Adam", "AdamW", "SGD", "Adafactor", "Adam8bit")
+# optax.adafactor's options (the port's Adafactor takes them all but
+# dtype_momentum and weight_decay_mask)
+_ADAFACTOR_OPTIONS = ("min_dim_size_to_factor", "decay_rate", "decay_offset",
+                      "multiply_by_parameter_scale", "clipping_threshold", "momentum",
+                      "weight_decay_rate", "eps", "factored")
 
 
 def build_optimizer(name: str, schedule_or_lr, **kwargs) -> OptimizerSpec:
     """Config ``optimizer:`` + ``optimizer_args:`` -> an OptimizerSpec.
     ``schedule_or_lr`` is a float or a function of the update count."""
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(f"optimizer {name!r} is not yet ported (ROADMAP §A22); "
-                                  f"use Adam, AdamW or SGD")
     if name not in _OPTIMIZERS:
-        raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS + _NOT_YET_PORTED)}")
+        raise KeyError(f"unknown optimizer {name!r}; known: {sorted(_OPTIMIZERS)}")
+    if name == "Adam8bit":
+        # a different update rule, not a quantized Adam: configs written for
+        # the reference converge differently; say so loudly
+        from ..utils import get_logger
+
+        get_logger().warning(
+            "optimizer 'Adam8bit' (bitsandbytes) has no analogue in the port; "
+            "substituting Adafactor (optax.adafactor's rule), a different update rule "
+            "with different convergence behavior. Use 'Adam'/'AdamW' for faithful "
+            "reference dynamics, or 'Adafactor' to make this choice explicit.")
+        name = "Adafactor"
     kwargs = dict(kwargs)
     kwargs.pop("lr", None)
     if name == "SGD":
         hparams = {"momentum": float(kwargs.pop("momentum", 0.0)),
                    "nesterov": bool(kwargs.pop("nesterov", False))}
+    elif name == "Adafactor":
+        hparams = {k: kwargs.pop(k) for k in _ADAFACTOR_OPTIONS if k in kwargs}
     else:
         hparams = {"b1": float(kwargs.pop("b1", 0.9)), "b2": float(kwargs.pop("b2", 0.999)),
                    "eps": float(kwargs.pop("eps", 1e-8)),
@@ -350,6 +471,10 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             "mel_layout='tfb' training with a PSL teacher needs psl_frontend_fn= "
             "(the teacher reads 'bft' mel; build one with "
             "make_frontend_fn(psl_cfg.frontend, layout='tfb_to_bft'))")
+    if isinstance(model_cfg, models.MoEUITConfig):
+        raise TypeError(
+            "the MoE variant trains through its own step (router aux loss, no train-mode "
+            "augment path): build it with parallel.make_moe_train_step")
     loss_fn = make_loss(loss_name, **(loss_args or {}))
 
     def teacher(wav):

@@ -5,9 +5,9 @@ Two FLOP sources, cross-checked in tests/test_torch_flops.py:
 
 - ``counted_flops(fn, *args)``: PyTorch's own count of the matmuls and
   convolutions one call runs (``torch.utils.flop_counter.FlopCounterMode``).
-  It does not see the fused mel kernel, a ctypes launch: on the card, add
-  ``frontend_flops`` for the frontend. On the CPU the kernel's plain version
-  runs its DFT and filterbank as matmuls, and the counter sees them.
+  The fused mel kernel is the operator ``log_mel_rows``, whose registered
+  formula counts its plain version's DFT and filterbank products on either
+  device.
 - ``uit_forward_flops(cfg, n_samples)``: the analytic hand model for the
   UiT families (DFT-as-matmul + filterbank + patch embed + encoder + head),
   term by term. For uit_xs on a 1 s clip this is ~128 MFLOP: DFT 53 + fb
@@ -65,8 +65,8 @@ def device_hbm_bandwidth(device=None) -> Optional[float]:
 
 def counted_flops(fn, *args, **kwargs) -> float:
     """FLOPs of one call ``fn(*args, **kwargs)`` as FlopCounterMode counts
-    them (matmuls, convolutions, attention products). A kernel launched
-    through ctypes, the mel kernel on the card, is invisible to it."""
+    them (matmuls, convolutions, attention products); the mel operator
+    counts its plain version's products (``ops/mel.py``), on either device."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)
