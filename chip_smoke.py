@@ -94,11 +94,24 @@ The rest of training runs after the train phase:
               apart, tokens routed differently counted); 3 recipe steps with
               optimizer Adafactor through the Trainer, one step against the
               CPU.
+After bench:
+  parallel  - data parallelism on the one card (phase_parallel): the recipe
+              through `cli.launch 1` (NCCL) against one process (last.npz
+              bitwise, or the largest gap); two ranks sharing the card over
+              gloo (recipe B=32 and frontier B=1024 steps against the
+              single-process global step, given the ranks' ReLU signs and
+              without; mel launches by rank); the FSDP step (two gloo ranks
+              when gloo carries FSDP2's collectives for CUDA tensors, else
+              one NCCL rank); the Evaluator and TaggingService over two
+              replicas of the card; the one-rank step's cost beside the
+              single-process step's. Not a scaling measurement.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Launch counters are set to 0 just before the serve, exact, train, bf16,
 psl_cache scoring, offline, sed, pretrain, each artifact call, each moe path,
-each eval, each stream and the http path and read just after; comparison launches do not count. Any failure exits non-zero without that last line, as does a machine
+each eval, each stream, the http path and each parallel path (in each
+rank's own process) and read just after; comparison launches do not count.
+Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
 
@@ -964,7 +977,8 @@ def time_train_step(trainer, name: str, info) -> dict:
 
 
 # kernel name fragments -> the part of the step they belong to (first match)
-KERNEL_GROUPS = (("mel", ("mel_kernel",)), ("conv", ("conv", "cudnn", "implicit", "winograd")),
+KERNEL_GROUPS = (("mel", ("mel_kernel",)), ("collective", ("nccl",)),
+                 ("conv", ("conv", "cudnn", "implicit", "winograd")),
                  ("matmul", ("gemm", "cutlass", "sm90", "ampere", "cublas")),
                  ("optimizer", ("foreach", "multi_tensor")),
                  ("reduce", ("reduce", "norm", "softmax")))
@@ -2607,6 +2621,511 @@ def phase_bench(info) -> None:
         emit({"phase": "bench", "argv": argv, "wall_s": time.perf_counter() - t0, **rec})
 
 
+# ------------------------------------------------------------- parallelism
+
+# the card the parallel phase's ranks and replicas share (the smoke run has
+# one card: NCCL takes one rank a card, so two ranks share it over gloo)
+CARD = "cuda:0"
+PARALLEL_DEADLINE_S = 300  # a rank's rendezvous timeout, and the deadline of its join
+# one step of each configuration as two ranks of one global batch: B, the
+# student's mel layout, frontend precision, int16 input, the kernel each
+# rank's student (B/2 rows) and teacher (B/4) launch
+DP_STEPS = {"recipe": (32, "bft", "exact", False, "row_exact"),
+            "frontier": (1024, "tfb", "fast", True, "tfb_fast")}
+DP_LR, DP_EPS = 1e-3, 1e-8  # the steps' AdamW (constant lr, optax's eps)
+
+
+def relu_signs(record: list | None = None, impose: list | None = None):
+    """Patch the encoder MLP's ReLU (models/common.py ACTIVATIONS) to record
+    each call's signs into ``record``, or to impose another run's signs
+    popped from ``impose`` (the gradient then follows those signs) -> the
+    function that restores it."""
+    from uit_mobile_tpu_torch.models import common
+
+    orig = common.ACTIVATIONS["relu"]
+
+    def relu(z):
+        if impose is not None:
+            return z * impose.pop(0).to(z.device, z.dtype)
+        record.append((z > 0).detach().cpu())
+        return orig(z)
+
+    common.ACTIVATIONS["relu"] = relu
+    return lambda: common.ACTIVATIONS.__setitem__("relu", orig)
+
+
+def dp_parts(name: str) -> dict:
+    """The seeded weights and global batch of DP_STEPS[name] (numpy), [all
+    AudioSet filler rows, all keyword rows], with the recipe's augments."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import module_to_numpy
+
+    B, layout, precision, int16, _ = DP_STEPS[name]
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102, mel_layout=layout)
+    t_cfg = models.get_model_config("MobileNetV2", outputdim=527)
+    rng = np.random.default_rng(11)
+    n_as = B // 2
+    clips_as, _ = synth_split(rng, n_as, False)
+    clips_kws, labels = synth_split(rng, B - n_as, True)
+    pcm = np.stack(clips_as + clips_kws)
+    target = np.zeros((B, 537), np.float32)
+    target[:n_as, 0] = 1.0
+    target[np.arange(n_as, B), labels] = 1.0
+    c = RECIPE if name == "recipe" else FRONTIER
+    return {"cfg": cfg, "t_cfg": t_cfg, "precision": precision, "layout": layout,
+            "student": module_to_numpy(models.build(cfg, torch.Generator().manual_seed(7), "cpu")),
+            "teacher": module_to_numpy(models.build(t_cfg, torch.Generator().manual_seed(8),
+                                                    "cpu")),
+            "wav": pcm if int16 else pcm.astype(np.float32) / 32768.0, "target": target,
+            "wavtransforms": c["wavtransforms"], "spectransforms": c["spectransforms"]}
+
+
+def dp_step(parts: dict, rows=None, sl: slice = slice(None), psl: bool = True,
+            fsdp: bool = False, record: list | None = None, impose: list | None = None,
+            timed: bool = False) -> dict:
+    """One step of a DP_STEPS configuration on CARD: the whole batch (rows
+    None) or this rank's share of it ([its audioset rows, its kws rows]);
+    the PSL step, or without ``psl`` the weak step, on the FSDP-sharded
+    student with ``fsdp``. ``record``/``impose``: relu_signs. -> loss,
+    pre-clip norm, updated params and gradients (host), mel launches, and
+    with ``timed`` the step's CUDA-event median over more steps."""
+    from uit_mobile_tpu_torch.augment import parse_spectransforms, parse_wavtransforms
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.parallel import process_mesh
+    from uit_mobile_tpu_torch.parallel.fsdp import fsdp_shard_params, make_fsdp_train_step
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    dev = torch.device(CARD)
+    cfg, t_cfg = parts["cfg"], parts["t_cfg"]
+    layout, precision = parts["layout"], parts["precision"]
+    B = len(parts["wav"])
+    h, a, b = B // 2, (sl.start or 0) // 2, (sl.stop or B) // 2
+    batch = {k: torch.from_numpy(np.concatenate([parts[k][a:b], parts[k][h + a:h + b]])).to(dev)
+             for k in ("wav", "target")}
+    model = module_from_numpy(cfg, *parts["student"], device=dev)
+    kw = dict(rows=rows, wav_augment=parse_wavtransforms(parts["wavtransforms"]),
+              spec_augment=parse_spectransforms(parts["spectransforms"], layout=layout),
+              frontend_fn=make_frontend_fn(cfg.frontend, precision=precision, layout=layout))
+    if fsdp:
+        root, _ = fsdp_shard_params(process_mesh(dev), model)
+        opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(root.model)
+        step = make_fsdp_train_step(cfg, root, opt, **kw)
+    elif not psl:
+        opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(model)
+        step = make_train_step(cfg, model, opt, **kw)
+    else:
+        teacher = module_from_numpy(t_cfg, *parts["teacher"], device=dev).requires_grad_(False)
+        opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(model)
+        step = make_train_step(
+            cfg, model, opt, psl_cfg=t_cfg, psl_model=teacher, psl_split=b - a,
+            psl_frontend_fn=make_frontend_fn(t_cfg.frontend, precision=precision,
+                                             layout="tfb_to_bft"), **kw)
+    grads = step_grads(opt)
+    restore = relu_signs(record, impose) if (record is not None or impose is not None) else None
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        m = step(batch, torch.Generator(device=dev).manual_seed(3))
+        torch.cuda.synchronize()
+        counts = dict(launches)
+    finally:
+        if restore is not None:
+            restore()
+
+    def host(t):  # a copy: the timed steps below move the parameters on
+        if hasattr(t, "to_local"):  # an FSDP shard: gather it with c10d (DTensor's
+            import torch.distributed as dist  # full_tensor crashed on gloo + CUDA)
+
+            local = t.to_local().detach().contiguous()
+            parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
+            dist.all_gather(parts, local)
+            t = torch.cat(parts, dim=t.placements[0].dim)
+        return t.detach().cpu().clone()
+
+    out = {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "params": {n: host(p) for n, p in model.named_parameters()},
+           "grads": {n: host(g) for n, g in grads.items()}, "launches": counts}
+    if timed:  # more steps of the same batch, after the recorded one
+        out["step_ms"] = time_ms(lambda: step(batch, torch.Generator(device=dev).manual_seed(3)),
+                                 warmup=2, iters=10)
+    return out
+
+
+def dp_agreement(got: dict, want: dict) -> dict:
+    """The N-rank step against the single-process step: the gates of
+    tests/test_torch_parallel.py (loss 1e-5 relative, pre-clip norm 1e-4
+    relative, every gradient within 1e-5 of its tensor's largest, every
+    parameter within 5e-5 plus what that gradient gate can move Adam's
+    first step, lr * eps * dg / (|g| + eps)^2)."""
+    rel = {k: ((got["grads"][k] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+           for k, g in want["grads"].items()}
+    over = 0
+    worst_p = 0.0
+    for k, p in want["params"].items():
+        g = want["grads"][k]
+        dg = 1e-5 * g.abs().max().clamp(min=1e-30)
+        bound = 5e-5 + DP_LR * DP_EPS * dg / ((g.abs() - dg).clamp(min=0) + DP_EPS) ** 2
+        d = (got["params"][k] - p).abs()
+        over += int((d > bound).sum())
+        worst_p = max(worst_p, d.max().item())
+    worst_g = max(rel, key=rel.get)
+    rec = {"loss": got["loss"], "loss_single": want["loss"],
+           "loss_rel_err": abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+           "grad_norm_rel_err": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+           "max_grad_rel_diff": rel[worst_g], "worst_grad_tensor": worst_g,
+           "params_max_abs_diff": worst_p, "params_over_bound": over}
+    rec["agrees"] = (rec["loss_rel_err"] <= 1e-5 and rec["grad_norm_rel_err"] <= 1e-4
+                     and rec["max_grad_rel_diff"] <= 1e-5 and over == 0)
+    return rec
+
+
+def global_signs(rank_signs: list, blocks_of_rank) -> list:
+    """Each rank's recorded ReLU signs -> the global batch's, call by call
+    (a call's rows are the rank's rows of the global batch)."""
+    from uit_mobile_tpu_torch.parallel.rows import Rows
+
+    world = len(rank_signs)
+    out = []
+    for i in range(len(rank_signs[0])):
+        local = [s[i] for s in rank_signs]
+        full = torch.empty((local[0].shape[0] * world,) + tuple(local[0].shape[1:]),
+                           dtype=torch.bool)
+        for r, s in enumerate(local):
+            full[Rows(blocks_of_rank, "cpu", rank=r, world=world).index] = s
+        out.append(full)
+    return out
+
+
+def dp_rank(argv) -> int:
+    """One rank of the shared-card check (``chip_smoke.py --dp-rank R W PORT
+    DIR BACKEND DEVICE``; DEVICE is the parent's CARD). gloo: the check that gloo carries FSDP2's
+    collectives for CUDA tensors, the recipe and frontier PSL steps on this
+    rank's share, then the FSDP step if the check passed; nccl (one rank):
+    the FSDP step alone. ReLU signs recorded; results to DIR."""
+    import torch.distributed as dist
+
+    from uit_mobile_tpu_torch.parallel import multihost
+    from uit_mobile_tpu_torch.parallel.rows import Rows
+    from uit_mobile_tpu_torch.utils import resolve_device
+
+    global CARD
+    rank, world, port, workdir, backend, CARD = (int(argv[0]), int(argv[1]), argv[2],
+                                                 Path(argv[3]), argv[4], argv[5])
+    dev = resolve_device(CARD)  # TF32 off, as in the single-process steps
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
+                         backend=backend, timeout=PARALLEL_DEADLINE_S)
+    res = {"gloo_cuda_fsdp_collectives": False}
+    if backend == "gloo":
+        gathered = torch.empty(4 * world, device=dev)
+        dist.all_gather_into_tensor(gathered, torch.arange(4.0, device=dev) + 4 * rank)
+        scattered = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(scattered, torch.arange(2.0 * world, device=dev))
+        res["gloo_cuda_fsdp_collectives"] = bool(
+            gathered.tolist() == list(range(4 * world))
+            and scattered.tolist() == [world * 2.0 * rank, world * (2.0 * rank + 1)])
+        for name in DP_STEPS:
+            parts = dp_parts(name)
+            B = len(parts["wav"])
+            signs: list = []
+            res[name] = dp_step(parts, Rows([B // 2 // world] * 2, dev),
+                                multihost.host_local_batch_slice(B), record=signs,
+                                timed=name == "recipe")
+            res[name]["signs"] = signs
+    if backend == "nccl" or res["gloo_cuda_fsdp_collectives"]:
+        parts = dp_parts("recipe")
+        B = len(parts["wav"])
+        signs = []
+        res["fsdp"] = dp_step(parts, Rows([B // 2 // world] * 2, dev),
+                              multihost.host_local_batch_slice(B), psl=False, fsdp=True,
+                              record=signs)
+        res["fsdp"]["signs"] = signs
+    torch.save(res, workdir / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def launched_rank(argv) -> int:
+    """What ``cli.launch --program chip_smoke`` runs on each rank
+    (``python -m chip_smoke train CONFIG.json --multihost {...} --device D
+    [--key value]``): the port's Trainer on the in-memory clips of
+    synth_trainer_class, then its step timed on a fixed batch; prints the
+    rank's mel launches of the run and the step ms as one JSON line."""
+    from uit_mobile_tpu_torch.cli.train import _parse_overrides
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.parallel import multihost
+    from uit_mobile_tpu_torch.train.loop import start_multihost
+
+    config = dict(json.loads(Path(argv[1]).read_text()), **_parse_overrides(argv[2:]))
+    device = config.pop("device")
+    start_multihost(config, device)
+    trainer = synth_trainer_class()(config, device=device)
+    reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = dict(launches)
+    emit({"rank": multihost.process_index(), "world": multihost.process_count(),
+          "launches": counts, **trainer_step_ms(trainer)})
+    return 0
+
+
+def trainer_step_ms(trainer) -> dict:
+    """The trainer's step on one fixed recipe batch: CUDA-event median and
+    torch.profiler's reading of 5 steps (profile_steps)."""
+    parts = dp_parts("recipe")
+    dev = trainer.device
+    batch = {k: torch.from_numpy(parts[k]).to(dev) for k in ("wav", "target")}
+    step = lambda: trainer.train_step(batch, trainer.generator)  # noqa: E731
+    ms = time_ms(step, warmup=3, iters=15)
+    return {"step_ms": ms, **profile_steps(step, ms)}
+
+
+def npz_arrays(path: Path) -> dict:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k != "__meta__"}
+
+
+def spawn_ranks(argvs: list, deadline: float) -> list:
+    """Start every rank; join each within ``deadline`` s of the start, and
+    kill them all on a failure or at the deadline. -> their outputs."""
+    procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              cwd=REPO) for a in argvs]
+    t_end, outs = time.monotonic() + deadline, []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, t_end - time.monotonic()))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+    return outs
+
+
+def dp_spawn(work: Path, world: int, backend: str) -> list:
+    """Run dp_rank on ``world`` processes sharing CARD -> their results."""
+    port = str(free_port())
+    spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--dp-rank",
+                  str(r), str(world), port, str(work), backend, CARD] for r in range(world)],
+                PARALLEL_DEADLINE_S)
+    return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> dict:
+    """The ranks' step ``name`` against the single-process global step on
+    CARD, without and then given the ranks' ReLU signs (a sign that lies
+    within rounding of 0 may flip between the two summation orders and
+    move a whole term of fc1's gradient): the ranks end bitwise alike, the
+    loss within 1e-5 either way, the flips under 1e-5 of the ReLU inputs,
+    and dp_agreement given the ranks' signs."""
+    B = len(parts["wav"])
+    signs: list = []
+    free = dp_step(parts, psl=psl, record=signs, timed=name == "recipe")
+    world = len(ranks)
+    dp_signs = global_signs([r[name]["signs"] for r in ranks], [B // 2 // world] * 2)
+    flips = int(sum((a != b).sum() for a, b in zip(dp_signs, signs)))
+    given = dp_step(parts, psl=psl, impose=list(dp_signs))
+    got = ranks[0][name]
+    same_ranks = all(torch.equal(got["params"][k], r[name]["params"][k])
+                     for r in ranks[1:] for k in got["params"])
+    rec = {"phase": "parallel", "path": f"{world}_ranks_{name}", "B": B,
+           "rows_a_rank": B // world, "mel_launches_by_rank": [r[name]["launches"] for r in ranks],
+           "relu_inputs": int(sum(s.numel() for s in signs)), "relu_flips": flips,
+           "ranks_params_bitwise": same_ranks,
+           "vs_single_given_rank_signs": dp_agreement(got, given),
+           "vs_single": dp_agreement(got, free), "card": info["nvidia_smi"]}
+    if "step_ms" in free:
+        rec["single_step_ms"] = free["step_ms"]
+    check(same_ranks and rec["vs_single_given_rank_signs"]["agrees"]
+          and rec["vs_single"]["loss_rel_err"] <= 1e-5 and flips <= 1e-5 * rec["relu_inputs"],
+          f"{world} ranks vs one process, {name}: {rec}")
+    return rec
+
+
+def phase_parallel(info) -> dict:
+    """Data parallelism on the one card (not a scaling measurement):
+    (a) the recipe for one epoch through ``cli.launch 1`` (NCCL, one rank)
+        against the single-process Trainer from the same seed: last.npz
+        bitwise, or the largest gap printed;
+    (b) two ranks sharing the card over gloo: one recipe step (B=32, 16 a
+        rank, row_exact in student and teacher) and one frontier step
+        (B=1024, 512 a rank, tfb_fast in both) against the single-process
+        global step on the card (dp_agreement), given the ranks' ReLU signs
+        and without them (the flips counted);
+    (c) the FSDP step (the recipe's student, no teacher): two ranks over
+        gloo when the ranks' check shows gloo carrying FSDP2's collectives
+        for CUDA tensors, else one rank on NCCL; held as (b);
+    (d) Evaluator and TaggingService data parallel over a mesh of two CARD
+        replicas: fast (the kernel, per-sample clamp) against the non-DP
+        per-sample run, exact (the plain frontend) against the non-DP exact
+        run, within 1e-3;
+    (e) the one-rank step against the single-process step, and the shared-
+        card two-rank step (time-sliced on one card, not a scaling number).
+    -> {path: mel launch counts}."""
+    import tempfile
+
+    counts: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="uit_parallel_"))
+
+    # (a) one rank on NCCL through the launcher, against one process
+    config = dict(RECIPE, epochs=1, epoch_length=5, valid_every=1)
+    cfg_path = work / "recipe.json"
+    cfg_path.write_text(json.dumps(config))
+    single = synth_trainer_class()(dict(config, outputdir=str(work / "single")), device=CARD)
+    single.train()
+    single_timing = trainer_step_ms(single)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "uit_mobile_tpu_torch.cli.launch", "1", "train", str(cfg_path),
+         "--program", "chip_smoke", "--device", torch.device(CARD).type,
+         "--outputdir", str(work / "launched")],
+        cwd=REPO, capture_output=True, text=True, timeout=PARALLEL_DEADLINE_S)
+    launch_wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.launch 1 exited {proc.returncode}:\n"
+                                f"{(proc.stdout + proc.stderr)[-4000:]}")
+    rank_line = json.loads(next(ln for ln in proc.stdout.splitlines()
+                                if ln.startswith("[rank 0] {\"rank\"")).split(" ", 2)[2])
+    check(rank_line["world"] == 1 and "data-parallel over 1 devices" in proc.stdout,
+          f"cli.launch 1 did not run one rank with its mesh: {rank_line}")
+    want, got = (npz_arrays(work / d / "last.npz") for d in ("single", "launched"))
+    gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
+    bitwise = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
+    rec = {"phase": "parallel", "path": "launch_1_nccl", "bitwise_last_npz": bitwise,
+           "largest_gap": max(gaps.values()), "largest_gap_array": max(gaps, key=gaps.get),
+           "launch_wall_s": launch_wall, "rank0_launches": rank_line["launches"],
+           "single_step_ms": single_timing["step_ms"], "world1_step_ms": rank_line["step_ms"],
+           "world1_collectives_ms": rank_line["step_ms"] - single_timing["step_ms"],
+           "single_profile": {k: v for k, v in single_timing.items() if k != "step_ms"},
+           "world1_profile": {k: v for k, v in rank_line.items()
+                              if k in ("device_busy_ms", "device_idle_share", "kernels_per_step",
+                                       "device_ms_by_kind")},
+           "card": info["nvidia_smi"]}
+    if not bitwise:  # is one process even bitwise with itself?
+        again = synth_trainer_class()(dict(config, outputdir=str(work / "again")), device=CARD)
+        again.train()
+        rerun = npz_arrays(work / "again" / "last.npz")
+        rec["single_rerun_bitwise"] = all(np.array_equal(rerun[k], want[k]) for k in want)
+    emit(rec)
+    check(rec["largest_gap"] <= 1e-3 and rank_line["launches"]["row_exact"] > 0,
+          f"cli.launch 1 against one process: {rec}")
+    counts["launch_1_nccl_rank0"] = rank_line["launches"]
+
+    # (b, c) two ranks sharing the card over gloo
+    t0 = time.perf_counter()
+    ranks = dp_spawn(work, 2, "gloo")
+    spawn_wall = time.perf_counter() - t0
+    for name, (B, _, _, _, variant) in DP_STEPS.items():
+        rec = dp_versus_single(name, ranks, dp_parts(name), True, info)
+        rec["spawn_wall_s"] = spawn_wall
+        if name == "recipe":
+            rec.update(shared_card_2_rank_step_ms=[r[name]["step_ms"] for r in ranks],
+                       note="two ranks time-slice one card over gloo: not a scaling number")
+        emit(rec)
+        check(all(r[name]["launches"][variant] == 2 for r in ranks),
+              f"{name}: a rank did not launch {variant} for its student and its teacher: "
+              f"{rec['mel_launches_by_rank']}")
+        for r in range(2):
+            counts[f"gloo_2_ranks_{name}_rank{r}"] = ranks[r][name]["launches"]
+    gloo_fsdp = all(r["gloo_cuda_fsdp_collectives"] for r in ranks)
+    emit({"phase": "parallel", "path": "fsdp_route",
+          "gloo_carries_fsdp_collectives_on_cuda": gloo_fsdp,
+          "fsdp_world": 2 if gloo_fsdp else 1, "backend": "gloo" if gloo_fsdp else "nccl"})
+    fsdp_ranks = ranks if gloo_fsdp else dp_spawn(work, 1, "nccl")
+    rec = dp_versus_single("fsdp", fsdp_ranks, dp_parts("recipe"), False, info)
+    emit(rec)
+    for r, rr in enumerate(fsdp_ranks):
+        counts[f"fsdp_rank{r}"] = rr["fsdp"]["launches"]
+
+    # (d) in-process data parallelism over two replicas on the card
+    counts.update(dp_in_process(work, info))
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def dp_in_process(work: Path, info) -> dict:
+    """(d): the Evaluator and the TaggingService data parallel over a mesh
+    of two CARD replicas against their non-DP runs on the same clips and
+    weights, within 1e-3 (the JAX budget): fast keeps the kernel with the
+    per-sample clamp on each shard (against make_forward_fn's per-sample
+    fast forward), exact takes the plain frontend with the batch-global
+    clamp reduced over the shards (against the non-DP exact Evaluator).
+    Launch counts set to 0 before each DP run and read after."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.parallel import make_mesh
+    from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
+
+    from uit_mobile_tpu_torch.ckpt import save_checkpoint
+
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
+    model = models.build(cfg, torch.Generator().manual_seed(1234), device=CARD)
+    npz = work / "uit_xs_seed1234.npz"
+    save_checkpoint(npz, model, cfg)
+    sets = eval_sets(np.random.default_rng(12))
+    Ev = synth_evaluator_class(sets)
+    mesh = make_mesh(devices=[CARD, CARD])
+    counts, rec = {}, {"phase": "parallel", "path": "in_process_mesh",
+                       "mesh": [str(d) for d in mesh.devices]}
+    clips = np.stack([c.astype(np.float32) / 32768.0 for c in sets["gsc"][0]])
+
+    def dp_eval(**kw):
+        ev = Ev(str(npz), device=CARD, data_parallel=mesh, **kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        ev.gsc(eval_data="gsc")
+        torch.cuda.synchronize()
+        return ev, ev.epochs[-1][0], dict(launches)
+
+    ev, got, counts["dp_eval_fast"] = dp_eval(fast=True)
+    fwd = make_forward_fn(cfg, model, use_kernel=True, precision="fast", btf=True,
+                          top_db_mode="per_sample")
+    want = np.concatenate([fwd(clips[i:i + ev.batch_size]).cpu().numpy()
+                           for i in range(0, len(clips), ev.batch_size)])
+    rec["eval_fast"] = {"route": [ev._fwd_fn.uses_kernel, ev._fwd_fn.top_db_mode],
+                        "max_abs_diff_vs_non_dp_per_sample": float(np.abs(got - want).max()),
+                        "launches": counts["dp_eval_fast"]}
+    ev, got, counts["dp_eval_exact"] = dp_eval()
+    plain = Ev(str(npz), device=CARD)
+    plain.gsc(eval_data="gsc")
+    rec["eval_exact"] = {"route": [ev._fwd_fn.uses_kernel, ev._fwd_fn.top_db_mode],
+                         "max_abs_diff_vs_non_dp_exact":
+                             float(np.abs(got - plain.epochs[-1][0]).max()),
+                         "launches": counts["dp_eval_exact"]}
+    pcm = list(np.stack(sets["gsc"][0]))
+    conf = dict(batch_size=32, max_seconds=1, dtype="int16", warmup=False)
+    with TaggingService(cfg, model, ServiceConfig(**conf), device=CARD) as svc:
+        want = np.stack(svc.infer_many(pcm))
+    torch.cuda.synchronize()
+    reset_launches()
+    with TaggingService(cfg, model, ServiceConfig(**conf, data_parallel=mesh),
+                        device=CARD) as svc:
+        got = np.stack(svc.infer_many(pcm))
+    counts["dp_serve"] = dict(launches)
+    rec["serve"] = {"max_abs_diff_vs_non_dp": float(np.abs(got - want).max()),
+                    "launches": counts["dp_serve"]}
+    rec["card"] = info["nvidia_smi"]
+    emit(rec)
+    check(rec["eval_fast"]["route"] == [True, "per_sample"]
+          and rec["eval_exact"]["route"] == [False, "torch"]
+          and rec["eval_fast"]["max_abs_diff_vs_non_dp_per_sample"] <= 1e-3
+          and rec["eval_exact"]["max_abs_diff_vs_non_dp_exact"] <= 1e-3
+          and rec["serve"]["max_abs_diff_vs_non_dp"] <= 1e-3
+          and counts["dp_eval_fast"]["row_fast"] == 4 and counts["dp_serve"]["row_fast"] >= 2,
+          f"in-process data parallelism: {rec}")
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA GPU available", file=sys.stderr)
@@ -2648,6 +3167,7 @@ def main() -> int:
     stream_counts = timed("stream", phase_stream, cfg, cpu_model, info)
     http_counts = timed("http", phase_http, cfg, cpu_model, info)
     timed("bench", phase_bench, info)
+    parallel_counts = timed("parallel", phase_parallel, info)
     emit({"phase_wall_s": wall})
 
     def timing(rec):
@@ -2677,6 +3197,7 @@ def main() -> int:
             "pretrain_launches": pretrain_counts[variant],
             "export_launches": export_counts[variant],
             "moe_launches": {path: c[variant] for path, c in moe_counts.items()},
+            "parallel_launches": {path: c[variant] for path, c in parallel_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],
@@ -2691,4 +3212,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the parallel phase's shared-card check
+        sys.exit(dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["train"]:  # a rank of cli.launch --program chip_smoke
+        sys.exit(launched_rank(sys.argv[1:]))
     sys.exit(main())

@@ -86,8 +86,9 @@ def test_cli_evaluate_all_and_test_sample(world, capsys):
 
 
 def test_cli_evaluate_refusals(world):
-    with pytest.raises(NotImplementedError, match="§A17"):
-        eval_main(["gsc", world["ckpt"], "--data-parallel", "--device", "cpu"])
+    # --data-parallel is ported: one CPU device is the single-device path
+    assert eval_main(["gsc", world["ckpt"], "--eval-data", world["gsc"], "--data-parallel",
+                      "--device", "cpu"]) == 0
     if not torch.cuda.is_available():  # the card by default
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             eval_main(["gsc", world["ckpt"]])

@@ -111,6 +111,9 @@ def test_port_imports_without_jax():
     assert {f"uit_mobile_tpu_torch.{m}" for m in
             ("ckpt.artifact", "ckpt.dcp_io", "cli.export", "cli.average", "models.moe",
              "parallel.ep")} <= set(mods)
+    assert {f"uit_mobile_tpu_torch.{m}" for m in
+            ("parallel.mesh", "parallel.multihost", "parallel.rows", "parallel.fsdp",
+             "cli.launch")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

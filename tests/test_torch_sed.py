@@ -120,7 +120,8 @@ def test_sed_refusals(tmp_path, sed_env):
     with pytest.raises(ValueError, match="strong_train_data"):
         train_sed_from_config(_sed_config(tmp_path, sed_env, strong_train_data=None),
                               device="cpu")
-    with pytest.raises(NotImplementedError, match="§A17"):
+    # multihost: true with no launcher environment must not degrade silently
+    with pytest.raises(RuntimeError, match="refusing to degrade"):
         train_sed_from_config(_sed_config(tmp_path, sed_env, multihost=True), device="cpu")
     with pytest.raises(ValueError, match="'dm' head"):
         train_sed_from_config(_sed_config(tmp_path, sed_env,

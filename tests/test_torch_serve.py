@@ -134,9 +134,11 @@ def test_device_defaults_to_cuda(model):
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         TaggingService(cfg, m, ServiceConfig(warmup=False))
-    # calibration is served now; data-parallel serving is still to port
+    # calibration and data-parallel serving are served now; one CPU device
+    # is the single-device path
     with TaggingService(cfg, m, ServiceConfig(warmup=False), device="cpu",
                         calibration=1.5) as svc:
         assert svc.calibration == 1.5
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TaggingService(cfg, m, ServiceConfig(warmup=False, data_parallel=True), device="cpu")
+    with TaggingService(cfg, m, ServiceConfig(warmup=False, data_parallel=True),
+                        device="cpu") as svc:
+        assert svc._mesh is None and svc._scan_k == 1

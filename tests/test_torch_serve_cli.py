@@ -171,12 +171,16 @@ def test_serve_cli_low_latency_preset(ckpts, capsys, monkeypatch):
     assert got[0]["path"] == "samples/water_000.wav"
 
 
-def test_serve_cli_refusals_name_their_roadmap_items(ckpts):
+def test_serve_cli_refusals_name_their_roadmap_items(ckpts, capsys, monkeypatch):
     # artifact serving is ported: a missing artifact is a missing file
     with pytest.raises(FileNotFoundError):
         serve_main(["--artifact", "no_such_model.uitx", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="§A17"):
-        serve_main(["-m", str(ckpts[0]), "--data-parallel", "--device", "cpu"])
+    # --data-parallel is ported: one CPU device serves as the single-device path
+    monkeypatch.chdir(REPO)
+    got = _run(serve_main, ["-m", str(ckpts[0]), "--data-parallel", "--device", "cpu",
+                            "--batch-size", "4", "--max-seconds", "2", "--no-warmup"],
+               capsys, monkeypatch, io.StringIO(WAVS[0] + "\n"))
+    assert [g["path"] for g in got] == [WAVS[0]]
 
 
 def test_serve_cli_http_wiring_and_reload(ckpts, tmp_path, monkeypatch):

@@ -5,9 +5,12 @@ Same weights (carried by ckpt/convert.py), same batch, stochastic parts off
 (no mixup, no augments, no dropout), rfft frontend in both. Tolerances:
 losses 1e-6; the schedule 1e-9 relative (optax evaluated in float64); one
 train step: loss 1e-5 relative, pre-clip gradient norm 1e-4 relative,
-updated parameters max |diff| 1e-6 under SGD and 1e-5 under AdamW, where
-elements whose gradient is below 1e-7 are counted and left out (Adam's
-first step is +-lr there, whatever the sign of a rounding). The optimizer
+updated parameters max |diff| 1e-6 under SGD; under AdamW the gradients
+within 1e-5 of each tensor's largest and the port's AdamW fed JAX's
+gradients 1e-6 from JAX's parameters over every element (the step's own
+update is not compared element by element: Adam's first step is
+lr * g / (|g| + eps), +-lr near a zero gradient whatever the sign of a
+rounding). The optimizer
 rules against optax over several updates with given gradients: 1e-6
 relative."""
 
@@ -320,7 +323,7 @@ def test_one_train_step_matches_jax(world, psl, form, opt_name):
     jopt = jax_build_optimizer(opt_name, lr, **kw)
     teacher_j = world["teachers"][psl][:3] if psl != "none" else (None, None, None)
     jstep = jax_make_train_step(world["jcfg"], jopt, psl_cfg=teacher_j[0], **step_kw)
-    jp, js, _, jm = jstep(world["params"], world["state"], jopt.init(world["params"]),
+    jp, js, jo, jm = jstep(world["params"], world["state"], jopt.init(world["params"]),
                           jax.tree.map(jnp.asarray, batch), jax.random.key(0),
                           teacher_j[1], teacher_j[2])
 
@@ -338,19 +341,27 @@ def test_one_train_step_matches_jax(world, psl, form, opt_name):
     want_s = flatten_tree(jax.tree.map(np.asarray, js), ".")
     for k, v in flatten_tree(got_s, ".").items():  # init_bn moved, as in JAX
         np.testing.assert_allclose(v, want_s[k], atol=1e-6, rtol=0)
-    # the first moment holds (1 - b1) * the clipped gradient after one update
-    grads = ({n: (mu / 0.1).numpy() for n, mu in zip(opt.names, opt.moments[0])}
-             if opt_name == "AdamW" else None)
-    tol = 1e-5 if opt_name == "AdamW" else 1e-6
-    excluded = 0
-    for k, v in flatten_tree(got_p, ".").items():
-        # an exactly zero gradient (an unused cls token) updates alike in both
-        keep = (np.ones(v.shape, bool) if grads is None
-                else (np.abs(grads[k]) >= 1e-7) | (grads[k] == 0))
-        excluded += int((~keep).sum())
-        np.testing.assert_allclose(v[keep], want_p[k][keep], atol=tol, rtol=0, err_msg=k)
-    total = sum(v.size for v in flatten_tree(got_p, ".").values())
-    assert excluded < total // 20  # a few elements, not whole tensors
+    got_p = flatten_tree(got_p, ".")
+    if opt_name == "SGD":
+        for k, v in got_p.items():
+            np.testing.assert_allclose(v, want_p[k], atol=1e-6, rtol=0, err_msg=k)
+        return
+    # AdamW: the first moment holds (1 - b1) * the clipped gradient after
+    # one update, in both packages; each gradient within 1e-5 of its
+    # tensor's largest
+    jgrads = flatten_tree(jax.tree.map(lambda mu: np.asarray(mu) / 0.1, jo[0].mu), ".")
+    for n, mu in zip(opt.names, opt.moments[0]):
+        want = jgrads[n]
+        assert np.abs((mu / 0.1).numpy() - want).max() <= 1e-5 * max(np.abs(want).max(), 1e-30), n
+    # the port's optimizer fed JAX's gradients lands on JAX's parameters
+    # over every element; the step's own update is not compared element by
+    # element: Adam's first step is lr * g / (|g| + eps), so where |g| is
+    # ~1e-8 a rounding of g moves the parameter by up to lr
+    fresh = module_from_numpy(world["cfg"], world["p_np"], world["s_np"], device="cpu")
+    fresh_opt = build_optimizer(opt_name, lr, **kw).init(fresh)
+    fresh_opt.update([torch.from_numpy(jgrads[n]) for n in fresh_opt.names])
+    for k, v in flatten_tree(module_to_numpy(fresh)[0], ".").items():
+        np.testing.assert_allclose(v, want_p[k], atol=1e-6, rtol=0, err_msg=k)
 
 
 def test_psl_overwrites_only_audioset_rows_and_teacher_stays(world):

@@ -241,7 +241,8 @@ def test_trainer_refusals(tmp_path, synth_env):
     with pytest.raises(FileNotFoundError, match="PSL cache"):
         train_from_config(base_config(tmp_path, synth_env, psl={
             "mode": "offline", "cache": str(tmp_path / "nope.h5")}), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-host"):
+    # multihost: true with no launcher environment must not degrade silently
+    with pytest.raises(RuntimeError, match="refusing to degrade"):
         train_from_config(base_config(tmp_path, synth_env, multihost=True), device="cpu")
     with pytest.raises(FileNotFoundError):  # a missing teacher without allow_untrained
         train_from_config(base_config(tmp_path, synth_env,

@@ -3,20 +3,35 @@
 Per-sample Beta(alpha, alpha) lambdas mix the MEL spectrogram against the
 batch-flipped one inside the model's train forward, and the targets with
 the same lambdas; lengths combine by elementwise max with the flipped
-batch. The lambdas are drawn from an explicit ``torch.Generator``.
+batch. The lambdas are drawn from an explicit ``torch.Generator``. Under
+``parallel.rows.sharded`` the lambdas and the flip are the global batch's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.rows import current as current_rows
+
 
 def sample_mixup_lambdas(generator: torch.Generator, batch_size: int,
                          alpha: float) -> torch.Tensor:
     """(batch_size,) Beta(alpha, alpha) coefficients on the generator's
     device (the first component of a two-way Dirichlet draw)."""
-    conc = torch.full((batch_size, 2), float(alpha), device=generator.device)
-    return torch._sample_dirichlet(conc, generator=generator)[:, 0]
+    rows = current_rows()
+    if rows is not None:
+        rows.check_local(batch_size, "mixup lambdas")
+    n = batch_size if rows is None else rows.total
+    conc = torch.full((n, 2), float(alpha), device=generator.device)
+    lamb = torch._sample_dirichlet(conc, generator=generator)[:, 0]
+    return lamb if rows is None else rows.take(lamb)
+
+
+def _flip(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """``x.flip(axis)`` of the batch axis; under ``parallel.rows.sharded``
+    this rank's rows of the flipped global batch."""
+    rows = current_rows()
+    return x.flip(axis) if rows is None else rows.flip(x, axis)
 
 
 def mixup_tensor(x: torch.Tensor, lamb: torch.Tensor, batch_axis: int = 0) -> torch.Tensor:
@@ -27,7 +42,7 @@ def mixup_tensor(x: torch.Tensor, lamb: torch.Tensor, batch_axis: int = 0) -> to
     shape = [1] * x.dim()
     shape[batch_axis] = -1
     lam = lamb.reshape(shape)
-    return x.flip(batch_axis) * lam + x * (1.0 - lam)
+    return _flip(x, batch_axis) * lam + x * (1.0 - lam)
 
 
 def mixup_targets(y: torch.Tensor, lamb: torch.Tensor) -> torch.Tensor:
@@ -35,4 +50,4 @@ def mixup_targets(y: torch.Tensor, lamb: torch.Tensor) -> torch.Tensor:
 
 
 def mixup_lengths(lengths: torch.Tensor) -> torch.Tensor:
-    return torch.maximum(lengths, lengths.flip(0))
+    return torch.maximum(lengths, _flip(lengths, 0))

@@ -15,12 +15,17 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.rows import rand_rows
+
 
 def _axis_mask(generator, batch: int, length: int, mask_param, iid: bool, device):
     """(batch or 1, length) bool, True where masked."""
-    n = batch if iid else 1
-    value = torch.rand(n, generator=generator, device=device) * float(mask_param)
-    min_value = torch.rand(n, generator=generator, device=device) * (length - value)
+    def draw():  # one mask per sample (iid: a per-row draw) or one for the batch
+        return (rand_rows(generator, (batch,), device) if iid
+                else torch.rand(1, generator=generator, device=device))
+
+    value = draw() * float(mask_param)
+    min_value = draw() * (length - value)
     start = torch.floor(min_value)
     end = start + torch.floor(value)
     pos = torch.arange(length, device=device)[None, :]

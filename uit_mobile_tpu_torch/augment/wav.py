@@ -20,13 +20,15 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel.rows import rand_rows
+
 
 def _uniform(generator, n: int, lo: float, hi: float, device) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(n, generator=generator, device=device)
+    return lo + (hi - lo) * rand_rows(generator, (n,), device)
 
 
 def _bernoulli(generator, n: int, p: float, device) -> torch.Tensor:
-    return torch.rand(n, generator=generator, device=device) < p
+    return rand_rows(generator, (n,), device) < p
 
 
 def shift(generator, wav, min_shift=-0.5, max_shift=0.5, p=0.5):

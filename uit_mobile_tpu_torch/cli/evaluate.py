@@ -120,7 +120,8 @@ def _parser() -> argparse.ArgumentParser:
                         help="3-pass bf16 DFT + transposed layout (<=1e-3 prob drift); "
                              "omit for parity gates")
         sp.add_argument("--data-parallel", action="store_true",
-                        help="shard eval batches over all visible devices (not yet ported)")
+                        help="shard eval batches over all visible cards of --device (fast: "
+                             "the kernel, per-sample clamp; exact: the plain frontend)")
         sp.add_argument("--bucket-seconds", type=float, default=None,
                         help="pad batches to second-multiples (few batch shapes)")
         sp.add_argument("--dtype", default="float32", choices=["float32", "int16"],

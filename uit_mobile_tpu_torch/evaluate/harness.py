@@ -26,6 +26,7 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+import torch
 
 from ..data import DataLoader, WeakHDF5Dataset, events_by_file, read_tsv_data, to_device
 from ..utils import get_logger
@@ -60,7 +61,13 @@ class Evaluator:
         parity with the reference's batch-max padding).
         fast: the 3-pass bf16 DFT and the transposed layout (probabilities
         within 1e-3 of exact; keep False for parity gates).
-        data_parallel: not yet ported (ROADMAP §A17); raises.
+        data_parallel: True shards every batch over a mesh of the visible
+        devices of ``device`` (a ``parallel.Mesh`` names its devices, which
+        may repeat); with one device it is the single-device path, as in
+        JAX. Batches zero-pad to a multiple of the mesh; fast keeps the
+        kernel with the per-sample clamp, exact takes the plain frontend
+        (its batch-global clamp stays exact over the shards); scan_batches
+        is ignored.
         dtype: 'int16' moves batches as raw PCM (half the bytes; the
         frontends fold the 1/32768 scale in exactly, so results are
         bitwise float32's).
@@ -71,15 +78,19 @@ class Evaluator:
         dispatch_depth: up to this many batch outputs stay on the device
         before the oldest is copied to the host (the copy is the sync
         point); results are bitwise identical at any depth."""
-        if data_parallel:
-            raise NotImplementedError(
-                "data_parallel evaluation is not yet ported (ROADMAP §A17)")
         if dtype not in ("float32", "int16"):
             raise ValueError(f"dtype must be 'float32' or 'int16', got {dtype!r}")
         if scan_batches < 1 or dispatch_depth < 1:
             raise ValueError(f"scan_batches ({scan_batches}) and dispatch_depth "
                              f"({dispatch_depth}) must be >= 1")
         self.device = resolve_device(device)
+        self.mesh = None
+        if data_parallel:
+            from ..parallel.mesh import Mesh, make_mesh
+
+            self.mesh = (data_parallel if isinstance(data_parallel, Mesh)
+                         else make_mesh(devices=self.device))
+            self.device = self.mesh.devices[0]
         self._resolved = None
         self._resolved_spec = None
         self._run_config: dict = {}
@@ -125,6 +136,8 @@ class Evaluator:
         host arrays -> probs left on the device (no sync)."""
         from ..ops.pipeline import make_forward_fn, make_scanned_forward
 
+        if self.mesh is not None and self.mesh.size > 1:
+            return self._make_dp_forward(cfg, model)
         # exact keeps the canonical bft orientation for parity gates; the
         # transposed routes engage only in fast mode
         self._fwd_fn = make_forward_fn(cfg, model, use_kernel=self._kernel(),
@@ -135,6 +148,39 @@ class Evaluator:
         self._fwd_block = (None if scanned is None else
                            lambda block_np: scanned(to_device(block_np, self.device))
                            .flatten(0, 1))
+
+    def _make_dp_forward(self, cfg, model):
+        """JAX's routing (``uit_mobile_tpu/evaluate/harness.py:128-168``):
+        fast keeps the kernel with the per-sample clamp (each shard alone);
+        exact takes the plain frontend, whose batch-global clamp the shards
+        reduce together; batches pad to a mesh multiple; no K-batch blocks."""
+        from ..ops.pipeline import make_forward_fn
+        from ..parallel.mesh import data_parallel_forward, replicate_tree
+
+        kernel, top_db_mode = self._kernel(), None
+        if kernel and self.fast:
+            top_db_mode = "per_sample"
+        elif kernel:
+            log.info("data_parallel exact eval: using the plain frontend (batch-global "
+                     "top_db stays exact across shards)")
+            kernel = False
+        fns = [make_forward_fn(cfg, m, use_kernel=kernel,
+                               precision="fast" if self.fast else "exact", btf=self.fast,
+                               top_db_mode=top_db_mode)
+               for m in replicate_tree(self.mesh, model)]
+        dp = data_parallel_forward(fns, self.mesh)
+        n = self.mesh.size
+
+        def fwd_async(wav_np: np.ndarray):
+            b = wav_np.shape[0]
+            if b % n:
+                wav_np = np.concatenate(
+                    [wav_np, np.zeros((n - b % n, wav_np.shape[1]), wav_np.dtype)])
+            return dp(torch.from_numpy(np.ascontiguousarray(wav_np)))[:b]
+
+        self._fwd_fn = dp
+        self._fwd_async, self._fwd_block = fwd_async, None
+        self.scan_batches = 1
 
     def _fwd(self, wav_np: np.ndarray) -> np.ndarray:
         return self._fwd_async(wav_np).cpu().numpy()

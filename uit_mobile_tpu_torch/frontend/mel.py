@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from ..parallel.rows import global_max
+
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
@@ -146,6 +148,7 @@ def amplitude_to_db(power: torch.Tensor, config: FrontendConfig) -> torch.Tensor
                 ref = x_db.max()
             else:
                 ref = x_db.amax(dim=(-3, -2, -1), keepdim=True)
+            ref = global_max(ref)  # over every rank's rows, under rows.sharded
         elif config.top_db_mode == "per_sample":
             ref = x_db.amax(dim=(-2, -1), keepdim=True)
         else:

@@ -18,6 +18,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.rows import current as current_rows
+from ..parallel.rows import rand_rows
+
 
 # ---------------------------------------------------------------- containers
 
@@ -114,8 +117,7 @@ def dropout(generator, x: torch.Tensor, rate: float, deterministic: bool) -> tor
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=_generator(generator, "dropout"),
-                      device=x.device) < keep
+    mask = rand_rows(_generator(generator, "dropout"), x.shape, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -125,8 +127,7 @@ def drop_path(generator, x: torch.Tensor, rate: float, deterministic: bool) -> t
         return x
     keep = 1.0 - rate
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.rand(shape, generator=_generator(generator, "drop_path"),
-                      device=x.device) < keep
+    mask = rand_rows(_generator(generator, "drop_path"), shape, x.device) < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -148,12 +149,20 @@ def batch_norm_train(p: BatchNorm, x: torch.Tensor, axis: int = -1,
     """BatchNorm with batch statistics -> (y, new_state), torch semantics:
     normalized with the biased batch variance, the running variance moved
     toward the *unbiased* one. new_state = {'mean', 'var'} (no grad); the
-    module's buffers are left as they are."""
+    module's buffers are left as they are. Under ``parallel.rows.sharded``
+    the statistics are the global batch's: the mean of the ranks' means,
+    the mean of their variances plus their means' squared offsets (equal
+    counts), and the unbiased count global."""
     axis = axis % x.dim()
     reduce_dims = tuple(i for i in range(x.dim()) if i != axis)
     mean = x.mean(dim=reduce_dims)
     var = x.var(dim=reduce_dims, unbiased=False)
     n = x.numel() // x.shape[axis]
+    rows = current_rows()
+    if rows is not None:
+        local_mean, mean = mean, rows.mean(mean)
+        var = rows.mean(var + (local_mean - mean) ** 2)
+        n *= rows.world
     with torch.no_grad():
         unbiased = var * n / max(n - 1, 1)
         new_state = {"mean": (1 - momentum) * p.mean + momentum * mean,

@@ -41,6 +41,7 @@ from torch.utils.flop_counter import register_flop_formula
 
 from ..frontend.mel import (FrontendConfig, log_mel_spectrogram, mel_filterbank,
                             padded_window, reflect_pad)
+from ..parallel.rows import global_max
 
 # Batch floor of the transposed ('tfb') kernel, as in the JAX package:
 # below it a 'tfb' request takes the row kernel and transposes its output.
@@ -394,7 +395,7 @@ def log_mel(wav: torch.Tensor, config: FrontendConfig | None = None,
         per_sample_dims = (-2, -1)
     if config.top_db is not None:
         if config.top_db_mode == "torch":
-            ref = x_db.max()
+            ref = global_max(x_db.max())
         elif config.top_db_mode == "per_sample":
             ref = x_db.amax(dim=per_sample_dims, keepdim=True)
         else:

@@ -2,8 +2,8 @@
 
 The JAX module also shards the expert banks over an 'expert' mesh axis
 (``make_expert_mesh``, ``ep_param_specs``, ``ep_shard_params``,
-``expert_parallel_forward``); that half waits for the port's parallelism
-(ROADMAP §A17). ``make_moe_train_step`` is the single-device step.
+``expert_parallel_forward``); that half is ROADMAP §A17b.
+``make_moe_train_step`` is the single-device step.
 """
 
 from __future__ import annotations
@@ -11,8 +11,6 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-
-from ..models import moe
 
 
 def make_moe_train_step(cfg, model, optimizer, *,
@@ -28,6 +26,7 @@ def make_moe_train_step(cfg, model, optimizer, *,
     leave them at their init); ``generator`` drives dropout and drop-path
     where the config enables them. ``grad_norm`` is the global norm of the
     gradients before the update (no clipping, as in the JAX step)."""
+    from ..models import moe
     from ..train.steps import make_loss, update_from_loss
 
     bce_loss = make_loss("BCELoss")  # the reference-parity clamped BCE

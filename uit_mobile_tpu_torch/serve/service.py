@@ -54,7 +54,12 @@ class ServiceConfig:
     # 'per_sample' (default): each clip clamps against its own max.
     # 'torch': torchaudio's batch-global clamp, for offline-eval parity.
     top_db_mode: str = "per_sample"
-    data_parallel: bool = False    # not yet ported (ROADMAP §A17)
+    # True: every batch shards over a mesh of the visible devices of the
+    # service's device (a parallel.Mesh names them; they may repeat). One
+    # device is the single-device path. The batch sizes round up to a mesh
+    # multiple; the 'torch' clamp takes the plain frontend (its global max
+    # reduced over the shards); scan_batches is ignored.
+    data_parallel: object = False
     # 'float32' or 'int16': with 'int16' batches cross to the card as raw
     # PCM (half the bytes); the kernel folds the 1/32768 scale in exactly
     dtype: str = "float32"
@@ -94,9 +99,6 @@ class TaggingService:
     def __init__(self, model_cfg, model, config: ServiceConfig = ServiceConfig(), *,
                  device="cuda", calibration=None, _start_worker: bool = True,
                  _forward_fn=None, _fixed_samples: Optional[int] = None):
-        if config.data_parallel:
-            raise NotImplementedError(
-                "data_parallel serving is not yet ported (ROADMAP §A17)")
         if config.dtype not in ("float32", "int16"):
             raise ValueError(f"dtype must be 'float32' or 'int16', got {config.dtype!r}")
         self.device = resolve_device(device)
@@ -104,12 +106,21 @@ class TaggingService:
         self.calibration = resolve_calibration(calibration)
         self._np_dtype = np.int16 if config.dtype == "int16" else np.float32
         self._model_cfg = model_cfg
-        self._stream = (torch.cuda.Stream(self.device)
-                        if self.device.type == "cuda" else None)
-        self._scan_k = max(1, config.scan_batches)
         # sealed program injected by from_artifact: no layout/frontend policy
         # to apply, and no hot reload (the program is the weights)
         self._sealed_fwd = _forward_fn
+        self._mesh = None
+        if config.data_parallel and _forward_fn is None:
+            from ..parallel.mesh import Mesh, make_mesh
+
+            mesh = (config.data_parallel if isinstance(config.data_parallel, Mesh)
+                    else make_mesh(devices=self.device))
+            if mesh.size > 1:
+                self._mesh, self.device = mesh, mesh.devices[0]
+        batch_multiple = 1 if self._mesh is None else self._mesh.size
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._scan_k = max(1, config.scan_batches) if self._mesh is None else 1
         self._fwd, self._scanned_fwd = self._build_forwards(model)
         self.weights_version = 1
         self._reload_lock = threading.Lock()
@@ -125,8 +136,9 @@ class TaggingService:
             # (its time dim is part of the exported program)
             self._buckets = [(_fixed_samples, config.batch_size)]
         else:
-            self._buckets = [(s * sr, max(1, config.batch_size // s))
-                             for s in range(1, config.max_seconds + 1)]
+            # every bucket's batch a multiple of the mesh
+            self._buckets = [(s * sr, -(-max(1, config.batch_size // s) // batch_multiple)
+                              * batch_multiple) for s in range(1, config.max_seconds + 1)]
         if config.warmup:
             self._warmup(self._fwd, self._scanned_fwd)
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -189,6 +201,18 @@ class TaggingService:
         use_kernel = self.cfg.use_kernel
         if use_kernel is None:
             use_kernel = self.device.type == "cuda"
+        if self._mesh is not None:
+            from ..parallel.mesh import data_parallel_forward, replicate_tree
+
+            # the batch-global clamp would become per shard on the kernel's
+            # route: the plain frontend keeps it exact (its max is reduced
+            # over the shards)
+            use_kernel = use_kernel and self.cfg.top_db_mode != "torch"
+            return data_parallel_forward(
+                [make_forward_fn(self._model_cfg, m, use_kernel=use_kernel,
+                                 precision="fast" if use_kernel else "exact",
+                                 top_db_mode=self.cfg.top_db_mode)
+                 for m in replicate_tree(self._mesh, model)], self._mesh), None
         fwd = make_forward_fn(self._model_cfg, model, use_kernel=use_kernel,
                               precision="fast" if use_kernel else "exact",
                               top_db_mode=self.cfg.top_db_mode)

@@ -18,7 +18,13 @@ the AudioSet dataset draws grid crops whose targets come from a PSL cache
 retargets the positional embeddings to the student's grid before its
 shape-filtered load.
 
-Not yet ported, and raising: multi-host/mesh training (ROADMAP §A17).
+Multi-process (``multihost:``, one rank a card): every rank runs this same
+control flow. Config batch sizes are global; each rank loads its share
+with a rank-offset data seed and the step computes the global batch's
+update on every rank (``parallel.rows``); every rank validates the same
+data and takes the same decisions; rank 0 alone writes checkpoints,
+``last.npz`` and ``averaged.npz``, and every other rank logs to
+``train.rank<r>.log``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import datetime
+import os
 import random as _random
 import time
 import uuid
@@ -45,6 +52,9 @@ from ..data import (BalancedSampler, DataLoader, MultiDataLoader, WeakHDF5Datase
                     WeakRandomCropHDF5Dataset, device_prefetch, read_tsv_data)
 from ..evaluate.metrics import compute_metrics
 from ..ops.mel import make_frontend_fn
+from ..parallel import multihost
+from ..parallel.mesh import dp_placement
+from ..parallel.rows import Rows
 from ..utils import add_file_sink, get_logger, resolve_device, validate_frontend_precision
 from .schedule import cosine_with_warmup
 from .steps import (build_optimizer, find_ema_params, make_eval_step, make_train_step,
@@ -99,15 +109,21 @@ class Trainer:
         self.config = config
         self.run_config = _json_safe_config(config)
         validate_frontend_precision(config)  # before any side effect
-        if config.get("multihost"):
-            raise NotImplementedError("multi-host training is not yet ported (ROADMAP §A17)")
         self.device = resolve_device(device)
+        # multihost.initialize has run already (train_from_config does it)
+        self.rank, self.n_proc = multihost.process_index(), multihost.process_count()
+        self.is_main = self.rank == 0
         self.outputdir = _make_outputdir(config)
-        self._file_handler = add_file_sink(log, self.outputdir / config.get("logfile", "train.log"))
+        logfile = Path(config.get("logfile", "train.log"))
+        if self.rank > 0:  # per-rank logs, not interleaved on a shared filesystem
+            logfile = logfile.with_name(f"{logfile.stem}.rank{self.rank}{logfile.suffix}")
+        self._file_handler = add_file_sink(log, self.outputdir / logfile)
         log.info(f"Storing output in {self.outputdir}")
         log.info(f"device: {self.device}"
                  + (f" ({torch.cuda.get_device_name(self.device)})"
                     if self.device.type == "cuda" else ""))
+        if multihost.is_initialized():
+            log.info(f"multi-host: process {self.rank}/{self.n_proc}")
         for k, v in sorted(config.items()):
             log.info(f"{k} : {v}")
 
@@ -174,7 +190,9 @@ class Trainer:
         use_crop = c.get("psl") is not None or chunk_length is not None
         data_dtype = c.get("data_dtype", "float32")
         ds_counter = iter(range(1000))
-        data_seed = c.get("seed", 42)
+        # rank-offset seeds: each rank draws other samples (rank 0 draws the
+        # single process's); validation reads alike on every rank
+        data_seed = c.get("seed", 42) + self.rank * 7919
         psl = c.get("psl") or {}
         psl_cache = psl.get("cache") if psl.get("mode") == "offline" else None
 
@@ -217,8 +235,15 @@ class Trainer:
         kws_eval = read_tsv_data(c["kws_test_data"], basename=basename)
         log.info(f"#Lengths: Audioset Train - {len(as_train)} Audioset Eval - {len(as_eval)} "
                  f"KWS Train - {len(kws_train)} KWS Eval - {len(kws_eval)}")
-        batch_size = c["batch_size"]
+        kws_bs, as_bs = self._half_batches()
         num_workers = c.get("num_workers", 2)
+        if self.n_proc > 1 and not use_crop:
+            # full-clip batches pad to their own max length: the ranks' steps
+            # would differ in shape and hang in their collectives
+            raise ValueError(
+                "multi-host training needs fixed-length batches — set chunk_length "
+                "(random-crop pipeline); full-clip variable-length batches would give "
+                "each host a different global batch shape")
 
         def loader(df, which, bs, psl_cache=None):
             sampler = (BalancedSampler(df["labels"], random_state=data_seed)
@@ -227,16 +252,27 @@ class Trainer:
                               sampler=sampler, shuffle=True, drop_last=True, seed=data_seed)
 
         train_loader = MultiDataLoader(
-            kws=loader(kws_train, "kws_sampler", c.get("kws_batch_size", batch_size // 2)),
-            audioset=loader(as_train, "as_sampler", c.get("as_batch_size", batch_size // 2),
-                            psl_cache))
+            kws=loader(kws_train, "kws_sampler", kws_bs),
+            audioset=loader(as_train, "as_sampler", as_bs, psl_cache))
         import pandas as pd
 
         test_loader = DataLoader(WeakHDF5Dataset(pd.concat((as_eval, kws_eval)),
                                                  num_classes=num_classes),
-                                 batch_size=c.get("eval_batch_size", batch_size),
+                                 batch_size=c.get("eval_batch_size", c["batch_size"]),
                                  num_workers=num_workers, shuffle=False)
         return train_loader, test_loader
+
+    def _half_batches(self) -> tuple[int, int]:
+        """This rank's (kws, audioset) rows a step: the config's global
+        sizes over the process count, which must divide them."""
+        c = self.config
+        halves = {"kws_batch_size": c.get("kws_batch_size", c["batch_size"] // 2),
+                  "as_batch_size": c.get("as_batch_size", c["batch_size"] // 2)}
+        for name, bs in halves.items():
+            if bs % self.n_proc:
+                raise ValueError(f"multi-host training needs {name} ({bs}) divisible by "
+                                 f"the process count ({self.n_proc})")
+        return halves["kws_batch_size"] // self.n_proc, halves["as_batch_size"] // self.n_proc
 
     def setup(self) -> None:
         """Build everything the run needs (attributes below) on the device."""
@@ -267,6 +303,21 @@ class Trainer:
                                               layout="tfb_to_bft")
                              if self.psl_cfg is not None else None)
         psl = c.get("psl") or {}
+        # the data-parallel mesh over the ranks (each PSL half shards alone)
+        kws_bs, as_bs = self._half_batches()
+        halves = [kws_bs * self.n_proc, as_bs * self.n_proc]
+        mesh, _, _ = dp_placement(halves if self.psl_cfg is not None else [sum(halves)],
+                                  device=self.device)
+        self.rows = None
+        if mesh is not None:
+            log.info(f"data-parallel over {mesh.size} devices")
+            self.rows = Rows([as_bs, kws_bs] if self.psl_cfg is not None else [as_bs + kws_bs],
+                             self.device)
+        if int(c.get("steps_per_dispatch", 1)) > 1 and self.n_proc > 1:
+            raise ValueError(
+                "steps_per_dispatch > 1 is a single-host dispatch-amortization lever (the "
+                "host-side K-batch stacking is not wired for process-local global arrays); "
+                "drop it from multi-host configs")
         self.train_step = make_train_step(
             self.cfg, self.model, self.optimizer,
             loss_name=c.get("loss", "BCELoss"), loss_args=c.get("loss_args") or {},
@@ -276,10 +327,10 @@ class Trainer:
             distill_mode="psl" if psl.get("mode") == "offline" else psl.get("mode", "psl"),
             distill_alpha=psl.get("alpha", 1.0),
             distill_classes=psl.get("classes", 527),
-            psl_split=c.get("as_batch_size", c["batch_size"] // 2),
+            psl_split=as_bs,
             wav_augment=parse_wavtransforms(c.get("wavtransforms", {})),
             spec_augment=parse_spectransforms(c.get("spectransforms", {}), layout=mel_layout),
-            frontend_fn=self.frontend, psl_frontend_fn=self.psl_frontend)
+            frontend_fn=self.frontend, psl_frontend_fn=self.psl_frontend, rows=self.rows)
         self.eval_step = make_eval_step(self.cfg, frontend_fn=self.frontend)
         self.generator = torch.Generator(device=self.device).manual_seed(c.get("seed", 42))
 
@@ -350,54 +401,72 @@ class Trainer:
                 mean_loss = torch.stack(losses).mean().item()  # one sync per epoch
                 log.info(f"Epoch {epoch:<4} loss {mean_loss:.4f} "
                          f"({self.epoch_length / (time.time() - t0):.1f} it/s)")
-                if epoch % c.get("valid_every", 1):
-                    continue
-                ema = find_ema_params(opt)
-                score = score_sign * self._validate(self._eval_model(ema), epoch, score_name)
-                ckpt_path = self.outputdir / f"best_model_{step_count}_mAP={score:.4f}.npz"
-                saved.append((score, ckpt_path))
-                saved.sort(key=lambda x: -x[0])
-                if (score, ckpt_path) in saved[:n_saved]:
-                    save_checkpoint(ckpt_path, model, cfg, named_params=ema,
-                                    extra={"step": step_count, "mAP": score,
-                                           "run_config": self.run_config})
-                for _, p in saved[n_saved:]:
-                    p.unlink(missing_ok=True)
-                saved = saved[:n_saved]
-                if score > best_score:
-                    best_score, bad_evals = score, 0
-                else:
-                    bad_evals += 1
-                    if bad_evals >= patience:
-                        log.info(f"Early stopping at epoch {epoch}")
-                        stop = True
-                save_training_state(  # lossless mid-training resume point
-                    self.outputdir / "last.npz", model, opt, cfg,
-                    extra={"epoch": epoch, "step": step_count, score_name: score,
-                           "best_score": best_score, "bad_evals": bad_evals,
-                           "saved": [[s, str(p)] for s, p in saved]})
+                if epoch % c.get("valid_every", 1) == 0:
+                    # the same scores and decisions on every rank; rank 0 writes
+                    ema = find_ema_params(opt)
+                    score = score_sign * self._validate(self._eval_model(ema), epoch, score_name)
+                    ckpt_path = self.outputdir / f"best_model_{step_count}_mAP={score:.4f}.npz"
+                    saved.append((score, ckpt_path))
+                    saved.sort(key=lambda x: -x[0])
+                    if (score, ckpt_path) in saved[:n_saved] and self.is_main:
+                        save_checkpoint(ckpt_path, model, cfg, named_params=ema,
+                                        extra={"step": step_count, "mAP": score,
+                                               "run_config": self.run_config})
+                    if self.is_main:
+                        for _, p in saved[n_saved:]:
+                            p.unlink(missing_ok=True)
+                    saved = saved[:n_saved]
+                    if score > best_score:
+                        best_score, bad_evals = score, 0
+                    else:
+                        bad_evals += 1
+                        if bad_evals >= patience:
+                            log.info(f"Early stopping at epoch {epoch}")
+                            stop = True
+                    if self.is_main:
+                        save_training_state(  # lossless mid-training resume point
+                            self.outputdir / "last.npz", model, opt, cfg,
+                            extra={"epoch": epoch, "step": step_count, score_name: score,
+                                   "best_score": best_score, "bad_evals": bad_evals,
+                                   "saved": [[s, str(p)] for s, p in saved]})
+                self._fault_drill(epoch)
         finally:
             train_iter.close()
 
+        # rank 0 holds the checkpoints and makes the deliverable; the other
+        # ranks' work is in those weights (every update was the global batch's)
         if c.get("average", True) and saved:
             output_model = self.outputdir / "averaged.npz"
-            log.info("Averaging best models ...")
-            avg_p, avg_s, avg_cfg, _ = average_checkpoints([p for _, p in saved])
-            save_numpy_checkpoint(output_model, avg_p, avg_s, avg_cfg,
-                                  extra={"averaged_from": [str(p) for _, p in saved],
-                                         "run_config": self.run_config})
-            final = module_from_numpy(avg_cfg, avg_p, avg_s, device=self.device)
-            log.info(f"Averaged model {score_name}: "
-                     f"{self._validate(final, 'avg', score_name):.4f}")
+            if self.is_main:
+                log.info("Averaging best models ...")
+                avg_p, avg_s, avg_cfg, _ = average_checkpoints([p for _, p in saved])
+                save_numpy_checkpoint(output_model, avg_p, avg_s, avg_cfg,
+                                      extra={"averaged_from": [str(p) for _, p in saved],
+                                             "run_config": self.run_config})
+                final = module_from_numpy(avg_cfg, avg_p, avg_s, device=self.device)
+                log.info(f"Averaged model {score_name}: "
+                         f"{self._validate(final, 'avg', score_name):.4f}")
         elif saved:
             output_model = saved[0][1]
         else:
             output_model = self.outputdir / "final.npz"
-            save_checkpoint(output_model, model, cfg, named_params=find_ema_params(opt),
-                            extra={"step": step_count, "run_config": self.run_config})
+            if self.is_main:
+                save_checkpoint(output_model, model, cfg, named_params=find_ema_params(opt),
+                                extra={"step": step_count, "run_config": self.run_config})
         log.info(f"Results can be found at {self.outputdir}")
         log.info(f"Final model is at {output_model}")
         return output_model
+
+    def _fault_drill(self, epoch: int) -> None:
+        """The restart machinery's chaos drill: ``UIT_FAULT_EPOCH`` crashes
+        rank ``UIT_FAULT_RANK`` (default 0) after that epoch; off on a
+        resumed run, so that the relaunched ranks survive it."""
+        fault_epoch = os.environ.get("UIT_FAULT_EPOCH")
+        if (fault_epoch is not None and epoch == int(fault_epoch)
+                and self.rank == int(os.environ.get("UIT_FAULT_RANK", "0"))
+                and not self.config.get("resume")):
+            raise RuntimeError(f"injected fault after epoch {epoch} "
+                               f"(UIT_FAULT_EPOCH={fault_epoch}, rank {self.rank})")
 
     def _eval_model(self, ema: Optional[dict]):
         return with_ema(self.model, ema)
@@ -427,10 +496,27 @@ class Trainer:
         return float(m[metric])
 
 
+def start_multihost(config: dict, device) -> None:
+    """Join the process group a ``multihost:`` key asks for, before a
+    trainer builds anything; refuse the per-process ``auto_resume`` there."""
+    if not config.get("multihost"):
+        return
+    multihost.initialize_from_config(config["multihost"], device=device)
+    if multihost.process_count() > 1 and config.get("auto_resume"):
+        raise ValueError(
+            "auto_resume is single-host (a per-process retry would desynchronize the "
+            "collective program across ranks); use a COORDINATED whole-pod restarter that "
+            "relaunches ALL hosts with resume: auto — uit_mobile_tpu_torch.cli.launch "
+            "--auto-resume N does exactly this locally")
+
+
 def train_from_config(config: dict, device="cuda") -> Path:
-    """Build a Trainer and run it. ``auto_resume: N``: on a crash (anything
+    """Build a Trainer and run it. ``multihost: true`` (a launcher's
+    environment) or ``{coordinator_address, num_processes, process_id}``
+    joins the process group first. ``auto_resume: N``: on a crash (anything
     but KeyboardInterrupt) restart up to N times from ``last.npz`` in the
-    same output directory."""
+    same output directory (one process only)."""
+    start_multihost(config, device)
     retries = int(config.get("auto_resume") or 0)
     if not retries:
         return Trainer(config, device).train()

@@ -40,6 +40,9 @@ from ..models import uit
 from ..models.common import (LayerNorm, Linear, batch_norm_train, layer_norm, linear,
                              linear_init, mlp, multihead_attention)
 from ..models.uit import UiT, UITConfig
+from ..parallel import multihost
+from ..parallel.mesh import dp_placement
+from ..parallel.rows import Rows, global_sum, rand_rows, sharded
 from ..utils import get_logger, resolve_device
 from .schedule import cosine_with_warmup
 from .steps import build_optimizer, find_ema_params, update_from_loss, wrap_optimizer
@@ -153,7 +156,7 @@ def forward(cfg: MAEConfig, model: MAE, wav: torch.Tensor, *,
     if noise is None:
         if generator is None:
             raise ValueError("MAE masking needs noise= or a torch.Generator")
-        noise = torch.rand((B, L), generator=generator, device=generator.device)
+        noise = rand_rows(generator, (B, L), generator.device)
     noise = torch.as_tensor(noise).to(tokens.device)
     ids_shuffle = torch.argsort(noise, dim=1, stable=True)
     ids_restore = torch.argsort(ids_shuffle, dim=1, stable=True)
@@ -176,17 +179,20 @@ def forward(cfg: MAEConfig, model: MAE, wav: torch.Tensor, *,
     target = (target - mu) / torch.sqrt(var + 1e-6)
     mask = torch.ones(B, L, device=tokens.device).scatter(1, keep, 0.0)
     per_patch = ((pred - target) ** 2).mean(dim=-1)
-    loss = (per_patch * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    loss = global_sum((per_patch * mask).sum()) / torch.clamp(global_sum(mask.sum()), min=1.0)
     return loss, new_state, {"mask": mask}
 
 
-def make_mae_step(cfg: MAEConfig, model: MAE, optimizer):
+def make_mae_step(cfg: MAEConfig, model: MAE, optimizer, rows: Optional[Rows] = None):
     """-> ``step(wav, generator=None, noise=None) -> loss``: forward, backward
-    and the optimizer update (no clipping, as in the JAX step)."""
+    and the optimizer update (no clipping, as in the JAX step). ``rows``:
+    ``wav`` (and ``noise``) are this rank's share of a global batch
+    (``parallel.rows``); the step is the global batch's on every rank."""
 
     def step(wav, generator=None, noise=None):
-        loss, new_state, _ = forward(cfg, model, wav, generator=generator, noise=noise)
-        update_from_loss(model, optimizer, loss, new_state)
+        with sharded(rows):
+            loss, new_state, _ = forward(cfg, model, wav, generator=generator, noise=noise)
+            update_from_loss(model, optimizer, loss, new_state)
         return loss.detach()
 
     return step
@@ -202,9 +208,13 @@ def pretrain_from_config(config: dict, device="cuda", dataset=None) -> Path:
     resumable last.npz in ``<outputpath>/mae/<model>``. ``dataset``
     replaces the UnlabeledRandomChunkedHDF5Dataset over ``train_data`` (any
     map-style dataset of (wav crop, target, name)). ``resume`` and
-    ``auto_resume: N`` as in the other trainers."""
-    if config.get("multihost"):
-        raise NotImplementedError("multi-host MAE pretraining is not yet ported (ROADMAP §A17)")
+    ``auto_resume: N`` as in the other trainers. ``multihost:`` scales it
+    over processes as the weak trainer does (train/loop.py): a global
+    batch_size, per-rank crops from a rank-offset seed, the global batch's
+    step on every rank, rank 0 the only writer."""
+    from .loop import start_multihost
+
+    start_multihost(config, device)
     retries = int(config.get("auto_resume") or 0)
     config = dict(config)
     for attempt in range(retries + 1):
@@ -245,14 +255,28 @@ def _pretrain_once(c: dict, device, dataset) -> Path:
                     decoder_depth=c.get("decoder_depth", 2))
     seed = c.get("seed", 42)
     model = init(cfg, torch.Generator().manual_seed(seed)).to(dev)
+    # every rank runs this control flow; rank-offset seeds draw other crops
+    rank, n_proc = multihost.process_index(), multihost.process_count()
+    data_seed = seed + rank * 7919
+    if multihost.is_initialized():
+        log.info(f"multi-host MAE: process {rank}/{n_proc}")
     if dataset is None:
         chunk_seconds = (model_args["target_length"] * enc.frontend.hop_length
                          / enc.frontend.sample_rate)
         dataset = UnlabeledRandomChunkedHDF5Dataset(
             _read_manifest(c["train_data"]), chunk_length=c.get("chunk_length", chunk_seconds),
-            rng=_random.Random(seed * 1000))
-    loader = DataLoader(dataset, batch_size=c.get("batch_size", 64), shuffle=True,
-                        num_workers=c.get("num_workers", 2), drop_last=True, seed=seed)
+            rng=_random.Random(data_seed * 1000))
+    global_bs = c.get("batch_size", 64)
+    if global_bs % n_proc:
+        raise ValueError(f"multi-host MAE pretraining needs batch_size ({global_bs}) "
+                         f"divisible by the process count ({n_proc})")
+    mesh, _, _ = dp_placement([global_bs], device=dev)
+    rows = None
+    if mesh is not None:
+        log.info(f"data-parallel over {mesh.size} devices")
+        rows = Rows([global_bs // n_proc], dev)
+    loader = DataLoader(dataset, batch_size=global_bs // n_proc, shuffle=True,
+                        num_workers=c.get("num_workers", 2), drop_last=True, seed=data_seed)
 
     epochs = c.get("epochs", 10)
     epoch_length = c.get("epoch_length") or len(loader)
@@ -264,7 +288,7 @@ def _pretrain_once(c: dict, device, dataset) -> Path:
     spec = wrap_optimizer(build_optimizer(c.get("optimizer", "AdamW"), schedule, **opt_args),
                           ema_decay=c.get("ema_decay"), grad_accum=grad_accum)
     optimizer = spec.init(model)
-    step = make_mae_step(cfg, model, optimizer)
+    step = make_mae_step(cfg, model, optimizer, rows=rows)
     generator = torch.Generator(device=dev).manual_seed(seed)
     outdir = _pretrain_outdir(c)
     outdir.mkdir(parents=True, exist_ok=True)
@@ -293,8 +317,10 @@ def _pretrain_once(c: dict, device, dataset) -> Path:
             losses.append(step(torch.from_numpy(batch["wav"]).to(dev), generator))
         log.info(f"MAE epoch {epoch}: loss {torch.stack(losses).mean().item():.4f} "
                  f"({epoch_length / (time.time() - t0):.1f} it/s)")
-        save_checkpoint(outdir / "mae_pretrained.npz", model, enc,
-                        named_params=find_ema_params(optimizer),
-                        extra={"epoch": epoch, "mae": True})
-        save_training_state(outdir / "last.npz", model, optimizer, enc, extra={"epoch": epoch})
+        if rank == 0:  # the only writer
+            save_checkpoint(outdir / "mae_pretrained.npz", model, enc,
+                            named_params=find_ema_params(optimizer),
+                            extra={"epoch": epoch, "mae": True})
+            save_training_state(outdir / "last.npz", model, optimizer, enc,
+                                extra={"epoch": epoch})
     return outdir / "mae_pretrained.npz"

@@ -14,10 +14,12 @@ default 1.0), ``min_overlap`` (0.5), ``threshold`` (0.5), batch_size,
 epochs, epoch_length, optimizer(+args, default AdamW), warmup_iters,
 use_scheduler, max_grad_norm, ema_decay, grad_accum, wavtransforms
 (time-preserving only), spectransforms, data_dtype, frontend_precision,
-seed, resume, auto_resume. One process on one device; the data-parallel
-mesh is not yet ported (ROADMAP §A17). The mean over the segment axis is
-the clip-level dm output, so the checkpoint serves and evaluates like any
-weak one.
+seed, resume, auto_resume, multihost. ``multihost:`` scales the loop over
+processes as the weak trainer does (train/loop.py): a global batch_size,
+per-rank windows from a rank-offset seed, the global batch's step on every
+rank, the same validation everywhere, rank 0 the only writer. The mean
+over the segment axis is the clip-level dm output, so the checkpoint
+serves and evaluates like any weak one.
 """
 
 from __future__ import annotations
@@ -35,7 +37,10 @@ from ..data import DataLoader, StrongFramewiseHDF5Dataset, read_tsv_data
 from ..evaluate.metrics import segment_f1
 from ..ops.mel import make_frontend_fn
 from ..utils import add_file_sink, get_logger, resolve_device, validate_frontend_precision
-from .loop import _json_safe_config, _make_outputdir, with_ema
+from ..parallel import multihost
+from ..parallel.mesh import dp_placement
+from ..parallel.rows import Rows
+from .loop import _json_safe_config, _make_outputdir, start_multihost, with_ema
 from .schedule import cosine_with_warmup
 from .steps import build_optimizer, find_ema_params, make_framewise_train_step, wrap_optimizer
 
@@ -55,8 +60,7 @@ def train_sed_from_config(config: dict, device="cuda", train_dataset=None,
     of (wav, (n_segments, C) target, name), the eval one with index-pure
     windows). ``auto_resume: N`` restarts a crashed run up to N times from
     its last.npz in the same output directory."""
-    if config.get("multihost"):
-        raise NotImplementedError("multi-host SED training is not yet ported (ROADMAP §A17)")
+    start_multihost(config, device)
     retries = int(config.get("auto_resume") or 0)
     if not retries:
         return _train_sed_once(config, device, train_dataset, eval_dataset)
@@ -96,7 +100,11 @@ def _train_sed_once(c: dict, device, train_dataset, eval_dataset) -> Path:
     _check_config(c, train_dataset is not None)
     dev = resolve_device(device)
     outputdir = _make_outputdir(c)
-    handler = add_file_sink(log, outputdir / c.get("logfile", "train.log"))
+    rank = multihost.process_index()
+    logfile = Path(c.get("logfile", "train.log"))
+    if rank > 0:
+        logfile = logfile.with_name(f"{logfile.stem}.rank{rank}{logfile.suffix}")
+    handler = add_file_sink(log, outputdir / logfile)
     try:
         return _train_sed_body(c, outputdir, dev, train_dataset, eval_dataset)
     finally:
@@ -104,7 +112,7 @@ def _train_sed_once(c: dict, device, train_dataset, eval_dataset) -> Path:
         handler.close()
 
 
-def _make_dataset(c: dict, cfg, tsv, deterministic: bool):
+def _make_dataset(c: dict, cfg, tsv, deterministic: bool, seed: int):
     df = read_tsv_data(tsv, basename=c.get("basename", True))
     if not ("from" in df.columns and "to" in df.columns):
         raise ValueError(f"{tsv}: SED manifests need from/to event-interval columns")
@@ -112,7 +120,7 @@ def _make_dataset(c: dict, cfg, tsv, deterministic: bool):
     return StrongFramewiseHDF5Dataset(
         df, num_classes=cfg.outputdim, n_segments=n_seg, seg_seconds=seg_s,
         chunk_length=c.get("chunk_length", 1.0), min_overlap=c.get("min_overlap", 0.5),
-        rng=_random.Random(c.get("seed", 42) * 1000), dtype=c.get("data_dtype", "float32"),
+        rng=_random.Random(seed * 1000), dtype=c.get("data_dtype", "float32"),
         deterministic=deterministic)
 
 
@@ -130,20 +138,37 @@ def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
     log.info(f"segment geometry: {n_seg} x {seg_s:.3f}s per {c.get('chunk_length', 1.0)}s "
              f"window")
 
+    # every rank runs this control flow; rank-offset seeds draw other windows
+    rank, n_proc = multihost.process_index(), multihost.process_count()
+    is_main = rank == 0
+    seed = c.get("seed", 42)
+    data_seed = seed + rank * 7919
+    if multihost.is_initialized():
+        log.info(f"multi-host: process {rank}/{n_proc}")
     if train_ds is None:
-        train_ds = _make_dataset(c, cfg, c["strong_train_data"], deterministic=False)
+        train_ds = _make_dataset(c, cfg, c["strong_train_data"], deterministic=False,
+                                 seed=data_seed)
     if eval_ds is None:
         eval_ds = _make_dataset(c, cfg, c.get("strong_eval_data", c.get("strong_train_data")),
-                                deterministic=True)
+                                deterministic=True, seed=seed)
     num_workers = c.get("num_workers", 2)
     bs = c["batch_size"]
-    seed = c.get("seed", 42)
+    if bs % n_proc:
+        raise ValueError(f"multi-host SED training needs batch_size ({bs}) divisible by "
+                         f"the process count ({n_proc})")
+    mesh, _, _ = dp_placement([bs], device=dev)
+    rows = None
+    if mesh is not None:
+        log.info(f"data-parallel over {mesh.size} devices")
+        rows = Rows([bs // n_proc], dev)
+    bs //= n_proc
     train_loader = DataLoader(train_ds, batch_size=bs, shuffle=True, drop_last=True,
-                              num_workers=num_workers, seed=seed)
+                              num_workers=num_workers, seed=data_seed)
     if len(train_loader) == 0:
         raise ValueError(f"the SED training set has only {len(train_ds)} clips — fewer than "
                          f"batch_size={bs} (drop_last leaves no batches)")
-    eval_loader = DataLoader(eval_ds, batch_size=c.get("eval_batch_size", bs), shuffle=False,
+    eval_loader = DataLoader(eval_ds, batch_size=c.get("eval_batch_size", c["batch_size"]),
+                             shuffle=False,
                              num_workers=num_workers)
 
     epochs = c["epochs"]
@@ -162,7 +187,8 @@ def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
         cfg, model, optimizer, loss_name=c.get("loss", "BCELoss"),
         loss_args=c.get("loss_args"), max_grad_norm=c.get("max_grad_norm"),
         wav_augment=parse_wavtransforms(c.get("wavtransforms")),
-        spec_augment=parse_spectransforms(c.get("spectransforms")), frontend_fn=frontend)
+        spec_augment=parse_spectransforms(c.get("spectransforms")), frontend_fn=frontend,
+        rows=rows)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     def validate(eval_model) -> dict:
@@ -209,13 +235,16 @@ def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
         log.info(f"Epoch {epoch}: loss {torch.stack(losses).mean().item():.4f} "
                  f"segF1 micro {scores['Segment_Micro_F1']:.4f} "
                  f"macro {scores['Segment_Macro_F1']:.4f}")
+        # the same scores on every rank, so the same decisions; rank 0 writes
         if scores["Segment_Micro_F1"] > best:
             best = scores["Segment_Micro_F1"]
-            save_checkpoint(best_path, model, cfg, named_params=ema,
-                            extra={"segment_f1_micro": best, "epoch": epoch,
-                                   "run_config": _json_safe_config(c)})
-        save_training_state(outputdir / "last.npz", model, optimizer, cfg,
-                            extra={"epoch": epoch, "best": best})
+            if is_main:
+                save_checkpoint(best_path, model, cfg, named_params=ema,
+                                extra={"segment_f1_micro": best, "epoch": epoch,
+                                       "run_config": _json_safe_config(c)})
+        if is_main:
+            save_training_state(outputdir / "last.npz", model, optimizer, cfg,
+                                extra={"epoch": epoch, "best": best})
     log.info(f"Best segment-F1 micro {best:.4f} -> {best_path}")
     return best_path
 

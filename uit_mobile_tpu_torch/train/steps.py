@@ -30,15 +30,19 @@ import torch
 
 from .. import models
 from ..augment.mixup import mixup_targets, sample_mixup_lambdas
+from ..parallel.rows import Rows, global_sum, sharded
+from ..parallel.rows import current as current_rows
 
 # ------------------------------------------------------------------- losses
 
 
 def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
+    """The loss over the global batch (the ranks hold equal shares)."""
+    rows = current_rows()
     if reduction == "mean":
-        return x.mean()
+        return x.mean() if rows is None else rows.mean(x.mean())
     if reduction == "sum":
-        return x.sum()
+        return global_sum(x.sum())
     raise ValueError(f"unknown reduction {reduction!r} (use 'mean' or 'sum')")
 
 
@@ -74,12 +78,12 @@ def _make_ce(weight=None, reduction: str = "mean", label_smoothing: float = 0.0,
         logp = logp - torch.logsumexp(logp, dim=-1, keepdim=True)
         t = targets / targets.sum(-1, keepdim=True).clamp(min=eps)
         ww = w.to(probs.device) if w is not None else torch.ones(C, device=probs.device)
-        denom = (t * ww).sum().clamp(min=eps)
+        denom = global_sum((t * ww).sum()).clamp(min=eps)
         if label_smoothing > 0.0:
             t = (1.0 - label_smoothing) * t + label_smoothing / C
         per_sample = -(t * ww * logp).sum(-1)
         if reduction == "mean":
-            return per_sample.sum() / denom
+            return global_sum(per_sample.sum()) / denom
         return _reduce(per_sample, reduction)
 
     return loss
@@ -423,6 +427,15 @@ def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
+def _group_mean(grads, rows) -> list[torch.Tensor]:
+    """The global batch's gradients from every rank's: each rank
+    differentiates the rank-identical global loss, whose all-reduces hand
+    every rank the whole of its own rows' share, so the sum over the group
+    is W x the gradient (one all-reduce of the flattened gradients)."""
+    flat = rows.all_reduce(torch.cat([g.reshape(-1) for g in grads])) / rows.world
+    return [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
                      max_grad_norm: Optional[float] = None) -> torch.Tensor:
     """The tail of every train step: the gradients of ``loss`` over the
@@ -430,8 +443,12 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     under mean pooling, get zero gradients, as JAX gives them), their
     pre-clip global norm, with ``max_grad_norm`` the scaling by ``min(1,
     max / (norm + 1e-6))``, the new BN state and the optimizer update ->
-    the pre-clip norm."""
+    the pre-clip norm. Under ``parallel.rows.sharded`` the gradients are
+    the global batch's, the same on every rank."""
     grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
+    rows = current_rows()
+    if rows is not None:
+        grads = _group_mean(grads, rows)
     gnorm = global_norm(grads)
     if max_grad_norm is not None:
         grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
@@ -448,7 +465,8 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
                     wav_augment: Optional[Callable] = None,
                     spec_augment: Optional[Callable] = None,
                     frontend_fn: Optional[Callable] = None,
-                    psl_frontend_fn: Optional[Callable] = None) -> Callable:
+                    psl_frontend_fn: Optional[Callable] = None,
+                    rows: Optional[Rows] = None) -> Callable:
     """-> ``train_step(batch, generator) -> {'total_loss', 'grad_norm'}``.
 
     Without PSL the batch is ``{'wav': (B, T), 'target': (B, C)}``. With
@@ -460,7 +478,9 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
     scores every row and the target becomes ``alpha * teacher + (1 - alpha)
     * target``. The pre-clip gradient norm is reported; with
     ``max_grad_norm`` the gradients are scaled by ``min(1, max / (norm +
-    1e-6))``."""
+    1e-6))``. ``rows``: the batch is this rank's share of a global batch
+    (``parallel.rows``; PSL: its audioset rows, then its kws rows), and the
+    step computes the global batch's step on every rank."""
     if distill_mode not in ("psl", "soft"):
         raise ValueError(f"distill_mode must be 'psl' or 'soft', got {distill_mode!r}")
     if (psl_cfg is None) != (psl_model is None):
@@ -483,6 +503,10 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
                                   frontend_fn=psl_frontend_fn or frontend_fn)
 
     def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+        with sharded(rows):
+            return step(batch, generator)
+
+    def step(batch, generator):
         if psl_cfg is not None:
             if "wav" in batch:
                 wav, target, n_as = _step_wav(batch["wav"], wav_augment), batch["target"], psl_split
@@ -532,19 +556,24 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
                               max_grad_norm: Optional[float] = None,
                               wav_augment: Optional[Callable] = None,
                               spec_augment: Optional[Callable] = None,
-                              frontend_fn: Optional[Callable] = None) -> Callable:
+                              frontend_fn: Optional[Callable] = None,
+                              rows: Optional[Rows] = None) -> Callable:
     """SED step -> ``train_step(batch, generator) -> {'total_loss',
     'grad_norm'}``: batch = {'wav': (B, T), 'target': (B, S, C)} per-segment
     strong-label targets (data.StrongFramewiseHDF5Dataset) against
     ``models.uit.forward_train_framewise``'s (B, tg, C) probabilities; the
     loss, backward, pre-clip norm, clipping and optimizer update of
     ``make_train_step``. No PSL or mixup: neither has per-segment
-    targets."""
+    targets. ``rows``: as in ``make_train_step``."""
     from ..models import uit as uit_model
 
     loss_fn = make_loss(loss_name, **(loss_args or {}))
 
     def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+        with sharded(rows):
+            return step(batch, generator)
+
+    def step(batch, generator):
         wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
         probs, new_state = uit_model.forward_train_framewise(
             model_cfg, model, wav, generator=generator, wav_augment=wav_augment,
