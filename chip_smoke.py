@@ -96,21 +96,26 @@ The rest of training runs after the train phase:
               CPU.
 After bench:
   parallel  - data parallelism on the one card (phase_parallel): the recipe
-              through `cli.launch 1` (NCCL) against one process (last.npz
-              bitwise, or the largest gap); two ranks sharing the card over
+              on a synthetic world of files through `cli.launch 1` (the
+              training CLI as one NCCL rank) against `cli.train` in one
+              process (last.npz bitwise, or the largest gap; launches and
+              epoch step times from the Trainer's log); two ranks sharing the card over
               gloo (recipe B=32 and frontier B=1024 steps against the
               single-process global step, given the ranks' ReLU signs and
               without; mel launches by rank); the FSDP step (two gloo ranks
               when gloo carries FSDP2's collectives for CUDA tensors, else
               one NCCL rank); the Evaluator and TaggingService over two
-              replicas of the card; the one-rank step's cost beside the
-              single-process step's. Not a scaling measurement.
+              replicas of the card, the kernel on every shard; the one-rank
+              step's cost beside the single-process step's. Not a scaling
+              measurement.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Launch counters are set to 0 just before the serve, exact, train, bf16,
 psl_cache scoring, offline, sed, pretrain, each artifact call, each moe path,
 each eval, each stream, the http path and each parallel path (in each
-rank's own process) and read just after; comparison launches do not count.
+rank's own process, or from the start of a training CLI's process, which
+logs its count at its end) and read just after; comparison launches do not
+count.
 Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
@@ -984,6 +989,15 @@ KERNEL_GROUPS = (("mel", ("mel_kernel",)), ("collective", ("nccl",)),
                  ("reduce", ("reduce", "norm", "softmax")))
 
 
+def union_us(intervals) -> float:
+    """The length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
 def profile_steps(step, step_ms: float, n: int = 5, spans: dict | None = None) -> dict:
     """torch.profiler over n steps: the device's busy time a step (the union
     of its kernels', memcpys' and memsets' intervals), its idle share of the
@@ -1005,10 +1019,7 @@ def profile_steps(step, step_ms: float, n: int = 5, spans: dict | None = None) -
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in spans]
     if not dev:
         return {"device_busy_ms": None, "device_idle_share": None, "kernels_per_step": None}
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e.time_range.start, e.time_range.end) for e in dev):
-        busy += max(0.0, b - max(a, end))
-        end = max(end, b)
+    busy = union_us([(e.time_range.start, e.time_range.end) for e in dev])
     groups: dict = {}
     for e in dev:
         name = e.name.lower()
@@ -1722,9 +1733,11 @@ def moe_mlp_span(moe_mod):
     """Wrap models/moe.py's moe_mlp (block_forward looks it up at each call)
     in a record_function range, and note the autograd nodes of each call
     (those between its outputs and its input, by name and sequence number)
-    -> (restore, device_us): device_us(profiler events) sums the device
-    time of the kernels launched inside the ranges (the forward) and inside
-    those nodes (their backward)."""
+    -> (restore, device_us): device_us(profiler events) is the device's busy
+    time inside the ranges' device-side intervals (the forward) plus the
+    device time of those nodes (their backward). The forward is read on the
+    device's timeline: the ranges' device_time_total, summed over the CPU
+    op tree, read up to 6.5 % over the kernels inside them on the H100."""
     from torch.autograd import DeviceType
 
     orig, nodes = moe_mod.moe_mlp, set()
@@ -1746,8 +1759,16 @@ def moe_mlp_span(moe_mod):
         return y, aux
 
     def device_us(events) -> float:
-        return sum(e.device_time_total for e in events if e.device_type == DeviceType.CPU
-                   and (e.name == "moe_mlp" or (e.name, e.sequence_nr) in nodes))
+        ranges, kernels = [], []
+        for e in events:
+            if e.device_type == DeviceType.CUDA:
+                (ranges if e.name == "moe_mlp" else kernels).append(
+                    (e.time_range.start, e.time_range.end))
+        forward = union_us([(max(a, s), min(b, t)) for a, b in kernels for s, t in ranges
+                            if min(b, t) > max(a, s)])
+        return forward + sum(e.device_time_total for e in events
+                             if e.device_type == DeviceType.CPU
+                             and (e.name, e.sequence_nr) in nodes)
 
     moe_mod.moe_mlp = wrapped
     return (lambda: setattr(moe_mod, "moe_mlp", orig)), device_us
@@ -2846,44 +2867,41 @@ def dp_rank(argv) -> int:
     return 0
 
 
-def launched_rank(argv) -> int:
-    """What ``cli.launch --program chip_smoke`` runs on each rank
-    (``python -m chip_smoke train CONFIG.json --multihost {...} --device D
-    [--key value]``): the port's Trainer on the in-memory clips of
-    synth_trainer_class, then its step timed on a fixed batch; prints the
-    rank's mel launches of the run and the step ms as one JSON line."""
-    from uit_mobile_tpu_torch.cli.train import _parse_overrides
-    from uit_mobile_tpu_torch.ops import launches
-    from uit_mobile_tpu_torch.parallel import multihost
-    from uit_mobile_tpu_torch.train.loop import start_multihost
-
-    config = dict(json.loads(Path(argv[1]).read_text()), **_parse_overrides(argv[2:]))
-    device = config.pop("device")
-    start_multihost(config, device)
-    trainer = synth_trainer_class()(config, device=device)
-    reset_launches()
-    trainer.train()
-    torch.cuda.synchronize()
-    counts = dict(launches)
-    emit({"rank": multihost.process_index(), "world": multihost.process_count(),
-          "launches": counts, **trainer_step_ms(trainer)})
-    return 0
-
-
-def trainer_step_ms(trainer) -> dict:
-    """The trainer's step on one fixed recipe batch: CUDA-event median and
-    torch.profiler's reading of 5 steps (profile_steps)."""
-    parts = dp_parts("recipe")
-    dev = trainer.device
-    batch = {k: torch.from_numpy(parts[k]).to(dev) for k in ("wav", "target")}
-    step = lambda: trainer.train_step(batch, trainer.generator)  # noqa: E731
-    ms = time_ms(step, warmup=3, iters=15)
-    return {"step_ms": ms, **profile_steps(step, ms)}
-
-
 def npz_arrays(path: Path) -> dict:
     with np.load(path) as z:
         return {k: z[k] for k in z.files if k != "__meta__"}
+
+
+def trainer_log(path: Path) -> dict:
+    """A Trainer's train.log -> the step ms of each epoch (1000 / it/s), the
+    mel kernel launches the process logged at its end, and the text."""
+    text = path.read_text()
+    its = [float(x) for x in re.findall(r"Epoch \d+\s+loss \S+ \(([\d.]+) it/s\)", text)]
+    launched = re.findall(r"mel kernel launches: (\{.*\})", text)
+    check(bool(its) and bool(launched), f"{path}: no epoch or launch line")
+    return {"epoch_step_ms": [1000.0 / x for x in its], "launches": json.loads(launched[-1]),
+            "log": text}
+
+
+def run_with_deadline(argv: list, deadline: float) -> tuple:
+    """Run ``argv`` in its own process group; at the deadline kill the group
+    (a launcher's ranks too). -> (exit code, output)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=REPO, start_new_session=True)
+    try:
+        out = proc.communicate(timeout=deadline)[0]
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out = proc.communicate()[0] + f"\n[killed at the {deadline} s deadline]"
+    finally:
+        try:  # nothing of the group outlives the call
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+    return proc.returncode, out
 
 
 def spawn_ranks(argvs: list, deadline: float) -> list:
@@ -2947,9 +2965,10 @@ def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> di
 
 def phase_parallel(info) -> dict:
     """Data parallelism on the one card (not a scaling measurement):
-    (a) the recipe for one epoch through ``cli.launch 1`` (NCCL, one rank)
-        against the single-process Trainer from the same seed: last.npz
-        bitwise, or the largest gap printed;
+    (a) the recipe for three short epochs through ``cli.launch 1`` (the
+        real cli.train as one NCCL rank) against ``cli.train`` in one
+        process, on the same files and seed: last.npz bitwise, or the
+        largest gap printed; launches and step times from their logs;
     (b) two ranks sharing the card over gloo: one recipe step (B=32, 16 a
         rank, row_exact in student and teacher) and one frontier step
         (B=1024, 512 a rank, tfb_fast in both) against the single-process
@@ -2959,9 +2978,10 @@ def phase_parallel(info) -> dict:
         gloo when the ranks' check shows gloo carrying FSDP2's collectives
         for CUDA tensors, else one rank on NCCL; held as (b);
     (d) Evaluator and TaggingService data parallel over a mesh of two CARD
-        replicas: fast (the kernel, per-sample clamp) against the non-DP
-        per-sample run, exact (the plain frontend) against the non-DP exact
-        run, within 1e-3;
+        replicas, the kernel on every shard: fast (per-sample clamp) against
+        the non-DP per-sample run, exact and the service's 'torch' clamp
+        (the batch-global max reduced over the shards) against their non-DP
+        runs, within 1e-3;
     (e) the one-rank step against the single-process step, and the shared-
         card two-rank step (time-sliced on one card, not a scaling number).
     -> {path: mel launch counts}."""
@@ -2970,48 +2990,55 @@ def phase_parallel(info) -> dict:
     counts: dict = {}
     work = Path(tempfile.mkdtemp(prefix="uit_parallel_"))
 
-    # (a) one rank on NCCL through the launcher, against one process
-    config = dict(RECIPE, epochs=1, epoch_length=5, valid_every=1)
-    cfg_path = work / "recipe.json"
-    cfg_path.write_text(json.dumps(config))
-    single = synth_trainer_class()(dict(config, outputdir=str(work / "single")), device=CARD)
-    single.train()
-    single_timing = trainer_step_ms(single)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "uit_mobile_tpu_torch.cli.launch", "1", "train", str(cfg_path),
-         "--program", "chip_smoke", "--device", torch.device(CARD).type,
-         "--outputdir", str(work / "launched")],
-        cwd=REPO, capture_output=True, text=True, timeout=PARALLEL_DEADLINE_S)
-    launch_wall = time.perf_counter() - t0
-    check(proc.returncode == 0, f"cli.launch 1 exited {proc.returncode}:\n"
-                                f"{(proc.stdout + proc.stderr)[-4000:]}")
-    rank_line = json.loads(next(ln for ln in proc.stdout.splitlines()
-                                if ln.startswith("[rank 0] {\"rank\"")).split(" ", 2)[2])
-    check(rank_line["world"] == 1 and "data-parallel over 1 devices" in proc.stdout,
-          f"cli.launch 1 did not run one rank with its mesh: {rank_line}")
+    # (a) one rank on NCCL through cli.launch, against one process through
+    # cli.train: the recipe on a synthetic world of files (an .npz store: the
+    # card's machine has no h5py)
+    from uit_mobile_tpu_torch.data.synthworld import build_world
+
+    config = dict(RECIPE, epochs=3, epoch_length=8, valid_every=1, num_workers=1,
+                  **build_world(work / "world", seed=42, n_train=64, n_eval=32, store="npz"))
+    cfg_path = work / "recipe.yaml"
+    cfg_path.write_text(json.dumps(config))  # JSON is YAML
+    runs = {}
+    for name, argv in (("single", ["uit_mobile_tpu_torch.cli.train", "train"]),
+                       ("launched", ["uit_mobile_tpu_torch.cli.launch", "1", "train"])):
+        t0 = time.perf_counter()
+        code, out = run_with_deadline(
+            [sys.executable, "-m", *argv, str(cfg_path), "--device", "cuda",
+             "--outputdir", str(work / name)], PARALLEL_DEADLINE_S)
+        check(code == 0, f"{' '.join(argv)} exited {code}:\n{out[-4000:]}")
+        runs[name] = dict(trainer_log(work / name / "train.log"),
+                          wall_s=time.perf_counter() - t0)
+    single, launched = runs["single"], runs["launched"]
+    check("multi-host: process 0/1" in launched["log"]
+          and "data-parallel over 1 devices" in launched["log"]
+          and "multi-host" not in single["log"],
+          "cli.launch 1 did not run one rank of a process group with its mesh")
     want, got = (npz_arrays(work / d / "last.npz") for d in ("single", "launched"))
     gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
     bitwise = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
     rec = {"phase": "parallel", "path": "launch_1_nccl", "bitwise_last_npz": bitwise,
            "largest_gap": max(gaps.values()), "largest_gap_array": max(gaps, key=gaps.get),
-           "launch_wall_s": launch_wall, "rank0_launches": rank_line["launches"],
-           "single_step_ms": single_timing["step_ms"], "world1_step_ms": rank_line["step_ms"],
-           "world1_collectives_ms": rank_line["step_ms"] - single_timing["step_ms"],
-           "single_profile": {k: v for k, v in single_timing.items() if k != "step_ms"},
-           "world1_profile": {k: v for k, v in rank_line.items()
-                              if k in ("device_busy_ms", "device_idle_share", "kernels_per_step",
-                                       "device_ms_by_kind")},
+           "single_wall_s": single["wall_s"], "launch_wall_s": launched["wall_s"],
+           "single_launches": single["launches"], "rank0_launches": launched["launches"],
+           "single_epoch_step_ms": single["epoch_step_ms"],
+           "world1_epoch_step_ms": launched["epoch_step_ms"],
+           "step_ms_from": "the Trainer's log: 1000 / it/s of each epoch (host clock, one "
+                           "sync an epoch, the loader included)",
            "card": info["nvidia_smi"]}
     if not bitwise:  # is one process even bitwise with itself?
-        again = synth_trainer_class()(dict(config, outputdir=str(work / "again")), device=CARD)
-        again.train()
+        code, out = run_with_deadline(
+            [sys.executable, "-m", "uit_mobile_tpu_torch.cli.train", "train", str(cfg_path),
+             "--device", "cuda", "--outputdir", str(work / "again")], PARALLEL_DEADLINE_S)
+        check(code == 0, f"cli.train again exited {code}:\n{out[-4000:]}")
         rerun = npz_arrays(work / "again" / "last.npz")
         rec["single_rerun_bitwise"] = all(np.array_equal(rerun[k], want[k]) for k in want)
     emit(rec)
-    check(rec["largest_gap"] <= 1e-3 and rank_line["launches"]["row_exact"] > 0,
+    check(rec["largest_gap"] <= 1e-3 and launched["launches"]["row_exact"] > 0
+          and launched["launches"] == single["launches"],
           f"cli.launch 1 against one process: {rec}")
-    counts["launch_1_nccl_rank0"] = rank_line["launches"]
+    counts["cli_train_single"] = single["launches"]
+    counts["launch_1_nccl_rank0"] = launched["launches"]
 
     # (b, c) two ranks sharing the card over gloo
     t0 = time.perf_counter()
@@ -3048,11 +3075,12 @@ def phase_parallel(info) -> dict:
 def dp_in_process(work: Path, info) -> dict:
     """(d): the Evaluator and the TaggingService data parallel over a mesh
     of two CARD replicas against their non-DP runs on the same clips and
-    weights, within 1e-3 (the JAX budget): fast keeps the kernel with the
-    per-sample clamp on each shard (against make_forward_fn's per-sample
-    fast forward), exact takes the plain frontend with the batch-global
-    clamp reduced over the shards (against the non-DP exact Evaluator).
-    Launch counts set to 0 before each DP run and read after."""
+    weights, within 1e-3 (the JAX budget), the kernel on every shard: fast
+    with the per-sample clamp (against make_forward_fn's per-sample fast
+    forward), exact with the batch-global clamp reduced over the shards
+    (against the non-DP exact Evaluator), and the service with either
+    clamp against its non-DP run. Launch counts set to 0 before each DP run
+    and read after."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ops import launches, make_forward_fn
     from uit_mobile_tpu_torch.parallel import make_mesh
@@ -3095,25 +3123,34 @@ def dp_in_process(work: Path, info) -> dict:
                              float(np.abs(got - plain.epochs[-1][0]).max()),
                          "launches": counts["dp_eval_exact"]}
     pcm = list(np.stack(sets["gsc"][0]))
-    conf = dict(batch_size=32, max_seconds=1, dtype="int16", warmup=False)
-    with TaggingService(cfg, model, ServiceConfig(**conf), device=CARD) as svc:
-        want = np.stack(svc.infer_many(pcm))
-    torch.cuda.synchronize()
-    reset_launches()
-    with TaggingService(cfg, model, ServiceConfig(**conf, data_parallel=mesh),
-                        device=CARD) as svc:
-        got = np.stack(svc.infer_many(pcm))
-    counts["dp_serve"] = dict(launches)
-    rec["serve"] = {"max_abs_diff_vs_non_dp": float(np.abs(got - want).max()),
-                    "launches": counts["dp_serve"]}
+    for mode in ("per_sample", "torch"):
+        conf = dict(batch_size=32, max_seconds=1, dtype="int16", warmup=False,
+                    top_db_mode=mode)
+        with TaggingService(cfg, model, ServiceConfig(**conf), device=CARD) as svc:
+            want = np.stack(svc.infer_many(pcm))
+        torch.cuda.synchronize()
+        reset_launches()
+        with TaggingService(cfg, model, ServiceConfig(**conf, data_parallel=mesh),
+                            device=CARD) as svc:
+            got = np.stack(svc.infer_many(pcm))
+            route = [svc._fwd.uses_kernel, svc._fwd.top_db_mode]
+        counts[f"dp_serve_{mode}"] = dict(launches)
+        rec[f"serve_{mode}"] = {"route": route,
+                                "max_abs_diff_vs_non_dp": float(np.abs(got - want).max()),
+                                "launches": counts[f"dp_serve_{mode}"]}
     rec["card"] = info["nvidia_smi"]
     emit(rec)
     check(rec["eval_fast"]["route"] == [True, "per_sample"]
-          and rec["eval_exact"]["route"] == [False, "torch"]
+          and rec["eval_exact"]["route"] == [True, "torch"]
+          and rec["serve_per_sample"]["route"] == [True, "per_sample"]
+          and rec["serve_torch"]["route"] == [True, "torch"]
           and rec["eval_fast"]["max_abs_diff_vs_non_dp_per_sample"] <= 1e-3
           and rec["eval_exact"]["max_abs_diff_vs_non_dp_exact"] <= 1e-3
-          and rec["serve"]["max_abs_diff_vs_non_dp"] <= 1e-3
-          and counts["dp_eval_fast"]["row_fast"] == 4 and counts["dp_serve"]["row_fast"] >= 2,
+          and all(rec[f"serve_{m}"]["max_abs_diff_vs_non_dp"] <= 1e-3
+                  for m in ("per_sample", "torch"))
+          and counts["dp_eval_fast"]["row_fast"] == 4
+          and counts["dp_eval_exact"]["row_exact"] == 4
+          and all(counts[f"dp_serve_{m}"]["row_fast"] >= 2 for m in ("per_sample", "torch")),
           f"in-process data parallelism: {rec}")
     return counts
 
@@ -3214,6 +3251,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the parallel phase's shared-card check
         sys.exit(dp_rank(sys.argv[2:]))
-    if sys.argv[1:2] == ["train"]:  # a rank of cli.launch --program chip_smoke
-        sys.exit(launched_rank(sys.argv[1:]))
     sys.exit(main())

@@ -270,9 +270,16 @@ def test_data_parallel_forward_refusals_and_shards():
     torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
     with pytest.raises(ValueError, match="divide"):
         data_parallel_forward(make_forward_fn(cfg, model), mesh)(wav[:3])
-    # the kernel route refuses the batch-global clamp, as JAX's shard_map route
-    with pytest.raises(ValueError, match="batch-global"):
-        data_parallel_forward(make_forward_fn(cfg, model, use_kernel=True), mesh)
     per_sample = make_forward_fn(cfg, model, use_kernel=True, top_db_mode="per_sample")
     torch.testing.assert_close(data_parallel_forward(per_sample, mesh)(wav), per_sample(wav),
                                atol=2e-5, rtol=0)
+    # the kernel's route (its plain version here) keeps the batch-global
+    # clamp too, where JAX's shard_map route refuses it: with rows far more
+    # than top_db (120 dB) below the loudest on the first shard, a clamp per
+    # shard would give other probabilities
+    quiet = wav * torch.tensor([1e-3] * 2 + [300.0] * 6)[:, None]
+    kernel = make_forward_fn(cfg, model, use_kernel=True)
+    want = kernel(quiet)
+    torch.testing.assert_close(data_parallel_forward(kernel, mesh)(quiet), want,
+                               atol=2e-5, rtol=0)
+    assert (kernel(quiet[:2]) - want[:2]).abs().max() > 1e-3  # the clamp bites

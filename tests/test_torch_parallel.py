@@ -9,6 +9,8 @@ the 8-virtual-device mesh (``tests/test_parallel.py:46-84``).
 Cases (uit_xxxs, depth 1-2, 1 s clips; B=12 at 2 ranks so that each rank's
 PSL half is odd, B=16 at 4 ranks):
 - ``plain``: the weak step, no draws (JAX comparison);
+- ``psl``: the PSL step (the teacher over the AudioSet half, JAX's
+  ``[all audioset, all kws]`` order, clipping), no draws (JAX comparison);
 - ``psl_aug`` / ``tfb_psl_aug``: the PSL step with mixup, Shift, Gain,
   PolarityInversion, time and frequency masks, dropout, attention dropout
   and drop-path, in the bft and the tfb layout (the teacher through
@@ -27,12 +29,18 @@ summation order alone differs: a rank sums its rows, the group sums the
 ranks; near a zero gradient Adam turns a rounding into up to lr); against
 JAX's 8-device step, the JAX test's gates: loss 1e-5, parameters 5e-5.
 Every rank ends with the same parameters, bit for bit; one rank in a
-process group gives the single-process step bit for bit. The augment cases
-run GELU: under ReLU a unit whose input lies within float32 rounding of 0
-takes the other side between two summation orders and moves fc1's whole
-gradient term (1.5e-2 of the tensor's largest in a 4-rank ReLU SED step);
-the ReLU cases without draws hold every gate. Each child process is joined
-with a deadline and killed after it.
+process group gives the single-process step bit for bit. Under ReLU a unit
+whose input lies within float32 rounding of 0 may take the other side
+between two summation orders and move fc1's whole gradient term (1.5e-2 of
+the tensor's largest in a 4-rank SED step with draws). So the cases with
+draws (``AUG_CASES``) hold those gates against the single process given
+the ranks' ReLU signs (the MLP's ReLU replaced by the product with them),
+and against the free single process the loss at 1e-5 and every flipped
+sign on an input within 1e-5 of its call's largest |input| of 0. The
+cases without draws hold every gate free. Random draws cannot be held
+against JAX's (a JAX key and a torch.Generator draw different numbers, as
+in tests/test_torch_augment.py): the JAX comparisons are the cases without
+draws. Each child process is joined with a deadline and killed after it.
 """
 
 import importlib.util
@@ -83,7 +91,8 @@ from uit_mobile_tpu_torch.train import pretrain as mae
 from uit_mobile_tpu_torch.train.steps import make_framewise_train_step
 
 torch.set_num_threads(1)
-AUG = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.2, act="gelu")
+AUG = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.2)
+AUG_CASES = ("psl_aug", "tfb_psl_aug", "sed_aug")
 WAV_AUG = {"Shift": {"p": 0.5}, "Gain": {"p": 0.5}, "PolarityInversion": {"p": 0.5}}
 SED_WAV_AUG = {"Gain": {"p": 0.5}, "PolarityInversion": {"p": 0.5}}
 SPEC_AUG = {"TimeMasking": {"time_mask_param": 20}, "FrequencyMasking": {"freq_mask_param": 8}}
@@ -94,7 +103,7 @@ def student_cfg(case):
         enc = models.get_model_config("uit_xxxs", outputdim=537, target_length=160, depth=1)
         return mae.MAEConfig(encoder=enc, mask_ratio=0.75, decoder_depth=1)
     kw = dict(target_length=102)
-    if case == "plain":
+    if case in ("plain", "psl"):
         return models.get_model_config("uit_xxxs", outputdim=37, depth=1, **kw)
     if case.startswith("sed"):
         return models.get_model_config("uit_xxxs", outputdim=10, depth=1, pooling="dm",
@@ -113,9 +122,39 @@ def module(cfg, flat):
     return load_numpy(shell, p, s)
 
 
-def run(case, data, rows=None, sl=slice(None)):
+def relu_signs(record=None, impose=None):
+    """Replace the encoder MLP's ReLU (models/common.py ACTIVATIONS): record
+    each call's input into ``record``, or impose another run's signs,
+    popped from ``impose`` (the gradient then follows them) -> the function
+    that restores it."""
+    from uit_mobile_tpu_torch.models import common
+
+    orig = common.ACTIVATIONS["relu"]
+
+    def relu(z):
+        if impose is not None:
+            return z * torch.from_numpy(impose.pop(0)).to(z.dtype)
+        record.append(z.detach().numpy().copy())
+        return orig(z)
+
+    common.ACTIVATIONS["relu"] = relu
+    return lambda: common.ACTIVATIONS.__setitem__("relu", orig)
+
+
+def run(case, data, rows=None, sl=slice(None), record=None, impose=None):
     """-> {'loss', 'grad_norm', 'p.<name>', 's.<name>', 'g.<name>'} after one
-    step of ``case`` on rows ``sl`` of the batch in ``data``."""
+    step of ``case`` on rows ``sl`` of the batch in ``data``; ``record`` /
+    ``impose``: relu_signs."""
+    watch = record is not None or impose is not None
+    restore = relu_signs(record, impose) if watch else None
+    try:
+        return _run(case, data, rows, sl)
+    finally:
+        if restore is not None:
+            restore()
+
+
+def _run(case, data, rows, sl):
     cfg = student_cfg(case)
     model = module(cfg, {k[4:]: v for k, v in data.items() if k.startswith("stu.")})
     opt = build_optimizer("AdamW", 1e-3, weight_decay=1e-8).init(model)
@@ -139,10 +178,11 @@ def run(case, data, rows=None, sl=slice(None)):
             layout = cfg.mel_layout
             t_cfg = models.get_model_config("MobileNetV2", outputdim=17)
             teacher = module(t_cfg, {k[4:]: v for k, v in data.items() if k.startswith("tea.")})
-            kw = dict(mixup_alpha=0.5, max_grad_norm=1.0, psl_cfg=t_cfg,
+            kw = dict(max_grad_norm=1.0, psl_cfg=t_cfg,
                       psl_model=teacher.eval().requires_grad_(False),
-                      psl_split=len(data["wav"][sl]) // 2, distill_classes=10,
-                      wav_augment=parse_wavtransforms(WAV_AUG),
+                      psl_split=len(data["wav"][sl]) // 2, distill_classes=10)
+        if case in AUG_CASES:
+            kw.update(mixup_alpha=0.5, wav_augment=parse_wavtransforms(WAV_AUG),
                       spec_augment=parse_spectransforms(SPEC_AUG, layout=layout),
                       frontend_fn=make_frontend_fn(cfg.frontend, layout=layout),
                       psl_frontend_fn=make_frontend_fn(t_cfg.frontend, layout="tfb_to_bft"))
@@ -164,7 +204,7 @@ def run(case, data, rows=None, sl=slice(None)):
 
 
 def psl_blocks(case, local):
-    return [local // 2, local // 2] if case in ("psl_aug", "tfb_psl_aug") else [local]
+    return [local // 2, local // 2] if case in ("psl", "psl_aug", "tfb_psl_aug") else [local]
 
 
 if __name__ == "__main__":
@@ -177,13 +217,18 @@ if __name__ == "__main__":
         data = dict(np.load(f"{workdir}/{case}.npz"))
         B = len(data["wav"])
         sl = multihost.host_local_batch_slice(B)
-        res = run(case, data, rows=Rows(psl_blocks(case, B // world), "cpu"), sl=sl)
+        relu_in = [] if case in AUG_CASES else None
+        res = run(case, data, rows=Rows(psl_blocks(case, B // world), "cpu"), sl=sl,
+                  record=relu_in)
         np.savez(f"{workdir}/{case}.rank{rank}.npz", **res)
+        if relu_in is not None:
+            np.savez(f"{workdir}/{case}.rank{rank}.relu.npz", *relu_in)
     print(f"DONE {rank}", flush=True)
 '''
 
-CASES = ["plain", "psl_aug", "tfb_psl_aug", "sed", "sed_aug", "mae", "mae_gen"]
-JAX_CASES = ["plain", "sed", "mae"]
+CASES = ["plain", "psl", "psl_aug", "tfb_psl_aug", "sed", "sed_aug", "mae", "mae_gen"]
+JAX_CASES = ["plain", "psl", "sed", "mae"]
+AUG_CASES = ("psl_aug", "tfb_psl_aug", "sed_aug")
 
 
 def _free_port() -> int:
@@ -250,19 +295,23 @@ def _world_data(case, B):
         out["wav"] = (r.standard_normal((B, 16000)) * 0.1).astype(np.float32)
         shape = (B, 6, 10) if case.startswith("sed") else (B, 37)
         out["target"] = (r.uniform(size=shape) > 0.7).astype(np.float32)
-        if case in ("psl_aug", "tfb_psl_aug"):
-            tp, ts = jax_models.build(jax_models.get_model_config("MobileNetV2", outputdim=17),
-                                      jax.random.key(2))
+        if case in ("psl", "psl_aug", "tfb_psl_aug"):
+            tp, ts = _jax_teacher()
             out.update(_flat(tp, "tea.p."), **_flat(ts, "tea.s."))
     out.update(_flat(p, "stu.p."), **_flat(s, "stu.s."))
     return jcfg, p, s, out
 
 
+def _jax_teacher():
+    return jax_models.build(jax_models.get_model_config("MobileNetV2", outputdim=17),
+                            jax.random.key(2))
+
+
 def _jax_cfg(case):
     """The JAX config of the case's student (its weights' shapes)."""
-    aug = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.2, act="gelu")
+    aug = dict(drop_rate=0.1, attn_drop_rate=0.1, drop_path_rate=0.2)
     kw = dict(target_length=102)
-    if case == "plain":
+    if case in ("plain", "psl"):
         return jax_models.get_model_config("uit_xxxs", outputdim=37, depth=1, **kw)
     if case.startswith("sed"):
         return jax_models.get_model_config("uit_xxxs", outputdim=10, depth=1, pooling="dm",
@@ -271,7 +320,8 @@ def _jax_cfg(case):
 
 
 def _jax_dp_step(case, jcfg, p, s, data):
-    """JAX's step jitted over the 8-device mesh -> (loss, flat params)."""
+    """JAX's step jitted over the 8-device mesh -> (loss, flat params, flat
+    clipped gradients: AdamW's first moment after one update / 0.1)."""
     opt = jax_build_optimizer("AdamW", 1e-3, weight_decay=1e-8)
     mesh = jax_make_mesh()
     repl, shard = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
@@ -286,16 +336,23 @@ def _jax_dp_step(case, jcfg, p, s, data):
 
         fn = jax.jit(step, in_shardings=(repl, repl, repl, shard), out_shardings=(repl, repl))
         new_p, loss = fn(p, s, opt.init(p), jnp.asarray(data["wav"]))
-        return float(loss), _flat(new_p, "p.")
-    make = jax_framewise_step if case == "sed" else jax_make_train_step
-    step = make(jcfg, opt, **({"max_grad_norm": 1.0} if case == "sed" else {}))
+        return float(loss), _flat(new_p, "p."), None
+    if case == "sed":
+        step = jax_framewise_step(jcfg, opt, max_grad_norm=1.0)
+    elif case == "psl":  # the flat [all audioset, all kws] batch
+        step = jax_make_train_step(jcfg, opt, psl_cfg=jax_models.get_model_config(
+            "MobileNetV2", outputdim=17), max_grad_norm=1.0, psl_split=len(data["wav"]) // 2,
+            distill_classes=10)
+    else:
+        step = jax_make_train_step(jcfg, opt)
     batch = {"wav": jnp.asarray(data["wav"]), "target": jnp.asarray(data["target"])}
     fn = jax.jit(step, in_shardings=(repl, repl, repl, shard, repl) + ((repl, repl)
-                                                                    if case == "plain" else ()),
+                                                                    if case != "sed" else ()),
                  out_shardings=(repl, repl, repl, repl))
-    extra = (None, None) if case == "plain" else ()
-    new_p, _, _, m = fn(p, s, opt.init(p), batch, jax.random.key(0), *extra)
-    return float(m["total_loss"]), _flat(new_p, "p.")
+    extra = {"plain": (None, None), "psl": _jax_teacher(), "sed": ()}[case]
+    new_p, _, new_o, m = fn(p, s, opt.init(p), batch, jax.random.key(0), *extra)
+    return (float(m["total_loss"]), _flat(new_p, "p."),
+            _flat(jax.tree.map(lambda mu: mu / 0.1, new_o[0].mu), "g."))
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4], ids=["1rank", "2ranks", "4ranks"])
@@ -306,25 +363,56 @@ def dp_run(request, tmp_path_factory):
     B = {1: 8, 2: 12, 4: 16}[world]
     workdir = tmp_path_factory.mktemp(f"dp{world}")
     cases_mod = _load_cases(workdir)
-    jax_side, single = {}, {}
+    jax_side, datas = {}, {}
     for case in CASES:
-        jcfg, p, s, data = _world_data(case, B)
-        np.savez(workdir / f"{case}.npz", **data)
-        single[case] = cases_mod.run(case, data)
+        jcfg, p, s, datas[case] = _world_data(case, B)
+        np.savez(workdir / f"{case}.npz", **datas[case])
         if case in JAX_CASES and world == 4:  # B=16 divides the 8-device mesh
-            jax_side[case] = _jax_dp_step(case, jcfg, p, s, data)
+            jax_side[case] = _jax_dp_step(case, jcfg, p, s, datas[case])
     (workdir / "cases.json").write_text(json.dumps(CASES))
     port = _free_port()
     spawn_ranks(lambda r: [sys.executable, str(workdir / "cases.py"), str(r), str(world),
                            str(port), str(workdir)], world)
     ranks = {case: [dict(np.load(workdir / f"{case}.rank{r}.npz")) for r in range(world)]
              for case in CASES}
-    return world, ranks, single, jax_side
+    single, given, signs = {}, {}, {}
+    for case in CASES:
+        free = [] if case in AUG_CASES and world > 1 else None
+        single[case] = cases_mod.run(case, datas[case], record=free)
+        if free is not None:
+            rank_inputs = []
+            for r in range(world):
+                with np.load(workdir / f"{case}.rank{r}.relu.npz") as z:
+                    rank_inputs.append([z[f"arr_{i}"] for i in range(len(z.files))])
+            dp = _global_signs(rank_inputs, cases_mod.psl_blocks(case, B // world))
+            given[case] = cases_mod.run(case, datas[case], impose=list(dp))
+            flipped = [np.abs(z[a != (z > 0)]) / np.abs(z).max() for a, z in zip(dp, free)]
+            signs[case] = {"inputs": int(sum(z.size for z in free)),
+                           "flips": int(sum(f.size for f in flipped)),
+                           "flip_rel": max((float(f.max()) for f in flipped if f.size),
+                                           default=0.0)}
+    return world, ranks, single, jax_side, given, signs
+
+
+def _global_signs(rank_inputs, blocks):
+    """Each rank's recorded ReLU inputs -> the global batch's signs, call by
+    call (a call's rows are the rank's rows of the global batch)."""
+    from uit_mobile_tpu_torch.parallel.rows import Rows
+
+    world = len(rank_inputs)
+    index = [Rows(blocks, "cpu", rank=r, world=world).index.numpy() for r in range(world)]
+    out = []
+    for calls in zip(*rank_inputs):
+        full = np.empty((calls[0].shape[0] * world,) + calls[0].shape[1:], bool)
+        for r, local in enumerate(calls):
+            full[index[r]] = local > 0
+        out.append(full)
+    return out
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_dp_step_equals_the_single_process_step(dp_run, case):
-    world, ranks, single, _ = dp_run
+    world, ranks, single, _, given, signs = dp_run
     got, want = ranks[case][0], single[case]
     if world == 1:  # a group of one rank: its collectives copy, bit for bit
         assert got.keys() == want.keys()
@@ -332,6 +420,10 @@ def test_dp_step_equals_the_single_process_step(dp_run, case):
         return
     for other in ranks[case][1:]:  # one program: every rank ends alike
         assert all(np.array_equal(got[k], other[k]) for k in got if not k.startswith("g."))
+    if case in AUG_CASES:  # free: the loss, and flips only near 0; given them: every gate
+        assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)
+        assert signs[case]["flip_rel"] <= 1e-5, signs[case]
+        want = given[case]
     assert float(got["loss"]) == pytest.approx(float(want["loss"]), rel=1e-5)
     if "grad_norm" in want:
         assert float(got["grad_norm"]) == pytest.approx(float(want["grad_norm"]), rel=1e-4)
@@ -356,13 +448,21 @@ def _param_bound(g, lr=1e-3, eps=1e-8):
 @pytest.mark.parametrize("dp_run", [4], indirect=True, ids=["4ranks"])
 @pytest.mark.parametrize("case", JAX_CASES)
 def test_dp_step_equals_jax_8_device_step(dp_run, case):
-    """B=16 divides the 8-device JAX mesh: the 4-rank batch."""
-    world, ranks, _, jax_side = dp_run
-    loss, params = jax_side[case]
+    """B=16 divides the 8-device JAX mesh: the 4-rank batch. The JAX test's
+    gates, loss 1e-5 and parameters 5e-5; in the PSL step, whose head holds
+    gradients near 0, each parameter within 5e-5 plus what the gradient
+    gate (1e-5 of each tensor's largest, against JAX's) can move Adam's
+    first step (``_param_bound``)."""
+    world, ranks, _, jax_side, _, _ = dp_run
+    loss, params, grads = jax_side[case]
     got = ranks[case][0]
     assert abs(float(got["loss"]) - loss) < 1e-5
+    if case == "psl":
+        for k, g in grads.items():
+            assert np.abs(got[k] - g).max() <= 1e-5 * max(np.abs(g).max(), 1e-30), k
     for k, v in params.items():
-        np.testing.assert_allclose(got[k], v, atol=5e-5, rtol=0, err_msg=k)
+        atol = _param_bound(grads[f"g.{k[2:]}"]) if case == "psl" else 5e-5
+        assert (np.abs(got[k] - v) <= atol).all(), (k, np.abs(got[k] - v).max())
 
 
 class _CountOps(TorchDispatchMode):
@@ -425,10 +525,12 @@ def _two_cpu_replicas():
 
 
 def test_dp_evaluator_equals_jax_dp_evaluator(eval_world, tmp_path):
-    """Exact: the plain frontend, its batch-global clamp reduced over the two
-    replicas, against JAX's GSPMD evaluator over 8 devices (probabilities
-    1e-5, metrics 1e-6); batches of 3 pad to the mesh. Fast: the kernel's
-    route with the per-sample clamp, within JAX's 1e-3 of the non-DP run."""
+    """Exact: the plain frontend (the CPU's default), its batch-global clamp
+    reduced over the two replicas, against JAX's GSPMD evaluator over 8
+    devices (probabilities 1e-5, metrics 1e-6); batches of 3 pad to the
+    mesh. Exact on the kernel's route keeps it (its clamp reduced the same
+    way), within 1e-5 of the non-DP run. Fast: the kernel's route with the
+    per-sample clamp, within JAX's 1e-3 of the non-DP run."""
     from uit_mobile_tpu.evaluate import Evaluator as JaxEvaluator
     from uit_mobile_tpu_torch.evaluate import Evaluator
 
@@ -452,6 +554,13 @@ def test_dp_evaluator_equals_jax_dp_evaluator(eval_world, tmp_path):
         for k, v in want_m.items():
             if isinstance(v, float) and np.isfinite(v):
                 assert abs(got_m[k] - v) <= 1e-6, k
+    exact = Evaluator(eval_world["ckpt"], device="cpu", batch_size=3, report_dir=str(tmp_path),
+                      use_kernel=True, data_parallel=_two_cpu_replicas())
+    got, _ = preds(exact, "gsc", "exact_dp")
+    assert exact._fwd_fn.uses_kernel and exact._fwd_fn.top_db_mode == "torch"
+    plain = Evaluator(eval_world["ckpt"], device="cpu", batch_size=3, report_dir=str(tmp_path),
+                      use_kernel=True)
+    np.testing.assert_allclose(got, preds(plain, "gsc", "exact")[0], atol=1e-5, rtol=0)
     fast = Evaluator(eval_world["ckpt"], device="cpu", batch_size=3, report_dir=str(tmp_path),
                      use_kernel=True, fast=True, data_parallel=_two_cpu_replicas())
     got, _ = preds(fast, "gsc", "fast_dp")

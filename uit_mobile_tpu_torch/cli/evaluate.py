@@ -121,7 +121,7 @@ def _parser() -> argparse.ArgumentParser:
                              "omit for parity gates")
         sp.add_argument("--data-parallel", action="store_true",
                         help="shard eval batches over all visible cards of --device (fast: "
-                             "the kernel, per-sample clamp; exact: the plain frontend)")
+                             "the per-sample clamp; exact: the batch-global clamp)")
         sp.add_argument("--bucket-seconds", type=float, default=None,
                         help="pad batches to second-multiples (few batch shapes)")
         sp.add_argument("--dtype", default="float32", choices=["float32", "int16"],

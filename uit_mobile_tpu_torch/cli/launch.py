@@ -1,15 +1,14 @@
 """Local multi-process launcher: N ranks of ``cli.train`` on one machine.
 
     python -m uit_mobile_tpu_torch.cli.launch 2 train configs/train_uit_xs.yaml \\
-        [--key value ...] [--device cuda|cpu] [--auto-resume N] [--program MODULE]
+        [--key value ...] [--device cuda|cpu] [--auto-resume N]
 
 Each rank is ``python -m uit_mobile_tpu_torch.cli.train <command> <config>
 --multihost {coordinator_address, num_processes, process_id} --device D``
-(``--program`` names another module that takes those arguments) wired to a
-localhost coordinator on a free port; on the card, rank r takes card r
-(NCCL needs one card a rank), on the CPU gloo. Rank output
-streams with a ``[rank N]`` prefix; the exit code is nonzero if any rank
-fails. On a cluster every host runs the same ``cli.train`` command with
+wired to a localhost coordinator on a free port; on the card, rank r takes
+card r (NCCL needs one card a rank), on the CPU gloo. Rank output streams
+with a ``[rank N]`` prefix; the exit code is nonzero if any rank fails.
+On a cluster every host runs the same ``cli.train`` command with
 ``multihost: true`` and its launcher's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/
 RANK instead.
 
@@ -63,7 +62,7 @@ def _launch_once(args, extra: list[str]) -> list[int]:
         mh = (f"{{'coordinator_address': '127.0.0.1:{port}', "
               f"'num_processes': {args.nproc}, 'process_id': {rank}}}")
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", args.program, args.command, args.config,
+            [sys.executable, "-m", "uit_mobile_tpu_torch.cli.train", args.command, args.config,
              "--multihost", mh, "--device", device, *extra],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
 
@@ -111,8 +110,6 @@ def main(argv=None) -> int:
     parser.add_argument("--auto-resume", type=int, default=0, metavar="N",
                         help="coordinated restarts: on any rank's failure relaunch every "
                              "rank with --resume auto, up to N times")
-    parser.add_argument("--program", default="uit_mobile_tpu_torch.cli.train",
-                        help="the module each rank runs (default: the training CLI)")
     args, rest = parser.parse_known_args(argv)
     if args.nproc < 1:
         parser.error("nproc must be >= 1")

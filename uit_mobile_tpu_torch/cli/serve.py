@@ -37,8 +37,7 @@ def main(argv=None):
     parser.add_argument("--max-seconds", type=int, default=10)
     parser.add_argument("--no-warmup", action="store_true")
     parser.add_argument("--data-parallel", action="store_true",
-                        help="shard each bucket batch over all visible cards of --device "
-                             "(the 'torch' clamp takes the plain frontend)")
+                        help="shard each bucket batch over all visible cards of --device")
     parser.add_argument("--top-db-mode", default="per_sample",
                         choices=["per_sample", "torch"],
                         help="dB-clamp reference: per_sample isolates co-batched requests "

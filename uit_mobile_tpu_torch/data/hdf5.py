@@ -6,7 +6,9 @@ float32 / 32768 or, with ``dtype='int16'``, raw (every frontend folds the
 scale in bitwise). Batches are numpy dicts; ``device_prefetch`` moves them
 to the training device on a background thread through pinned host memory.
 h5py is imported only where a file is opened, pandas only by the manifest
-reader, so in-memory datasets run without either.
+reader, so in-memory datasets run without either. A manifest's
+``hdf5path`` may also name a ``.npz`` store (``np.savez(path, **{filename:
+PCM})``), read with numpy alone, for a machine without h5py.
 """
 
 from __future__ import annotations
@@ -68,13 +70,16 @@ class WeakHDF5Dataset:
     def _file(self, hdf5path):
         if isinstance(hdf5path, Mapping):  # an in-memory store
             return hdf5path
-        from h5py import File
-
         cache = getattr(self._local, "cache", None)
         if cache is None:
             cache = self._local.cache = {}
         if hdf5path not in cache:
-            cache[hdf5path] = File(hdf5path, "r")
+            if str(hdf5path).endswith(".npz"):  # np.savez(path, **{filename: PCM})
+                cache[hdf5path] = np.load(hdf5path)
+            else:
+                from h5py import File
+
+                cache[hdf5path] = File(hdf5path, "r")
         return cache[hdf5path]
 
     def _node(self, hdf5path: str, fname: str):

@@ -3,8 +3,9 @@
 
 537 classes: each keyword index (527-536) is a pure tone at a fixed
 frequency, and the "AudioSet" filler is colored noise labeled class 0.
-``synth_clip`` makes clips in numpy; ``build_world`` writes the HDF5 + TSV
-splits the Trainer reads (h5py and pandas are imported only there).
+``synth_clip`` makes clips in numpy; ``build_world`` writes the HDF5 (or
+.npz) + TSV splits the Trainer reads (h5py and pandas are imported only
+there).
 
 The eventful variant: 20 "AudioSet event" tones (classes 1-20) at
 frequencies between the keyword tones, each a short burst at a random
@@ -108,34 +109,47 @@ def build_eventful_world(outdir, seed: int = 0, n_train: int = 128, n_eval: int 
     }
 
 
-def make_split(root: Path, name: str, n: int, rng: np.random.Generator, kws: bool) -> str:
-    """Write one HDF5 + TSV split; returns the TSV path."""
-    import h5py
+def make_split(root: Path, name: str, n: int, rng: np.random.Generator, kws: bool,
+               store: str = "h5") -> str:
+    """Write one split's clips, as an HDF5 file or (``store='npz'``) an .npz
+    store that the datasets read without h5py, and its TSV; returns the TSV
+    path."""
     import pandas as pd
 
+    if store not in ("h5", "npz"):
+        raise ValueError(f"store must be 'h5' or 'npz', got {store!r}")
     root = Path(root)
-    h5 = root / f"{name}.h5"
-    rows = []
-    with h5py.File(h5, "w") as f:
-        for i in range(n):
-            label = synth_labels(rng, 1, kws)[0]
-            f[f"{name}_{i}.wav"] = synth_clip(rng, label)
-            rows.append((f"{name}_{i}.wav", str(label), str(h5)))
+    path = root / f"{name}.{store}"
+    clips, rows = {}, []
+    for i in range(n):
+        label = synth_labels(rng, 1, kws)[0]
+        clips[f"{name}_{i}.wav"] = synth_clip(rng, label)
+        rows.append((f"{name}_{i}.wav", str(label), str(path)))
+    if store == "npz":
+        np.savez(path, **clips)
+    else:
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            for key, clip in clips.items():
+                f[key] = clip
     tsv = root / f"{name}.tsv"
     pd.DataFrame(rows, columns=["filename", "labels", "hdf5path"]).to_csv(
         tsv, sep="\t", index=False)
     return str(tsv)
 
 
-def build_world(outdir, seed: int = 0, n_train: int = 256, n_eval: int = 64) -> dict:
+def build_world(outdir, seed: int = 0, n_train: int = 256, n_eval: int = 64,
+                store: str = "h5") -> dict:
     """The 4-split world -> the config keys the Trainer consumes.
-    Deterministic in (seed, n_train, n_eval), as in the JAX package."""
+    Deterministic in (seed, n_train, n_eval), as in the JAX package; the
+    clips are the same in either ``store``."""
     outdir = Path(outdir)
     outdir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(seed)
     return {
-        "audioset_train_data": make_split(outdir, "as_train", n_train, rng, kws=False),
-        "audioset_eval_data": make_split(outdir, "as_eval", n_eval, rng, kws=False),
-        "kws_train_data": make_split(outdir, "kws_train", n_train, rng, kws=True),
-        "kws_test_data": make_split(outdir, "kws_eval", n_eval, rng, kws=True),
+        "audioset_train_data": make_split(outdir, "as_train", n_train, rng, False, store),
+        "audioset_eval_data": make_split(outdir, "as_eval", n_eval, rng, False, store),
+        "kws_train_data": make_split(outdir, "kws_train", n_train, rng, True, store),
+        "kws_test_data": make_split(outdir, "kws_eval", n_eval, rng, True, store),
     }

@@ -64,10 +64,11 @@ class Evaluator:
         data_parallel: True shards every batch over a mesh of the visible
         devices of ``device`` (a ``parallel.Mesh`` names its devices, which
         may repeat); with one device it is the single-device path, as in
-        JAX. Batches zero-pad to a multiple of the mesh; fast keeps the
-        kernel with the per-sample clamp, exact takes the plain frontend
-        (its batch-global clamp stays exact over the shards); scan_batches
-        is ignored.
+        JAX. Batches zero-pad to a multiple of the mesh; fast takes the
+        per-sample clamp (as JAX does), exact keeps the batch-global clamp,
+        whose max the shards reduce together; both keep the frontend of
+        the single-device path (the kernel on the card); scan_batches is
+        ignored.
         dtype: 'int16' moves batches as raw PCM (half the bytes; the
         frontends fold the 1/32768 scale in exactly, so results are
         bitwise float32's).
@@ -151,19 +152,16 @@ class Evaluator:
 
     def _make_dp_forward(self, cfg, model):
         """JAX's routing (``uit_mobile_tpu/evaluate/harness.py:128-168``):
-        fast keeps the kernel with the per-sample clamp (each shard alone);
-        exact takes the plain frontend, whose batch-global clamp the shards
-        reduce together; batches pad to a mesh multiple; no K-batch blocks."""
+        fast takes the per-sample clamp; exact keeps the batch-global clamp,
+        whose max the shards reduce together; batches pad to a mesh
+        multiple; no K-batch blocks. Unlike JAX, exact keeps the kernel: the
+        shards run as one collective (``data_parallel_forward``), so the
+        kernel's clamp is global too."""
         from ..ops.pipeline import make_forward_fn
         from ..parallel.mesh import data_parallel_forward, replicate_tree
 
-        kernel, top_db_mode = self._kernel(), None
-        if kernel and self.fast:
-            top_db_mode = "per_sample"
-        elif kernel:
-            log.info("data_parallel exact eval: using the plain frontend (batch-global "
-                     "top_db stays exact across shards)")
-            kernel = False
+        kernel = self._kernel()
+        top_db_mode = "per_sample" if kernel and self.fast else None
         fns = [make_forward_fn(cfg, m, use_kernel=kernel,
                                precision="fast" if self.fast else "exact", btf=self.fast,
                                top_db_mode=top_db_mode)

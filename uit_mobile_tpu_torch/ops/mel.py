@@ -33,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Optional
 
 import numpy as np
@@ -61,8 +62,10 @@ TOL_DB = 1e-3
 TOL_ROUNDINGS = {"fast": 8, "exact": 4}
 
 # Launch counters, one per kernel variant: each is incremented exactly where
-# the wrapper launches that variant on the card.
+# the wrapper launches that variant on the card (under a lock: the replicas
+# of an in-process mesh launch from their own threads).
 launches = {"row_exact": 0, "row_fast": 0, "tfb_exact": 0, "tfb_fast": 0}
+_launches_lock = threading.Lock()
 
 _DB = 10.0 / math.log(10.0)
 _AMIN = 1e-10
@@ -302,7 +305,8 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
                           out.data_ptr(), B, Tp, n_frames, hop, stream)
     if rc != 0:
         raise RuntimeError(f"uit_log_mel kernel launch failed with CUDA error {rc}")
-    launches[f"{'tfb' if transposed else 'row'}_{precision}"] += 1
+    with _launches_lock:
+        launches[f"{'tfb' if transposed else 'row'}_{precision}"] += 1
     return out
 
 

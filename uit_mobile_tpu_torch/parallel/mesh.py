@@ -160,8 +160,8 @@ def dp_placement(shard_dims: Sequence[int], axis: str = "data", devices=None, de
     return mesh, batch_sharded(mesh, axis), replicated(mesh)
 
 
-def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None, axis: str = "data",
-                          manual: Optional[bool] = None) -> Callable:
+def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
+                          axis: str = "data") -> Callable:
     """Wrap an eval forward (wav -> probs) for batch-sharded execution over
     an in-process mesh. ``forward_fn`` is one callable (every shard runs
     it: its weights' device serves every shard) or one per mesh device
@@ -169,15 +169,11 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None, axis: str = "
     callers pad (serve/, evaluate/). The shards' outputs are concatenated
     on the first device.
 
-    manual=True: each shard runs on its own, as JAX's shard_map runs a
-    Pallas forward; a cross-batch reduction inside becomes per shard, so a
-    forward with the batch-global ``top_db_mode='torch'`` clamp is refused.
-    manual=False: the shards run as the ranks of one collective (one
-    thread each, ``rows.ThreadGroup``), as GSPMD partitions a plain
-    forward: the torch-mode clamp takes the max over every shard.
-    manual=None: decided from the forward's ``uses_kernel``
-    (``ops.pipeline.make_forward_fn``), so a kernel forward cannot take the
-    route that would split its clamp."""
+    The shards run as the ranks of one collective (one thread each,
+    ``rows.ThreadGroup``), so the batch-global ``top_db_mode='torch'``
+    clamp takes the max over every shard, on the kernel's route as on the
+    plain frontend's. JAX runs a Pallas forward per shard under shard_map
+    and so refuses that clamp there; the port has no such limit."""
     mesh = mesh or make_mesh()
     if mesh.spans_processes:
         raise ValueError("data_parallel_forward runs an in-process mesh; a process group's "
@@ -185,14 +181,6 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None, axis: str = "
     fns = list(forward_fn) if isinstance(forward_fn, (list, tuple)) else [forward_fn] * mesh.size
     if len(fns) != mesh.size:
         raise ValueError(f"{len(fns)} forwards for a mesh of {mesh.size} devices")
-    if manual is None:
-        manual = bool(getattr(fns[0], "uses_kernel", False))
-    if manual and getattr(fns[0], "top_db_mode", None) == "torch":
-        raise ValueError(
-            "torch-mode top_db clamping is batch-global and cannot take the manual "
-            "(per-shard) route — build the forward with use_kernel=False (the plain "
-            "frontend, whose clamp the shards reduce together) or "
-            "top_db_mode='per_sample'")
     n_axis = mesh.size
 
     def run_collective(shards):
@@ -231,9 +219,9 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None, axis: str = "
             raise ValueError(f"the '{axis}' mesh axis ({n_axis}) must divide the batch "
                              f"({wav.shape[0]})")
         shards = [s.to(d) for s, d in zip(wav.chunk(n_axis), mesh.devices)]
-        outs = ([f(s) for f, s in zip(fns, shards)] if manual or n_axis == 1
-                else run_collective(shards))
-        return torch.cat([o.to(mesh.devices[0]) for o in outs])
+        if n_axis == 1:
+            return fns[0](shards[0])
+        return torch.cat([o.to(mesh.devices[0]) for o in run_collective(shards)])
 
     fn.uses_kernel = getattr(fns[0], "uses_kernel", False)
     fn.top_db_mode = getattr(fns[0], "top_db_mode", None)

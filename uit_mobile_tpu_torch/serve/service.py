@@ -57,8 +57,8 @@ class ServiceConfig:
     # True: every batch shards over a mesh of the visible devices of the
     # service's device (a parallel.Mesh names them; they may repeat). One
     # device is the single-device path. The batch sizes round up to a mesh
-    # multiple; the 'torch' clamp takes the plain frontend (its global max
-    # reduced over the shards); scan_batches is ignored.
+    # multiple; the 'torch' clamp's max is reduced over the shards;
+    # scan_batches is ignored.
     data_parallel: object = False
     # 'float32' or 'int16': with 'int16' batches cross to the card as raw
     # PCM (half the bytes); the kernel folds the 1/32768 scale in exactly
@@ -204,10 +204,6 @@ class TaggingService:
         if self._mesh is not None:
             from ..parallel.mesh import data_parallel_forward, replicate_tree
 
-            # the batch-global clamp would become per shard on the kernel's
-            # route: the plain frontend keeps it exact (its max is reduced
-            # over the shards)
-            use_kernel = use_kernel and self.cfg.top_db_mode != "torch"
             return data_parallel_forward(
                 [make_forward_fn(self._model_cfg, m, use_kernel=use_kernel,
                                  precision="fast" if use_kernel else "exact",

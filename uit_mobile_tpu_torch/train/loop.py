@@ -32,6 +32,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import datetime
+import json
 import os
 import random as _random
 import time
@@ -51,6 +52,7 @@ from ..ckpt.io import (average_checkpoints, load_pretrained_partial, load_traini
 from ..data import (BalancedSampler, DataLoader, MultiDataLoader, WeakHDF5Dataset,
                     WeakRandomCropHDF5Dataset, device_prefetch, read_tsv_data)
 from ..evaluate.metrics import compute_metrics
+from ..ops.mel import launches as mel_launches
 from ..ops.mel import make_frontend_fn
 from ..parallel import multihost
 from ..parallel.mesh import dp_placement
@@ -453,6 +455,8 @@ class Trainer:
             if self.is_main:
                 save_checkpoint(output_model, model, cfg, named_params=find_ema_params(opt),
                                 extra={"step": step_count, "run_config": self.run_config})
+        # which kernels this process's run went through
+        log.info(f"mel kernel launches: {json.dumps(mel_launches)}")
         log.info(f"Results can be found at {self.outputdir}")
         log.info(f"Final model is at {output_model}")
         return output_model
