@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``uit_mobile_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --mp-cards 4   # the model-parallel routes on four cards
 
 Phases, each printing one JSON line:
   1. device  - the card (nvidia-smi name and power limit), torch/CUDA versions,
@@ -108,14 +109,25 @@ After bench:
               replicas of the card, the kernel on every shard; the one-rank
               step's cost beside the single-process step's. Not a scaling
               measurement.
+  model_parallel - model parallelism on the one card (phase_model_parallel):
+              every route as one NCCL rank (meshes of ones) and as four
+              gloo ranks sharing the card: TP 2x2 with and without sharded
+              attention, a hybrid FSDP x TP 2x2 weak step, SP seq=4 (float32
+              exact, bfloat16, int16 fast) and data 2 x seq 2, PP pipe=4 at
+              M=4 and M=8 (and int16 fast), EP data 2 x expert 2 on
+              uit_xs_moe (B=32 x 10 s forward and one AdamW step); the mel
+              kernel on every rank's rows; forwards within 2e-5 (bfloat16
+              5e-3) of the single-process card forward, steps as the
+              parallel phase's; launches, forward ms and weight bytes by
+              rank. Not a scaling measurement.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Launch counters are set to 0 just before the serve, exact, train, bf16,
 psl_cache scoring, offline, sed, pretrain, each artifact call, each moe path,
-each eval, each stream, the http path and each parallel path (in each
-rank's own process, or from the start of a training CLI's process, which
-logs its count at its end) and read just after; comparison launches do not
-count.
+each eval, each stream, the http path and each parallel and
+model-parallel path (in each rank's own process, or from the start of a
+training CLI's process, which logs its count at its end) and read just
+after; comparison launches do not count.
 Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
@@ -3155,6 +3167,393 @@ def dp_in_process(work: Path, info) -> dict:
     return counts
 
 
+# --------------------------------------------------------- model parallelism
+
+MP_B = 32  # the dense routes' clips of 1 s; the EP routes take MOE_B clips of 10 s
+# name: (route, its mesh over four ranks, options); at one rank each route
+# runs on a mesh of ones (MP_ONE_RANK)
+MP_ROUTES = {
+    "tp": ("tp", {"data": 2, "model": 2}, {}),
+    "tp_attn": ("tp", {"data": 2, "model": 2}, {"shard_attention": True}),
+    "hybrid_step": ("hybrid_step", {"data": 2, "model": 2}, {}),
+    "sp": ("sp", {"seq": 4}, {}),
+    "sp_bf16": ("sp", {"seq": 4}, {"bf16": True}),
+    "sp_fast": ("sp", {"seq": 4}, {"fast": True}),
+    "sp_data": ("sp", {"data": 2, "seq": 2}, {}),
+    "pp": ("pp", {"pipe": 4}, {"n_microbatches": 4}),
+    "pp_m8": ("pp", {"pipe": 4}, {"n_microbatches": 8}),
+    "pp_fast": ("pp", {"pipe": 4}, {"n_microbatches": 4, "fast": True}),
+    "ep": ("ep", {"data": 2, "expert": 2}, {}),
+    "ep_step": ("ep_step", {"data": 2, "expert": 2}, {}),
+}
+MP_ONE_RANK = ("tp", "hybrid_step", "sp", "pp", "ep", "ep_step")
+# the tensor dims a step's ReLU inputs split over each mesh axis: the dense
+# MLP's (rows, tokens, hidden), the experts' (experts, groups, slots, hidden)
+MP_RELU_DIMS = {"hybrid_step": {"data": 0, "model": -1}, "ep_step": {"expert": 0, "data": 1}}
+
+
+def mp_inputs(moe: bool, fast: bool = False):
+    """The seeded global batch of a route: (wav as the route takes it: int16
+    PCM for the fast routes, else float32; multi-hot targets)."""
+    if moe:
+        pcm, target = moe_batch(23)
+    else:
+        pcm = pcm_batch(np.random.default_rng(21), MP_B, SR)
+        target = (np.random.default_rng(22).random((MP_B, 537)) < 0.05).astype(np.float32)
+    return (pcm if fast else pcm.astype(np.float32) / 32768.0), target
+
+
+def mp_model(moe: bool, bf16: bool = False, device="cpu"):
+    """(cfg, model) of a route: uit_xs (outputdim 537, target_length 102) or
+    uit_xs_moe (8 experts, top-2, target_length 1012), seeded weights."""
+    from uit_mobile_tpu_torch import models
+
+    if moe:
+        cfg = models.get_model_config("uit_xs_moe", outputdim=537)
+        return cfg, models.build(cfg, torch.Generator().manual_seed(31), device)
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102,
+                                  compute_dtype="bfloat16" if bf16 else "float32")
+    return cfg, models.build(cfg, torch.Generator().manual_seed(30), device)
+
+
+def mp_variant(opts: dict) -> str:
+    return "row_fast" if opts.get("fast") else "row_exact"
+
+
+def param_bytes(model) -> int:
+    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
+    return sum(local(p).numel() * p.element_size() for p in model.parameters())
+
+
+def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
+    """One route on this rank's share of the mesh ``shape``: counts set to 0
+    just before its main path (one forward, or one step) and read just
+    after; then the forward's CUDA-event median. -> its output (forward:
+    probs; step: loss, pre-clip norm, gathered params and gradients, the
+    ReLU signs), mel launches, ms, the weights this rank holds."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch import parallel
+    from uit_mobile_tpu_torch.parallel.fsdp import make_fsdp_train_step
+    from uit_mobile_tpu_torch.parallel.tp import gather_params
+    from uit_mobile_tpu_torch.train import build_optimizer
+
+    moe = route.startswith("ep")
+    cfg, model = mp_model(moe, opts.get("bf16", False))
+    whole = param_bytes(model)
+    fe = make_frontend_fn(cfg.frontend, precision="fast" if opts.get("fast") else "exact")
+    wav, target = mp_inputs(moe, opts.get("fast", False))
+    wav, target = torch.from_numpy(wav).to(dev), torch.from_numpy(target).to(dev)
+    mesh = parallel.make_grid_mesh(shape, device=dev)
+    data_axis = "data" if "data" in shape else None
+    out = {"coords": mesh.coords, "whole_bytes": whole}
+    if route.endswith("_step"):
+        local, rows = mesh.shard_rows(wav, data_axis)
+        tgt, _ = mesh.shard_rows(target, data_axis)
+        opt_spec = build_optimizer("AdamW", DP_LR, weight_decay=5e-8)
+        if route == "hybrid_step":
+            root, _ = parallel.hybrid_shard_params(mesh, model)
+            model = root.model
+            opt = opt_spec.init(model)
+            step = make_fsdp_train_step(cfg, root, opt, rows=rows, frontend_fn=fe)
+            run = lambda: step({"wav": local, "target": tgt},  # noqa: E731
+                               torch.Generator(device=dev).manual_seed(3))
+        else:
+            model, _ = parallel.ep_shard_params(mesh, model)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+            run = lambda: step(local, tgt, torch.Generator(device=dev).manual_seed(3))  # noqa
+        grads, update = {}, opt.update
+        opt.update = lambda g: (grads.update(zip(opt.names, g)), update(g))[1]
+        signs: list = []
+        restore = relu_signs(record=signs)
+        try:
+            torch.cuda.synchronize()
+            reset_launches()
+            m = run()
+            torch.cuda.synchronize()
+            out["launches"] = dict(launches)
+        finally:
+            restore()
+        opt.update = update
+        out.update(loss=m["total_loss"].item(), grad_norm=m["grad_norm"].item(),
+                   params=gather_params(model), grads=gather_params(model, grads), signs=signs,
+                   rank_bytes=param_bytes(model))
+        out["step_ms"] = time_ms(run, warmup=1, iters=3)
+        return out
+    if route == "tp":
+        fn = parallel.tensor_parallel_forward(
+            lambda m, w: models.apply(cfg, m, w, frontend_fn=fe), mesh, model, **opts)
+        held = param_bytes(model)
+    elif route == "sp":
+        fn = parallel.sequence_parallel_forward(cfg, model, mesh, data_axis=data_axis,
+                                                frontend_fn=fe)
+        held = param_bytes(model)
+    elif route == "pp":
+        blocks = sum(p.numel() * p.element_size() for p in model.blocks.parameters())
+        fn = parallel.pipeline_forward(cfg, model, mesh, data_axis=data_axis, frontend_fn=fe,
+                                       n_microbatches=opts["n_microbatches"])
+        held = whole - blocks + blocks // shape["pipe"]
+    else:
+        fn = parallel.expert_parallel_forward(cfg, model, mesh, frontend_fn=fe)
+        held = param_bytes(model)
+    torch.cuda.synchronize()
+    reset_launches()
+    probs = fn(wav)
+    torch.cuda.synchronize()
+    out.update(launches=dict(launches), probs=probs.cpu(), on_card=probs.is_cuda,
+               rank_bytes=held, ms=time_ms(lambda: fn(wav), warmup=1, iters=5))
+    return out
+
+
+def mp_rank(argv) -> int:
+    """One rank of the model-parallel phase (``chip_smoke.py --mp-rank R W
+    PORT DIR BACKEND DEVICE``): every route of MP_ROUTES (four ranks) or of
+    MP_ONE_RANK on meshes of ones (one rank); results to DIR."""
+    import torch.distributed as dist
+
+    from uit_mobile_tpu_torch.parallel import multihost
+    from uit_mobile_tpu_torch.utils import resolve_device
+
+    global CARD
+    rank, world, port, workdir, backend, CARD = (int(argv[0]), int(argv[1]), argv[2],
+                                                 Path(argv[3]), argv[4], argv[5])
+    dev = resolve_device(CARD)  # TF32 off, as in the single-process forwards and steps
+    multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
+                         backend=backend, timeout=PARALLEL_DEADLINE_S)
+    res = {}
+    for name, (route, shape, opts) in MP_ROUTES.items():
+        if world == 1 and name not in MP_ONE_RANK:
+            continue
+        if world == 1:
+            shape = {axis: 1 for axis in shape}
+        res[name] = dict(mp_route(route, shape, opts, dev), mesh=shape)
+    torch.save(res, workdir / f"mp_rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None) -> list:
+    """Run mp_rank on ``world`` processes, rank r on ``devices[r]`` (default:
+    all sharing CARD) -> their results."""
+    work.mkdir(parents=True, exist_ok=True)
+    port = str(free_port())
+    devices = devices or [CARD] * world
+    spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--mp-rank",
+                  str(r), str(world), port, str(work), backend, devices[r]]
+                 for r in range(world)], PARALLEL_DEADLINE_S)
+    return [torch.load(work / f"mp_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def assemble(per_rank: list, shape: dict, dims: dict) -> list:
+    """Each rank's recorded tensors (one a call) -> the whole tensors, the
+    pieces of the axes in ``dims`` concatenated on their dims in mesh order
+    (an axis not in ``dims`` holds copies: its first is taken)."""
+    out = []
+    for i in range(len(per_rank[0]["signs"])):
+        pieces = {tuple(r["coords"][a] for a in shape): r["signs"][i] for r in per_rank}
+
+        def build(prefix, axes):
+            if not axes:
+                return pieces[prefix]
+            parts = [build(prefix + (j,), axes[1:]) for j in range(shape[axes[0]])]
+            return torch.cat(parts, dim=dims[axes[0]]) if axes[0] in dims else parts[0]
+
+        out.append(build((), list(shape)))
+    return out
+
+
+def mp_single_step(route: str, impose: list | None = None) -> dict:
+    """The route's step in one process on CARD (the weak step, or the MoE
+    step), the whole batch and model; ``impose``: the ReLU signs to take
+    (relu_signs) -> loss, pre-clip norm, params, gradients, ReLU signs."""
+    from uit_mobile_tpu_torch import parallel
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    moe = route == "ep_step"
+    cfg, model = mp_model(moe, device=CARD)
+    fe = make_frontend_fn(cfg.frontend, precision="exact")
+    wav, target = (torch.from_numpy(a).to(CARD) for a in mp_inputs(moe))
+    opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(model)
+    grads = step_grads(opt)
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    signs: list = []
+    restore = relu_signs(record=None if impose is not None else signs, impose=impose)
+    try:
+        if moe:
+            m = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe)(wav, target, gen)
+        else:
+            m = make_train_step(cfg, model, opt, frontend_fn=fe)(
+                {"wav": wav, "target": target}, gen)
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item(),
+            "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
+            "grads": grads, "signs": signs}
+
+
+def mp_references() -> dict:
+    """The single-process forwards on CARD that the routes are held to, one
+    per (model, precision, dtype), the same kernel frontend -> {key: (probs,
+    ms)}."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+
+    refs = {}
+    for key in ("dense", "dense_bf16", "dense_fast", "moe"):
+        moe, fast = key == "moe", key == "dense_fast"
+        cfg, model = mp_model(moe, bf16=key == "dense_bf16", device=CARD)
+        fe = make_frontend_fn(cfg.frontend, precision="fast" if fast else "exact")
+        wav = torch.from_numpy(mp_inputs(moe, fast)[0]).to(CARD)
+        fwd = lambda: models.apply(cfg, model, wav, frontend_fn=fe)  # noqa: E731
+        refs[key] = (fwd().cpu(), time_ms(fwd, warmup=1, iters=5))
+    return refs
+
+
+def mp_ref_key(route: str, opts: dict) -> str:
+    if route.startswith("ep"):
+        return "moe"
+    return "dense_bf16" if opts.get("bf16") else "dense_fast" if opts.get("fast") else "dense"
+
+
+def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend: str) -> dict:
+    """The ranks' step against the single-process step on CARD, as the
+    parallel phase's steps: without and given the ranks' ReLU signs (the
+    flips counted); the ranks end alike, the loss within 1e-5 either way,
+    the flips under 1e-5 of the ReLU inputs, and dp_agreement given the
+    ranks' signs."""
+    free = mp_single_step(route)
+    rank_signs = assemble(ranks, shape, MP_RELU_DIMS[route])
+    flips = int(sum((a != b).sum() for a, b in zip(rank_signs, free["signs"])))
+    given = mp_single_step(route, impose=list(rank_signs))
+    got = ranks[0]
+    same = all(torch.equal(got["params"][k], r["params"][k]) for r in ranks[1:]
+               for k in got["params"])
+    rec = {"phase": "model_parallel", "path": f"{len(ranks)}_ranks_{name}", "backend": backend,
+           "mesh": shape, "mel_launches_by_rank": [r["launches"] for r in ranks],
+           "relu_inputs": int(sum(s.numel() for s in free["signs"])), "relu_flips": flips,
+           "ranks_params_bitwise": same,
+           "vs_single_given_rank_signs": dp_agreement(got, given),
+           "vs_single": dp_agreement(got, free),
+           "step_ms_by_rank": [r["step_ms"] for r in ranks],
+           "weight_bytes_by_rank": [r["rank_bytes"] for r in ranks],
+           "whole_model_bytes": got["whole_bytes"], "card": info["nvidia_smi"]}
+    emit(rec)
+    check(same and rec["vs_single_given_rank_signs"]["agrees"]
+          and rec["vs_single"]["loss_rel_err"] <= 1e-5 and flips <= 1e-5 * rec["relu_inputs"],
+          f"{name} at {len(ranks)} ranks vs one process: {rec}")
+    return rec
+
+
+def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, info) -> dict:
+    """Every route the ranks ran, held to the single process (forwards: 2e-5
+    in probabilities, bfloat16 5e-3; steps: mp_step_gate), each printed on
+    a line of its own -> {path: mel launch counts}."""
+    counts = {}
+    for name in ranks[0]:
+        route, _, opts = MP_ROUTES[name]
+        shape = ranks[0][name]["mesh"]
+        per = [r[name] for r in ranks]
+        variant = mp_variant(opts)
+        for r, rr in enumerate(per):
+            counts[f"{world}_ranks_{name}_rank{r}"] = rr["launches"]
+        check(all(rr["launches"][variant] == 1 and sum(rr["launches"].values()) == 1
+                  for rr in per),
+              f"{name} at {world} ranks: a rank did not launch {variant} once for its "
+              f"rows: {[rr['launches'] for rr in per]}")
+        if route.endswith("_step"):
+            mp_step_gate(name, route, per, shape, info, backend)
+            continue
+        want, single_ms = refs[mp_ref_key(route, opts)]
+        tol = 5e-3 if opts.get("bf16") else 2e-5
+        diffs = [(rr["probs"] - want).abs().max().item() for rr in per]
+        rec = {"phase": "model_parallel", "path": f"{world}_ranks_{name}",
+               "backend": backend, "mesh": shape, "variant": variant,
+               "mel_launches_by_rank": [rr["launches"] for rr in per],
+               "max_abs_diff_vs_single": max(diffs), "tolerance": tol,
+               "ms_by_rank": [rr["ms"] for rr in per], "single_ms": single_ms,
+               "weight_bytes_by_rank": [rr["rank_bytes"] for rr in per],
+               "whole_model_bytes": per[0]["whole_bytes"], "spawn_wall_s": spawn_s,
+               "card": info["nvidia_smi"],
+               "note": "ranks sharing one card over gloo time-slice it: not a scaling number"
+               if backend == "gloo" else f"{world} NCCL rank(s), one card each"}
+        emit(rec)
+        check(all(rr["on_card"] for rr in per) and max(diffs) <= tol,
+              f"{name} at {world} ranks vs one process: {rec}")
+    return counts
+
+
+def phase_model_parallel(info) -> dict:
+    """Model parallelism on the one card (not a scaling measurement), each
+    route with the mel kernel as its frontend on every rank:
+    (a) one NCCL rank (a ``--mp-rank`` process): TP 1x1, hybrid 1x1 (one
+        weak step), SP S=1, PP S=1, EP 1x1 (forward and one step);
+    (b) four gloo ranks sharing the card, spawned once: TP 2x2 with and
+        without shard_attention; hybrid FSDP x TP 2x2 (one weak step); SP
+        seq=4 (6 tokens a rank) in float32 exact, bfloat16 and int16 fast,
+        and data=2 x seq=2; PP pipe=4 (3 blocks a stage) at M=4 and M=8, and
+        int16 fast; EP data=2 x expert=2 on uit_xs_moe (4 experts a rank),
+        forward at B=32 x 10 s and one AdamW step.
+    Forwards are held to the single-process card forward with the same
+    frontend: 2e-5 in probabilities, 5e-3 in bfloat16; steps as the
+    parallel phase's (dp_versus_single).
+    Each rank's mel launches (counts set to 0 just before its main path),
+    forward ms (CUDA-event median) and the weight bytes it holds are
+    printed. -> {path: mel launch counts}."""
+    import tempfile
+
+    counts: dict = {}
+    work = Path(tempfile.mkdtemp(prefix="uit_model_parallel_"))
+    worlds = {}
+    for world, backend in ((1, "nccl"), (4, "gloo")):
+        t0 = time.perf_counter()
+        worlds[world] = (mp_spawn(work / f"w{world}", world, backend), backend,
+                         time.perf_counter() - t0)
+    refs = mp_references()
+    for world, (ranks, backend, spawn_s) in worlds.items():
+        counts.update(mp_check(world, ranks, backend, spawn_s, refs, info))
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
+def mp_cards(argv) -> int:
+    """``chip_smoke.py --mp-cards 4``: the model_parallel phase's four-rank
+    routes as four NCCL ranks, one card each (the layouts' own setting:
+    NCCL collectives and point to point on the cards), held by the same
+    gates against the single process on the first card; the same lines,
+    then the kernels' launches on these routes and the last line. Exits
+    non-zero without four cards."""
+    import tempfile
+
+    n = int(argv[0]) if argv else 0
+    if n != 4 or not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print("chip_smoke --mp-cards: takes 4, and needs four CUDA GPUs", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from uit_mobile_tpu_torch.utils import resolve_device
+
+    resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = phase_device()
+    phase_build()
+    work = Path(tempfile.mkdtemp(prefix="uit_model_parallel_cards_"))
+    t0 = time.perf_counter()
+    ranks = mp_spawn(work, n, "nccl", devices=[f"cuda:{r}" for r in range(n)])
+    spawn_s = time.perf_counter() - t0
+    counts = mp_check(n, ranks, "nccl", spawn_s, mp_references(), info)
+    shutil.rmtree(work, ignore_errors=True)
+    emit({"phase": "model_parallel", "cards": n, "wall_s": time.perf_counter() - t0,
+          "mel_launches": counts})
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def free_port() -> int:
     import socket
 
@@ -3205,6 +3604,7 @@ def main() -> int:
     http_counts = timed("http", phase_http, cfg, cpu_model, info)
     timed("bench", phase_bench, info)
     parallel_counts = timed("parallel", phase_parallel, info)
+    model_parallel_counts = timed("model_parallel", phase_model_parallel, info)
     emit({"phase_wall_s": wall})
 
     def timing(rec):
@@ -3235,6 +3635,8 @@ def main() -> int:
             "export_launches": export_counts[variant],
             "moe_launches": {path: c[variant] for path, c in moe_counts.items()},
             "parallel_launches": {path: c[variant] for path, c in parallel_counts.items()},
+            "model_parallel_launches": {path: c[variant]
+                                        for path, c in model_parallel_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],
@@ -3251,4 +3653,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of the parallel phase's shared-card check
         sys.exit(dp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mp-rank"]:  # a rank of the model_parallel phase
+        sys.exit(mp_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mp-cards"]:  # the model_parallel routes over four cards
+        sys.exit(mp_cards(sys.argv[2:]))
     sys.exit(main())

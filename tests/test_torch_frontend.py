@@ -114,6 +114,8 @@ def test_port_imports_without_jax():
     assert {f"uit_mobile_tpu_torch.{m}" for m in
             ("parallel.mesh", "parallel.multihost", "parallel.rows", "parallel.fsdp",
              "cli.launch")} <= set(mods)
+    assert {f"uit_mobile_tpu_torch.parallel.{m}" for m in
+            ("tp", "sp", "pp", "ep", "fsdp", "collectives")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

@@ -24,9 +24,9 @@ import pytest
 from test_torch_parallel import _free_port, _param_bound, spawn_ranks
 from uit_mobile_tpu import models as jax_models
 from uit_mobile_tpu.parallel import fsdp_param_specs as jax_fsdp_param_specs
+from uit_mobile_tpu.parallel import hybrid_param_specs as jax_hybrid_param_specs
 from uit_mobile_tpu_torch.ckpt.convert import flatten_tree
-from uit_mobile_tpu_torch.parallel.fsdp import (_fit, fsdp_param_specs, hybrid_param_specs,
-                                                hybrid_shard_params)
+from uit_mobile_tpu_torch.parallel.fsdp import _fit, fsdp_param_specs, hybrid_param_specs
 
 STEP_SRC = r'''
 import json
@@ -130,10 +130,12 @@ def test_placements_equal_jax(name, kw, min_size):
     # a dim the axis does not divide stays replicated, as JAX's _fit_spec
     assert _fit(("data", None), (37, 8), 2) == (None, None)
     assert _fit((None, "data"), (37, 8), 2) == (None, "data")
-    # the FSDP x TP composition waits for tensor parallelism
-    for fn in (hybrid_param_specs, hybrid_shard_params):
-        with pytest.raises(NotImplementedError, match="§A17b"):
-            fn(flat)
+    # the FSDP x TP composition: JAX's hybrid specs (tests/test_torch_model_parallel.py
+    # holds them at both shard_attention settings and runs the hybrid step)
+    want = flatten_tree(jax_hybrid_param_specs(params, min_size=min_size), ".")
+    got = hybrid_param_specs(flat, min_size=min_size)
+    assert got.keys() == want.keys()
+    assert all(got[k] == tuple(want[k]) for k in want)
 
 
 def test_fsdp_step_equals_the_single_process_step(tmp_path):

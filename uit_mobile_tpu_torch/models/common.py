@@ -25,7 +25,11 @@ from ..parallel.rows import rand_rows
 # ---------------------------------------------------------------- containers
 
 class Linear(nn.Module):
-    """{'kernel': (in, out), 'bias': (out,)}; no 'bias' entry without bias."""
+    """{'kernel': (in, out), 'bias': (out,)}; no 'bias' entry without bias.
+    ``tp``: the tensor-parallel layout of a shard (parallel/tp.py), which
+    ``linear`` runs; None for a whole Linear."""
+
+    tp = None
 
     def __init__(self, d_in: int, d_out: int, bias: bool = True):
         super().__init__()
@@ -101,6 +105,8 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
 
 
 def linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
+    if p.tp is not None:
+        return p.tp(p, x)
     y = x @ p.kernel
     if p.bias is not None:
         y = y + p.bias
@@ -113,11 +119,21 @@ def _generator(generator, what: str):
     return generator
 
 
-def dropout(generator, x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+def dropout(generator, x: torch.Tensor, rate: float, deterministic: bool,
+            columns=None) -> torch.Tensor:
+    """``columns``: (whole width, first column) when ``x`` holds some columns
+    of a wider tensor (a tensor-parallel shard): the mask is drawn at the
+    whole width and cut, so the draws are the whole tensor's."""
     if deterministic or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = rand_rows(_generator(generator, "dropout"), x.shape, x.device) < keep
+    if columns is None:
+        draw = rand_rows(_generator(generator, "dropout"), x.shape, x.device)
+    else:
+        width, first = columns
+        draw = rand_rows(_generator(generator, "dropout"), (*x.shape[:-1], width),
+                         x.device)[..., first:first + x.shape[-1]]
+    mask = draw < keep
     return torch.where(mask, x / keep, 0.0)
 
 
@@ -219,5 +235,8 @@ def multihead_attention(p, x: torch.Tensor, num_heads: int, scale: float,
 
 def mlp(p, x: torch.Tensor, act: str, drop: float = 0.0, generator=None,
         deterministic: bool = True) -> torch.Tensor:
-    x = dropout(generator, ACTIVATIONS[act](linear(p.fc1, x)), drop, deterministic)
+    x = ACTIVATIONS[act](linear(p.fc1, x))
+    tp = p.fc1.tp  # a column-parallel fc1 holds some of the hidden columns
+    x = dropout(generator, x, drop, deterministic,
+                columns=None if tp is None else tp.out_columns(x.shape[-1]))
     return dropout(generator, linear(p.fc2, x), drop, deterministic)

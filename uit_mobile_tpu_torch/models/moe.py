@@ -42,8 +42,11 @@ import math
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import copy_to, reduce_from
+from ..parallel.rows import current as current_rows
 from . import uit
 from .common import ACTIVATIONS, batch_norm_train, layer_norm, trunc_normal
 
@@ -112,6 +115,11 @@ class ExpertLinear(nn.Module):
 
 
 class MoE(nn.Module):
+    """``ep``: under expert parallelism (parallel/ep.py) this rank's share of
+    the banks (``first`` expert, the 'expert' ``group``); None when whole."""
+
+    ep = None
+
     def __init__(self, cfg: MoEUITConfig):
         super().__init__()
         D = cfg.base.embed_dim
@@ -188,24 +196,52 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
         y          = combine . expert_out  (G, S, D)
 
     aux = E * sum_e f_e * P_e (Switch load balancing: f = fraction of tokens
-    whose top-1 choice is e, P = mean router probability of e)."""
+    whose top-1 choice is e, P = mean router probability of e).
+
+    Under ``parallel.rows.sharded`` the batch is this rank's consecutive
+    rows of a global batch (a flat batch, ranks in order), and the groups
+    are the global batch's, so a group may span ranks: every rank's routing
+    choices are summed into place over the data group (an all-gather that
+    ``Rows``' in-process groups carry too), each token's slot counts the
+    group's tokens before it, and this rank fills its own tokens' slots
+    (the others' stay empty); f and P are the global batch's. With ``p.ep``
+    this rank holds experts [first, first + its banks) only and runs them,
+    and one all-reduce over the 'expert' group sums the combine."""
     B, N, D = x.shape
-    T = B * N
     E, k = cfg.n_experts, cfg.top_k
     cdt = uit.compute_dtype(cfg.base)
-    S = _group_size(cfg, B, N)
-    G = T // S
+    rows = current_rows()
+    world = 1 if rows is None else rows.world
+    S = _group_size(cfg, B * world, N)
     C = max(1, min(int(math.ceil(k * S / E * cfg.capacity_factor)), k * S))
-    xt = x.reshape(G, S, D)
 
-    gates = torch.softmax(torch.einsum("gsd,de->gse", xt.float(), p.router.kernel), dim=-1)
-    topv, topi = _top_k(gates, k)  # (G, S, k)
+    gates = torch.softmax(torch.einsum("td,de->te", x.reshape(B * N, D).float(),
+                                       p.router.kernel), dim=-1)
+    topv, topi = _top_k(gates, k)  # (T, k)
     topv = topv / topv.sum(dim=-1, keepdim=True)
+    xt = x.reshape(B * N, D)
+    if p.ep is not None:  # x and the combine weights reach every rank's banks
+        xt, topv = copy_to(xt, p.ep.group), copy_to(topv, p.ep.group)
+    all_topi, first = topi, 0
+    if world > 1:  # every token's choices in the global order, over any group of Rows
+        spread = torch.zeros((world, B * N, k), dtype=topi.dtype, device=topi.device)
+        spread[rows.rank] = topi
+        all_topi, first = rows.all_reduce(spread).reshape(-1, k), rows.rank * B * N
+    # the groups holding this rank's tokens, the others' tokens zero rows
+    g0, g1 = first // S, -(-(first + B * N) // S)
+    pad = (0, 0, first - g0 * S, g1 * S - first - B * N)
+
+    def fill(t):
+        return F.pad(t, pad) if pad[2] or pad[3] else t
+
+    xt = fill(xt).reshape(g1 - g0, S, D)
+    topv = fill(topv).reshape(g1 - g0, S, k)
+    topi = all_topi[g0 * S:g1 * S].reshape(g1 - g0, S, k)
 
     experts = torch.arange(E, device=x.device)
     slots = torch.arange(C, device=x.device, dtype=torch.float32)
-    counts = torch.zeros(G, E, device=x.device)
-    combine = torch.zeros(G, S, E, C, device=x.device)
+    counts = torch.zeros(g1 - g0, E, device=x.device)
+    combine = torch.zeros(g1 - g0, S, E, C, device=x.device)
     for j in range(k):
         oh = (topi[:, :, j, None] == experts).float()  # (G, S, E)
         # slot each token would take in expert e: tokens before it in the
@@ -216,6 +252,9 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
         combine = combine + topv[:, :, j, None, None] * keep[..., None] * slot
         counts = counts + oh.sum(dim=1)
     dispatch = (combine > 0).float()
+    if p.ep is not None:  # this rank's banks
+        local = slice(p.ep.first, p.ep.first + p.fc1.kernel.shape[0])
+        dispatch, combine = dispatch[:, :, local], combine[:, :, local]
 
     expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xt.to(cdt))
     h = ACTIVATIONS[cfg.base.act](
@@ -224,9 +263,12 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
     out_e = (torch.einsum("egch,ehd->egcd", h, p.fc2.kernel.to(cdt))
              + p.fc2.bias.to(cdt)[:, None, None, :])
     y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), out_e)
+    if p.ep is not None:
+        y = reduce_from(y, p.ep.group)
+    y = y.reshape(-1, D)[pad[2]:pad[2] + B * N]
 
-    f = (topi[:, :, 0, None] == experts).float().mean(dim=(0, 1))
-    P = gates.mean(dim=(0, 1))
+    f = (all_topi[:, 0, None] == experts).float().mean(dim=0)
+    P = gates.mean(dim=0) if rows is None else rows.mean(gates.mean(dim=0))
     aux = E * torch.sum(f * P)
     return y.reshape(B, N, D).to(x.dtype), aux
 

@@ -8,6 +8,11 @@ replicas on one card, or on the CPU, run as two shards). Across processes
 shard on its own device. Weights replicate (``replicate_tree``), the batch
 axis shards (``shard_batch``), and ``data_parallel_forward`` runs an eval
 forward shard by shard.
+
+A ``GridMesh`` is the process group as a grid of named axes, for the
+model-parallel layouts (tp, sp, pp, ep, the hybrid FSDP x TP): each axis
+has its own process group, and a forward takes the global batch on every
+rank (``shard_rows``) and returns the global output (``gather_rows``).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import dataclasses
 import threading
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from . import multihost
@@ -49,6 +55,89 @@ class Placement:
     replicated, (axis,) sharded on the leading (batch) axis."""
     mesh: Mesh
     spec: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """Every rank of the process group as a grid of named axes (JAX's
+    multi-axis ``Mesh``), for the model-parallel layouts. Rank r sits at
+    the row-major position r of ``shape`` (the last axis innermost, as
+    JAX reshapes its device list). ``coords``: this rank's index on each
+    axis; ``groups``: per axis, the process group of the ranks that differ
+    from this one on that axis only; ``device``: this rank's device."""
+    shape: dict
+    coords: dict
+    groups: dict
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    def group(self, axis: str):
+        return self.groups[axis]
+
+    def rank_at(self, axis: str, index: int) -> int:
+        """The global rank at this rank's position with ``axis`` set to ``index``."""
+        coords = dict(self.coords, **{axis: index % self.shape[axis]})
+        return int(np.ravel_multi_index([coords[a] for a in self.shape], list(self.shape.values())))
+
+    def shard_rows(self, x, axis: Optional[str]):
+        """This rank's rows of the global batch ``x`` over ``axis`` on its
+        device, and the ``Rows`` of that share over the axis's group (the
+        batch-global reductions of a forward or a step run over it); with
+        no axis, or one of one rank, every row and no Rows."""
+        x = torch.as_tensor(x)
+        if axis is None or self.shape[axis] == 1:
+            return x.to(self.device), None
+        n = self.shape[axis]
+        if x.shape[0] % n:
+            raise ValueError(f"the '{axis}' axis ({n}) must divide the batch ({x.shape[0]})")
+        local = x.chunk(n)[self.coords[axis]].to(self.device)
+        return local, Rows([local.shape[0]], self.device, group=self.groups[axis])
+
+    def gather_rows(self, x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
+        """Every rank's rows of ``x`` over ``axis``, concatenated in order (no
+        gradient): a forward's output on every rank."""
+        if axis is None or self.shape[axis] == 1:
+            return x
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, x.contiguous(), group=self.groups[axis])
+        return torch.cat(parts)
+
+
+def make_grid_mesh(shape: dict, device="cuda") -> GridMesh:
+    """The process group as a ``GridMesh`` of ``shape`` (axis -> size, in
+    order); every rank calls it (it creates each axis's groups).
+    ``device``: this rank's device ('cuda' = the current card)."""
+    import torch.distributed as dist
+
+    from ..utils.device import resolve_device
+
+    need = int(np.prod(list(shape.values())))
+    if not multihost.is_initialized():
+        raise ValueError(f"a mesh of {need} ranks spans a process group: call "
+                         f"parallel.multihost.initialize first")
+    world = dist.get_world_size()
+    if world != need:
+        raise ValueError(f"need {need} ranks for a {dict(shape)} mesh, have {world}")
+    axes, sizes = list(shape), [int(n) for n in shape.values()]
+    ranks = np.arange(need).reshape(sizes)
+    me = dist.get_rank()
+    coords = dict(zip(axes, (int(c) for c in np.unravel_index(me, sizes))))
+    groups = {}
+    for i, axis in enumerate(axes):  # every rank creates every group, in one order
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, sizes[i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if me in line:
+                groups[axis] = g
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return GridMesh(dict(zip(axes, sizes)), coords, groups, dev)
 
 
 def _visible(device) -> list:

@@ -422,9 +422,32 @@ def _step_wav(w: torch.Tensor, wav_augment) -> torch.Tensor:
     return _norm(w)
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient element (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+def global_norm(grads: list[torch.Tensor], groups=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient element (optax.global_norm).
+    ``groups``: per gradient, the process groups its tensor is split over
+    (empty: whole on this rank; a model-parallel shard, parallel/tp.py); its
+    squares are summed over them, so every rank gets the whole model's norm."""
+    if not groups or not any(groups):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    import torch.distributed as dist
+
+    sums: dict = {}  # one float64 sum per tuple of groups, in the parameters' order
+    for g, over in zip(grads, groups):
+        g = g.to_local() if hasattr(g, "to_local") else g
+        sums[tuple(over)] = sums.get(tuple(over), 0.0) + (g.double() ** 2).sum()
+    total = 0.0
+    for over, sq in sums.items():
+        for group in over:
+            dist.all_reduce(sq, group=group)
+        total = total + sq
+    return torch.sqrt(total).float()
+
+
+def shard_groups(model, names) -> list:
+    """Per parameter name, the process groups a model-parallel placement
+    split it over (``model.shards``, parallel/tp.py)."""
+    shards = getattr(model, "shards", {})
+    return [tuple(g for _, _, g in shards.get(n, ())) for n in names]
 
 
 def _group_mean(grads, rows) -> list[torch.Tensor]:
@@ -449,7 +472,7 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     rows = current_rows()
     if rows is not None:
         grads = _group_mean(grads, rows)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shard_groups(model, optimizer.names))
     if max_grad_norm is not None:
         grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
     models.load_state(model, new_state)
