@@ -14,7 +14,10 @@ Phases, each printing one JSON line:
                f32/32768 and transposed == row (bitwise), and against a
                float64 sum of the same products; ragged shapes and noise
                where a DFT sum cancels; timed beside its plain version and
-               a torch.stft composite;
+               a torch.stft composite; the exact kernel on the committed
+               torch.stft golden (3e-2 dB) and the fast kernel's B=1 output
+               bitwise row 0 of a B=2 call (tools/verify_tpu_numerics.py's
+               checks);
   4. serve   - the main path: uit_xs (random weights from a seed) behind
                TaggingService(ServiceConfig(dtype="int16")) on the card,
                ~300 one-second and 20 three-second clips, each result held
@@ -120,14 +123,23 @@ After bench:
               5e-3) of the single-process card forward, steps as the
               parallel phase's; launches, forward ms and weight bytes by
               rank. Not a scaling measurement.
+  gate      - the synthetic accuracy gate at full size on the card
+              (uit_mobile_tpu_torch/tools/gate_synthetic.py in its own
+              process): uit_xxxs trained through cli.train on the synthetic
+              keyword world (.npz store), scored through cli.evaluate
+              audioset and gsc: mAPKWS and GSC Accuracy@0.2 >= 0.80, the
+              mel kernel launched in training and in each evaluation; then
+              cli.prep gsc on a GSC-shaped wav tree to an .npz store, its
+              test split scored on the card by the gate's model.
 Then the `kernels` line, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Launch counters are set to 0 just before the serve, exact, train, bf16,
 psl_cache scoring, offline, sed, pretrain, each artifact call, each moe path,
-each eval, each stream, the http path and each parallel and
+each eval, each stream, the http path, each parallel and
 model-parallel path (in each rank's own process, or from the start of a
-training CLI's process, which logs its count at its end) and read just
-after; comparison launches do not count.
+training CLI's process, which logs its count at its end) and each of the
+gate's train and evaluate calls and its prep scoring, and read just after;
+comparison launches do not count.
 Any failure exits non-zero without that last line, as does a machine
 with no CUDA GPU.
 """
@@ -460,6 +472,25 @@ def phase_kernels(dev) -> dict:
         emit(rec)
     for variant, recs in records.items():
         recs[0]["max_abs_err_all_shapes_db"] = worst[variant]
+    # tools/verify_tpu_numerics.py's two checks no other gate makes: the
+    # exact kernel (row_exact, B=3) on the committed torch.stft golden within
+    # that tool's 3e-2 dB, and the fast kernel's B=1 output bitwise row 0 of
+    # a B=2 call (rows are frame-independent)
+    golden = np.load(REPO / "tests" / "goldens" / "frontend_golden.npz")
+    gwav = torch.from_numpy(golden["rand_batch_wav"]).to(dev)
+    reset_launches()
+    mel = mel_ops.log_mel(gwav, fe, precision="exact")
+    m1, m2 = (mel_ops.log_mel(gwav[:b], fe, precision="fast") for b in (1, 2))
+    torch.cuda.synchronize()
+    rec = {"phase": "kernel", "check": "numerics", "launches": dict(mel_ops.launches),
+           "golden_shape": list(mel.shape),
+           "golden_max_abs_err_db": float(np.abs(mel.cpu().numpy()
+                                                 - golden["rand_batch_logmel"]).max()),
+           "golden_tolerance_db": 3e-2, "fast_b1_vs_b2_row0_bitwise": torch.equal(m1, m2[:1])}
+    emit(rec)
+    check(rec["golden_max_abs_err_db"] <= 3e-2 and rec["fast_b1_vs_b2_row0_bitwise"]
+          and rec["launches"]["row_exact"] == 1 and rec["launches"]["row_fast"] == 2,
+          f"kernels against the frontend golden and B=1 vs B=2: {rec}")
     return records
 
 
@@ -784,13 +815,13 @@ def check_deliverable(out: Path, cfg_expected) -> dict:
 # one train step on the card against the CPU plain path, per configuration:
 # B (half AudioSet rows for the teacher), the student's mel layout, frontend
 # precision, int16 input, the kernel the step launches in both models, and
-# whether the 1e-5 gate on the updated params covers every element. The
-# frontier's leaves out the elements whose gradient is below 1e-7: its fast
-# mel sits further from its plain version than exact's (on an H100,
-# gradients 6.3e-5 from the CPU's relative to each tensor's largest, exact
-# 9.7e-7), and Adam's first step, lr * g / (|g| + eps), turns a gradient
-# difference near 0 into up to lr (there 3.0e-4 over every element, 2.2e-6
-# outside them)
+# whether the step's own update is also held at 1e-5 over every element
+# (step_agreement always holds the card's optimizer fed the CPU's gradients
+# there). The frontier's is not: its fast mel sits further from its plain
+# version than exact's (on an H100, gradients 6.3e-5 from the CPU's relative
+# to each tensor's largest, exact 9.7e-7), and Adam's first step,
+# lr * g / (|g| + eps), turns a gradient difference near 0 into up to lr
+# (there 3.0e-4 over every element)
 PARITY = {"recipe": (32, "bft", "exact", False, "row_exact", True),
           "frontier": (1024, "tfb", "fast", True, "tfb_fast", False)}
 
@@ -826,7 +857,7 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
     ``optimizer``, constant lr, no augments, no dropout, no mixup) from the
     same weights and batch on the card (the mel kernels) and through the
     plain path on the CPU. Gates: the step's two frontends (frontend_gate)
-    and step_agreement, params over every element where PARITY says so."""
+    and step_agreement (the step's own params too where PARITY says so)."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
     from uit_mobile_tpu_torch.ops import launches
@@ -876,7 +907,12 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
                           {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
     check(rec["cuda_launches"][variant] == 2,
           f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
-    rec.update(step_agreement(runs, all_params), card=info["nvidia_smi"])
+
+    def fresh():
+        model = module_from_numpy(cfg, *student, device=resolve_device("cuda"))
+        return model, build_optimizer(optimizer[0], 1e-3, **optimizer[1]).init(model)
+
+    rec.update(step_agreement(runs, fresh, all_params), card=info["nvidia_smi"])
     emit(rec)
     check(rec["agrees"], f"{name}: train step on the card vs CPU plain path: {rec}")
     return rec
@@ -895,36 +931,40 @@ def step_grads(opt) -> dict:
     return grads
 
 
-def step_agreement(runs: dict, all_params: bool) -> dict:
+def step_agreement(runs: dict, fresh, all_params: bool = False) -> dict:
     """One step on the card against the same step on the CPU, runs[device]
     = (loss, pre-clip grad norm, updated params, gradients) -> readings and
     'agrees': loss 1e-4 relative, grad norm 1e-3 relative, every gradient
-    within 1e-4 of the CPU's relative to its tensor's largest, updated
-    params 1e-5 over every element (all_params) or outside the elements
-    whose gradient is below 1e-7, where Adam's first step is +-lr whatever
-    the sign of a rounding (both readings and the count of those elements
-    are given)."""
+    within 1e-4 of the CPU's relative to its tensor's largest, and the
+    card's optimizer fed the CPU's gradients (``fresh()`` -> the step's
+    model and optimizer, built anew on the card) within 1e-5 of the CPU's
+    updated params over every element (tests/test_torch_steps.py's gate).
+    The step's own update is not held element by element unless
+    ``all_params``: Adam's first step is lr * g / (|g| + eps), +-lr where
+    |g| is near 0 whatever the sign of a rounding; its largest gap and the
+    count of elements whose CPU gradient is below 1e-7 are readings."""
     (l_g, n_g, p_g, g_g), (l_c, n_c, p_c, g_c) = runs["cuda"], runs["cpu"]
-    excluded, worst, worst_all = 0, 0.0, 0.0
-    for k, v in p_g.items():
-        keep = (g_c[k].abs() >= 1e-7) | (g_c[k] == 0)
-        excluded += int((~keep).sum())
-        worst = max(worst, (v - p_c[k])[keep].abs().max().item())
-        worst_all = max(worst_all, (v - p_c[k]).abs().max().item())
+    model, opt = fresh()
+    opt.update([g_c[n].to(next(model.parameters()).device) for n in opt.names])
+    fed = {k: v.detach().cpu() for k, v in model.named_parameters()}
+    fed_worst = max((fed[k] - p_c[k]).abs().max().item() for k in p_c)
+    worst_all = max((v - p_c[k]).abs().max().item() for k, v in p_g.items())
+    small = sum(int(((g.abs() < 1e-7) & (g != 0)).sum()) for g in g_c.values())
     rel = {k: (g_g[k] - g_c[k]).abs() / g_c[k].abs().max().clamp(min=1e-30) for k in g_c}
     worst_grad = max(rel, key=lambda k: rel[k].max().item())
     rec = {
         "loss_gpu": l_g, "loss_cpu": l_c, "loss_rel_err": abs(l_g - l_c) / abs(l_c),
         "grad_norm_gpu": n_g, "grad_norm_cpu": n_c, "grad_norm_rel_err": abs(n_g - n_c) / abs(n_c),
-        "params_max_abs_diff": worst, "params_max_abs_diff_all": worst_all,
-        "params_gate_every_element": all_params,
-        "params_excluded_small_grad": excluded,
+        "params_max_abs_diff": fed_worst,
+        "params_gate": "the card's optimizer fed the CPU's gradients, every element"
+                       + (", and the step's own update, every element" if all_params else ""),
+        "params_max_abs_diff_all": worst_all, "params_small_grad": small,
         "params_total": sum(v.numel() for v in p_g.values()),
         "max_grad_rel_diff": rel[worst_grad].max().item(), "worst_grad_tensor": worst_grad,
         "grad_elements_over_1e-4": int(sum((r > 1e-4).sum() for r in rel.values()))}
     rec["agrees"] = (rec["loss_rel_err"] <= 1e-4 and rec["grad_norm_rel_err"] <= 1e-3
-                     and rec["max_grad_rel_diff"] <= 1e-4
-                     and (worst_all if all_params else worst) <= 1e-5)
+                     and rec["max_grad_rel_diff"] <= 1e-4 and fed_worst <= 1e-5
+                     and (worst_all <= 1e-5 or not all_params))
     return rec
 
 
@@ -1382,7 +1422,7 @@ def phase_sed(info) -> dict:
     run framewise on the card; one SED step (no augments, AdamW) from the
     same weights against the CPU: its frontend on the batch (frontend_gate),
     the loss against the CPU plain path (1e-4 relative), and step_agreement
-    (params outside the elements whose gradient is below 1e-7) against the
+    (the card's optimizer fed the CPU's gradients) against the
     CPU fed the card's mel. The plain mel differs from the kernel's within
     its tolerance, and that difference alone flips enough ReLUs to move
     this step's fc1 gradients by ~1e-3 of their largest on the CPU (1e-6
@@ -1455,8 +1495,12 @@ def phase_sed(info) -> dict:
         m = steps[run]({k: v.to(dev) for k, v in batch.items()})
         runs[run] = (m["total_loss"].item(), m["grad_norm"].item(),
                      {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
-    whole = step_agreement(runs, all_params=False)
-    agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), all_params=False)
+    def fresh():
+        model = module_from_numpy(cfg, *init, device="cuda")
+        return model, build_optimizer("AdamW", 1e-3).init(model)
+
+    whole = step_agreement(runs, fresh)
+    agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)
     step_ms = time_ms(lambda: steps["cuda"](card_batch), warmup=2, iters=10)
     prof = profile_steps(lambda: steps["cuda"](card_batch), step_ms)
     emit({"phase": "sed", "B": 64, "steps": 10, "wall_s": wall, "launches": counts,
@@ -1907,9 +1951,13 @@ def phase_moe(info) -> dict:
     def flips(a, b):  # tokens whose chosen experts differ, summed over the blocks
         return int(sum((x != y).any(-1).sum() for x, y in zip(routes[a], routes[b])))
 
-    whole = step_agreement(runs, all_params=False)
-    after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), all_params=False)
-    masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), all_params=False)
+    def fresh():
+        m = module_from_numpy(cfg, *init, device="cuda").train()
+        return m, build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
+
+    whole = step_agreement(runs, fresh)
+    after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)
+    masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), fresh)
     rec = {"phase": "moe", "path": "train", "B": MOE_B, "steps": 5, "optimizer": "AdamW",
            "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
            "clips_per_s": MOE_B * 1e3 / step_ms, "peak_memory_bytes": peak, **prof,
@@ -3519,6 +3567,101 @@ def phase_model_parallel(info) -> dict:
     return counts
 
 
+GATE_DEADLINE_S = 600  # the gate's process: 400 steps and two evaluations (~1 min on an H100)
+GATE_MIN = {"mAPKWS": 0.80, "gsc_accuracy@0.2": 0.80}  # the JAX gate's pins
+
+
+def gsc_tree(root: Path, rng) -> list:
+    """A GSC-shaped wav tree as tests/test_prep.py builds it, the keyword
+    clips the synthetic world's tones: two keywords (on, off) and two
+    fillers (bed, cat), 6 clips a word, a _background_noise_ folder, and the
+    validation (clip 3) and test (clips 4, 5) lists -> the test clips."""
+    from uit_mobile_tpu_torch.data import write_wav
+    from uit_mobile_tpu_torch.data.prep import LABEL_MAPS_GSC_AUDIOSET
+    from uit_mobile_tpu_torch.data.synthworld import synth_clip
+
+    valid, test = [], []
+    for word in ("on", "off", "bed", "cat"):
+        for i in range(6):
+            clip = synth_clip(rng, LABEL_MAPS_GSC_AUDIOSET[word])
+            write_wav(root / word / f"clip{i}.wav", clip.astype(np.float32) / 32768.0)
+        valid.append(f"{word}/clip3.wav")
+        test += [f"{word}/clip{i}.wav" for i in (4, 5)]
+    write_wav(root / "_background_noise_" / "noise.wav", rng.standard_normal(SR) * 0.1)
+    (root / "validation_list.txt").write_text("\n".join(valid) + "\n")
+    (root / "testing_list.txt").write_text("\n".join(test) + "\n")
+    return [str((root / t).absolute()) for t in test]
+
+
+def phase_gate(info) -> dict:
+    """The synthetic accuracy gate at full size on the card:
+    ``python -m uit_mobile_tpu_torch.tools.gate_synthetic`` in its own
+    process (killed at GATE_DEADLINE_S), which trains uit_xxxs through
+    cli.train and scores it through cli.evaluate audioset and gsc, each
+    call's mel launches counted from 0 in that process: exit 0, both scores
+    at or above GATE_MIN, row_exact launched in training and in each
+    evaluation (so no call fell back to the plain frontend). Then
+    ``python -m uit_mobile_tpu_torch.cli.prep gsc`` writes a GSC-shaped wav
+    tree to an .npz store, and cli.evaluate gsc (in this process, counts
+    set to 0 just before) scores its test split with the gate's model on
+    the card: every clip scored, every probability finite, row_exact
+    launched. -> {path: mel launch counts}."""
+    import importlib.util
+    import tempfile
+
+    from uit_mobile_tpu_torch.cli import evaluate as eval_cli
+    from uit_mobile_tpu_torch.ops import launches
+
+    work = Path(tempfile.mkdtemp(prefix="uit_gate_"))
+    t0 = time.perf_counter()
+    code, out = run_with_deadline(
+        [sys.executable, "-m", "uit_mobile_tpu_torch.tools.gate_synthetic", "--device", "cuda",
+         "--outdir", str(work / "gate")], GATE_DEADLINE_S)
+    wall = time.perf_counter() - t0
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    (OUT_DIR / "gate.log").write_text(out)
+    lines = [ln for ln in out.splitlines() if ln.startswith('{"gate"')]
+    check(code == 0 and bool(lines), f"gate_synthetic exited {code}:\n{out[-4000:]}")
+    gate = json.loads(lines[-1])
+    counts = dict(gate["mel_launches"])
+    rec = {"phase": "gate", **gate, "process_wall_s": wall,
+           "modules_present": {m: importlib.util.find_spec(m) is not None
+                               for m in ("h5py", "pandas", "yaml")}}
+    check(all(gate[k] >= v for k, v in GATE_MIN.items()), f"gate scores under {GATE_MIN}: {rec}")
+    check(all(c["row_exact"] > 0 for c in counts.values()),
+          f"gate: a call never launched row_exact: {counts}")
+
+    # cli.prep gsc -> an .npz store, scored by the gate's model on the card
+    test_clips = gsc_tree(work / "gsc_raw", np.random.default_rng(60))
+    code, out = run_with_deadline(
+        [sys.executable, "-m", "uit_mobile_tpu_torch.cli.prep", "gsc", str(work / "gsc_raw"),
+         str(work / "gsc"), "--store", "npz"], 120)
+    check(code == 0, f"cli.prep gsc exited {code}:\n{out[-4000:]}")
+    tsv = work / "gsc" / "labels" / "test_gsc_aslabels.tsv"
+    dump = work / "prep_preds.npz"
+    torch.cuda.synchronize()
+    reset_launches()
+    printed = cli_stdout(eval_cli.main, ["gsc", gate["checkpoint"], "--eval-data", str(tsv),
+                                         "--dump-predictions", str(dump), "--device", "cuda"])
+    torch.cuda.synchronize()
+    counts["prep_gsc_evaluate"] = dict(launches)
+    with np.load(dump, allow_pickle=True) as z:
+        preds, names = z["preds"], [str(n) for n in z["filenames"]]
+    rec["prep"] = {"store": sorted(p.name for p in (work / "gsc" / "hdf5").iterdir()),
+                   "test_clips": len(test_clips), "scored": list(preds.shape),
+                   "finite": bool(np.isfinite(preds).all()),
+                   "result": printed[-1] if printed else None,
+                   "launches": counts["prep_gsc_evaluate"]}
+    rec["card"] = info["nvidia_smi"]
+    emit(rec)
+    check(preds.shape == (len(test_clips), 537) and rec["prep"]["finite"]
+          and sorted(names) == sorted(test_clips)
+          and counts["prep_gsc_evaluate"]["row_exact"] > 0,
+          f"cli.prep's .npz set scored on the card: {rec['prep']}")
+    shutil.rmtree(work, ignore_errors=True)
+    return counts
+
+
 def mp_cards(argv) -> int:
     """``chip_smoke.py --mp-cards 4``: the model_parallel phase's four-rank
     routes as four NCCL ranks, one card each (the layouts' own setting:
@@ -3605,6 +3748,7 @@ def main() -> int:
     timed("bench", phase_bench, info)
     parallel_counts = timed("parallel", phase_parallel, info)
     model_parallel_counts = timed("model_parallel", phase_model_parallel, info)
+    gate_counts = timed("gate", phase_gate, info)
     emit({"phase_wall_s": wall})
 
     def timing(rec):
@@ -3637,6 +3781,7 @@ def main() -> int:
             "parallel_launches": {path: c[variant] for path, c in parallel_counts.items()},
             "model_parallel_launches": {path: c[variant]
                                         for path, c in model_parallel_counts.items()},
+            "gate_launches": {path: c[variant] for path, c in gate_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

@@ -116,6 +116,8 @@ def test_port_imports_without_jax():
              "cli.launch")} <= set(mods)
     assert {f"uit_mobile_tpu_torch.parallel.{m}" for m in
             ("tp", "sp", "pp", "ep", "fsdp", "collectives")} <= set(mods)
+    assert {f"uit_mobile_tpu_torch.{m}" for m in
+            ("data.prep", "cli.prep", "tools.gate_synthetic")} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

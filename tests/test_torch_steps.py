@@ -208,19 +208,73 @@ def test_adafactor_training_state_round_trip(tmp_path):
         assert torch.equal(a, b)
 
 
+# One EMA update in float32 rounds fl(d e) and fl((1-d) p), their sum, and
+# holds d and 1-d to float32: to first order 3 roundings (2^-24 relative)
+# of |d e| + |(1-d) p|, counted as ops/mel.py:tolerance_db counts them.
+EMA_ROUNDINGS = 3
+
+
+def _ema_over_gate(e0, emas, params, d):
+    """Largest |ema_k - e_k| / bound_k over the updates k, elementwise (<= 1
+    passes): e_k = d e_{k-1} + (1-d) p_k in float64 from the float32 e_0,
+    bound_k = d bound_{k-1} + EMA_ROUNDINGS 2^-24 (|d e_{k-1}| + |(1-d) p_k|),
+    each step's roundings plus the earlier ones carried by the decay."""
+    e, bound, worst = e0.double(), torch.zeros(e0.shape, dtype=torch.float64), None
+    for ema, p in zip(emas, params):
+        a, b = d * e, (1.0 - d) * p.double()
+        bound = d * bound + EMA_ROUNDINGS * 2.0 ** -24 * (a.abs() + b.abs())
+        e = a + b
+        diff = (ema.double() - e).abs()
+        ratio = torch.where(diff == 0, 0.0, diff / bound)
+        worst = ratio if worst is None else torch.maximum(worst, ratio)
+    return worst
+
+
+def _float32_ema(e0, params, d, alpha):
+    """The update e <- d e + alpha p in float32, as a faulty EMA would run it."""
+    e, out = e0.clone(), []
+    for p in params:
+        e = d * e + alpha * p
+        out.append(e)
+    return out
+
+
 def test_ema_math_and_real_copy():
-    """ema <- decay * ema + (1 - decay) * params after each update, from a
-    real copy of the initial params."""
+    """ema <- decay * ema + (1 - decay) * params after each of 3 updates,
+    from a real copy of the initial params: held against a float64
+    recurrence of the same update within EMA_ROUNDINGS float32 roundings of
+    its summands, on a Linear(3, 2) drawn from a seeded generator and on
+    512 seeds at once (one row each); a decay off by 1e-4, or the params
+    weighted by d where 1 - d belongs, fails the same gate on every seed."""
+    def run(module):
+        opt = wrap_optimizer(build_optimizer("SGD", 0.1), ema_decay=0.9).init(module)
+        e0 = [p.detach().clone() for p in module.parameters()]
+        ema = find_ema_params(opt)
+        assert all(e.data_ptr() != p.data_ptr() and torch.equal(e, p)
+                   for e, p in zip(ema.values(), module.parameters()))
+        emas, params = [], []
+        for k in range(3):
+            opt.update([torch.ones_like(p) * (k + 1) for p in module.parameters()])
+            emas.append([e.clone() for e in ema.values()])
+            params.append([p.detach().clone() for p in module.parameters()])
+        return [(e0[i], [s[i] for s in emas], [s[i] for s in params]) for i in range(len(e0))]
+
+    gen = torch.Generator().manual_seed(0)
     model = torch.nn.Linear(3, 2)
-    opt = wrap_optimizer(build_optimizer("SGD", 0.1), ema_decay=0.9).init(model)
-    ema_ref = {n: p.detach().clone() for n, p in model.named_parameters()}
-    assert all(e.data_ptr() != p.data_ptr()
-               for e, p in zip(find_ema_params(opt).values(), model.parameters()))
-    for k in range(3):
-        opt.update([torch.ones_like(p) * (k + 1) for p in model.parameters()])
-        for n, p in model.named_parameters():
-            ema_ref[n] = 0.9 * ema_ref[n] + 0.1 * p.detach()
-            torch.testing.assert_close(find_ema_params(opt)[n], ema_ref[n], rtol=1e-6, atol=0)
+    for p in model.parameters():
+        torch.nn.init.uniform_(p, -1.0, 1.0, generator=gen)
+    for e0, emas, params in run(model):
+        assert _ema_over_gate(e0, emas, params, 0.9).max() <= 1.0
+
+    seeds = torch.nn.Module()
+    seeds.p = torch.nn.Parameter(torch.stack([
+        torch.empty(8).uniform_(-1.0, 1.0, generator=torch.Generator().manual_seed(s))
+        for s in range(512)]))  # a Linear(3, 2)'s 6 weights and 2 biases a seed
+    [(e0, emas, params)] = run(seeds)
+    assert _ema_over_gate(e0, emas, params, 0.9).max() <= 1.0
+    for d, alpha in ((0.9 + 1e-4, 0.1 - 1e-4), (0.9, 0.9)):
+        wrong = _float32_ema(e0, params, d, alpha)
+        assert (_ema_over_gate(e0, wrong, params, 0.9).amax(1) > 1.0).all(), (d, alpha)
 
 
 def test_grad_accum_equals_one_k_fold_batch():

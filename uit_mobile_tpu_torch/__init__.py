@@ -12,7 +12,8 @@ Layout:
   ckpt/       npz checkpoints (same format as the JAX package), weight carry
   data/       wav I/O and the bundled label index
   serve/      the batching TaggingService
-  cli/        the inference CLI
+  cli/        the CLIs (infer, train, evaluate, serve, stream, prep, ...)
+  tools/      the synthetic accuracy gate
 """
 
 __version__ = "0.1.0"

@@ -50,14 +50,24 @@ def _weight(weight):
     return None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
 
 
+def _bce_elements(probs: torch.Tensor, targets: torch.Tensor, eps: float) -> torch.Tensor:
+    p = probs.clamp(eps, 1.0 - eps)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+
+
+def bce_loss(probs: torch.Tensor, targets: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Binary cross-entropy on probabilities clamped to [eps, 1 - eps], the
+    mean over every element (the models train on sigmoid outputs)."""
+    return _bce_elements(probs, targets, eps).mean()
+
+
 def _make_bce(weight=None, reduction: str = "mean", eps: float = 1e-7):
     """torch.nn.BCELoss on probabilities; ``weight`` multiplies each
     element's loss before the reduction."""
     w = _weight(weight)
 
     def loss(probs, targets):
-        p = probs.clamp(eps, 1.0 - eps)
-        elt = -(targets * torch.log(p) + (1.0 - targets) * torch.log1p(-p))
+        elt = _bce_elements(probs, targets, eps)
         if w is not None:
             elt = elt * w.to(elt.device)
         return _reduce(elt, reduction)
