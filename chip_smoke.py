@@ -887,12 +887,16 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
            "mel_layout": layout, "precision": precision, "input": str(wav.dtype),
            "frontend_student": frontend_gate(fe, wav_gpu, precision, layout),
            "frontend_teacher": frontend_gate(psl_fe, wav_gpu[:n_as], precision, "bft")}
+
+    def fresh(dev):
+        model = module_from_numpy(cfg, *student, device=dev)
+        return model, build_optimizer(optimizer[0], 1e-3, **optimizer[1]).init(model)
+
     runs = {}
     for dev_name in ("cuda", "cpu"):
         dev = resolve_device(dev_name)
-        model = module_from_numpy(cfg, *student, device=dev)
+        model, opt = fresh(dev)
         t_model = module_from_numpy(t_cfg, *teacher, device=dev).requires_grad_(False)
-        opt = build_optimizer(optimizer[0], 1e-3, **optimizer[1]).init(model)
         grads = step_grads(opt)
         step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
                                psl_split=n_as, frontend_fn=fe, psl_frontend_fn=psl_fe)
@@ -907,11 +911,6 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
                           {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
     check(rec["cuda_launches"][variant] == 2,
           f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
-
-    def fresh():
-        model = module_from_numpy(cfg, *student, device=resolve_device("cuda"))
-        return model, build_optimizer(optimizer[0], 1e-3, **optimizer[1]).init(model)
-
     rec.update(step_agreement(runs, fresh, all_params), card=info["nvidia_smi"])
     emit(rec)
     check(rec["agrees"], f"{name}: train step on the card vs CPU plain path: {rec}")
@@ -936,15 +935,16 @@ def step_agreement(runs: dict, fresh, all_params: bool = False) -> dict:
     = (loss, pre-clip grad norm, updated params, gradients) -> readings and
     'agrees': loss 1e-4 relative, grad norm 1e-3 relative, every gradient
     within 1e-4 of the CPU's relative to its tensor's largest, and the
-    card's optimizer fed the CPU's gradients (``fresh()`` -> the step's
-    model and optimizer, built anew on the card) within 1e-5 of the CPU's
+    card's optimizer fed the CPU's gradients (``fresh(device)`` -> the
+    step's model and optimizer, the factory the caller's runs were built
+    with, called anew for the card) within 1e-5 of the CPU's
     updated params over every element (tests/test_torch_steps.py's gate).
     The step's own update is not held element by element unless
     ``all_params``: Adam's first step is lr * g / (|g| + eps), +-lr where
     |g| is near 0 whatever the sign of a rounding; its largest gap and the
     count of elements whose CPU gradient is below 1e-7 are readings."""
     (l_g, n_g, p_g, g_g), (l_c, n_c, p_c, g_c) = runs["cuda"], runs["cpu"]
-    model, opt = fresh()
+    model, opt = fresh("cuda")
     opt.update([g_c[n].to(next(model.parameters()).device) for n in opt.names])
     fed = {k: v.detach().cpu() for k, v in model.named_parameters()}
     fed_worst = max((fed[k] - p_c[k]).abs().max().item() for k in p_c)
@@ -1483,22 +1483,22 @@ def phase_sed(info) -> dict:
     frontend = frontend_gate(fe, card_batch["wav"], "exact", "bft")
     card_mel = fe(card_batch["wav"]).cpu()
     runs, steps = {}, {}
+
+    def fresh(dev):
+        model = module_from_numpy(cfg, *init, device=dev)
+        return model, build_optimizer("AdamW", 1e-3).init(model)
+
     # the CPU step twice: through the plain mel (the whole step) and through
     # the card's mel (the step after the frontend)
     for run, dev, run_fe in (("cuda", "cuda", fe), ("cpu", "cpu", fe),
                              ("cpu_card_mel", "cpu", lambda w: card_mel)):
-        model = module_from_numpy(cfg, *init, device=dev)
-        opt = build_optimizer("AdamW", 1e-3).init(model)
+        model, opt = fresh(dev)
         grads = step_grads(opt)
         steps[run] = make_framewise_train_step(cfg, model, opt, max_grad_norm=1.0,
                                                frontend_fn=run_fe)
         m = steps[run]({k: v.to(dev) for k, v in batch.items()})
         runs[run] = (m["total_loss"].item(), m["grad_norm"].item(),
                      {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
-    def fresh():
-        model = module_from_numpy(cfg, *init, device="cuda")
-        return model, build_optimizer("AdamW", 1e-3).init(model)
-
     whole = step_agreement(runs, fresh)
     agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)
     step_ms = time_ms(lambda: steps["cuda"](card_batch), warmup=2, iters=10)
@@ -1894,8 +1894,12 @@ def phase_moe(info) -> dict:
     check(counts["serve"]["row_exact"] == 1, f"moe serve did not launch row_exact: {counts['serve']}")
     # train
     fe = make_frontend_fn(cfg.frontend, precision="exact", layout="bft")
-    model = module_from_numpy(cfg, *init, device="cuda").train()
-    opt = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(model)
+
+    def fresh(dev):
+        m = module_from_numpy(cfg, *init, device=dev).train()
+        return m, build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
+
+    model, opt = fresh("cuda")
     step = make_moe_train_step(cfg, model, opt, frontend_fn=fe)
     t = torch.from_numpy(target).cuda()
     start = {k: v.detach().clone() for k, v in model.state_dict().items()}
@@ -1931,8 +1935,7 @@ def phase_moe(info) -> dict:
     for run, dev, run_fe in (("cuda", "cuda", fe), ("cpu", "cpu", fe),
                              ("cpu_card_mel", "cpu", lambda w: card_mel),
                              ("cpu_card_mel_card_relu", "cpu", lambda w: card_mel)):
-        m = module_from_numpy(cfg, *init, device=dev).train()
-        o = build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
+        m, o = fresh(dev)
         grads = step_grads(o)
         routes[run] = []
         masks = [v > 0 for v in relu_in["cuda"]] if run.endswith("card_relu") else None
@@ -1950,10 +1953,6 @@ def phase_moe(info) -> dict:
 
     def flips(a, b):  # tokens whose chosen experts differ, summed over the blocks
         return int(sum((x != y).any(-1).sum() for x, y in zip(routes[a], routes[b])))
-
-    def fresh():
-        m = module_from_numpy(cfg, *init, device="cuda").train()
-        return m, build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
 
     whole = step_agreement(runs, fresh)
     after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)

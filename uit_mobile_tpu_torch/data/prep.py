@@ -55,7 +55,7 @@ def write_tsv(rows: list, path, columns: list) -> None:
 
 
 @contextlib.contextmanager
-def _store_writer(output):
+def store_writer(output):
     """-> put(key, pcm) writing into ``output``, an ``np.savez`` store when
     it ends in ``.npz`` (each array written as it comes, as np.savez
     writes them), else HDF5."""
@@ -91,7 +91,7 @@ def dump_waves(files, output, use_fullname: bool = False, progress: bool = True)
         except ImportError:
             pass
     written = set()
-    with _store_writer(output) as put:
+    with store_writer(output) as put:
         for fname in it:
             key = str(fname) if use_fullname else Path(fname).name
             if key in written:

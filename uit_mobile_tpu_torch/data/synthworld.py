@@ -4,8 +4,8 @@
 537 classes: each keyword index (527-536) is a pure tone at a fixed
 frequency, and the "AudioSet" filler is colored noise labeled class 0.
 ``synth_clip`` makes clips in numpy; ``build_world`` writes the HDF5 (or
-.npz) + TSV splits the Trainer reads (h5py and pandas are imported only
-there).
+.npz) + TSV splits the Trainer reads, through ``data/prep.py``'s store
+writer and TSV writer (h5py only for HDF5; no pandas).
 
 The eventful variant: 20 "AudioSet event" tones (classes 1-20) at
 frequencies between the keyword tones, each a short burst at a random
@@ -18,6 +18,8 @@ from __future__ import annotations
 from pathlib import Path
 
 import numpy as np
+
+from .prep import store_writer, write_tsv
 
 # keyword class -> tone frequency, 300 Hz .. ~4.5 kHz
 KW_FREQS = {527 + i: 300.0 * (1.35 ** i) for i in range(10)}
@@ -75,20 +77,17 @@ def make_eventful_split(root: Path, name: str, n: int, rng: np.random.Generator,
                         seconds: float = 10.0) -> str:
     """One HDF5 + TSV split of long multi-event clips (';'-joined labels);
     returns the TSV path."""
-    import h5py
-    import pandas as pd
-
     root = Path(root)
     h5 = root / f"{name}.h5"
     rows = []
-    with h5py.File(h5, "w") as f:
+    with store_writer(h5) as put:
         for i in range(n):
             labels = eventful_labels(rng)
-            f[f"{name}_{i}.wav"] = synth_eventful_clip(rng, labels, seconds=seconds)
-            rows.append((f"{name}_{i}.wav", ";".join(str(x) for x in labels), str(h5)))
+            put(f"{name}_{i}.wav", synth_eventful_clip(rng, labels, seconds=seconds))
+            rows.append({"filename": f"{name}_{i}.wav",
+                         "labels": ";".join(str(x) for x in labels), "hdf5path": str(h5)})
     tsv = root / f"{name}.tsv"
-    pd.DataFrame(rows, columns=["filename", "labels", "hdf5path"]).to_csv(
-        tsv, sep="\t", index=False)
+    write_tsv(rows, tsv, ["filename", "labels", "hdf5path"])
     return str(tsv)
 
 
@@ -112,30 +111,21 @@ def build_eventful_world(outdir, seed: int = 0, n_train: int = 128, n_eval: int 
 def make_split(root: Path, name: str, n: int, rng: np.random.Generator, kws: bool,
                store: str = "h5") -> str:
     """Write one split's clips, as an HDF5 file or (``store='npz'``) an .npz
-    store that the datasets read without h5py, and its TSV; returns the TSV
-    path."""
-    import pandas as pd
-
+    store that the datasets read without h5py, through ``data/prep.py``'s
+    store writer, and its TSV; returns the TSV path."""
     if store not in ("h5", "npz"):
         raise ValueError(f"store must be 'h5' or 'npz', got {store!r}")
     root = Path(root)
     path = root / f"{name}.{store}"
-    clips, rows = {}, []
-    for i in range(n):
-        label = synth_labels(rng, 1, kws)[0]
-        clips[f"{name}_{i}.wav"] = synth_clip(rng, label)
-        rows.append((f"{name}_{i}.wav", str(label), str(path)))
-    if store == "npz":
-        np.savez(path, **clips)
-    else:
-        import h5py
-
-        with h5py.File(path, "w") as f:
-            for key, clip in clips.items():
-                f[key] = clip
+    rows = []
+    with store_writer(path) as put:
+        for i in range(n):
+            label = synth_labels(rng, 1, kws)[0]
+            put(f"{name}_{i}.wav", synth_clip(rng, label))
+            rows.append({"filename": f"{name}_{i}.wav", "labels": str(label),
+                         "hdf5path": str(path)})
     tsv = root / f"{name}.tsv"
-    pd.DataFrame(rows, columns=["filename", "labels", "hdf5path"]).to_csv(
-        tsv, sep="\t", index=False)
+    write_tsv(rows, tsv, ["filename", "labels", "hdf5path"])
     return str(tsv)
 
 
