@@ -27,6 +27,18 @@ Phases, each printing one JSON line:
                against the CPU run;
   6. forward - device and host-enqueue time of one serving forward at each
                serving shape, beside the mel kernel's share of it;
+     graphs  - every path the card runs as a CUDA graph (ops/graphs.py):
+               both serving buckets, a GSC 1 s and an AudioSet 10 s eval
+               batch, an S=1024 stream hop, a K=4 scanned forward, the
+               recipe and frontier train steps (PSL, mixup, clip, EMA) and
+               their K=4 multi-steps: each replay held bitwise against the
+               eager call (the steps over 9 steps from one state and
+               generator state, or within twice the eager-vs-eager spread
+               where two eager runs differ), forward replays on fresh inputs
+               within 1e-3 of the CPU plain path, each call one replay; mel
+               launches a replay from the counters and from a torch.profiler
+               trace, capture seconds and pool bytes, eager and replay ms,
+               host ms to issue a call and the device's idle share;
   7. train   - the training path: the port's Trainer at full uit_xs width
                and depth with the untrained MobileNetV2 PSL teacher, on
                in-memory clips of data/synthworld.py, at the recipe of
@@ -600,6 +612,314 @@ def phase_forward(cfg, gpu_model, records, info) -> None:
               "forward_clips_per_s": B * 1e3 / forward_ms, "card": info["nvidia_smi"]})
 
 
+MEL_NAME_RE = re.compile(r"mel_kernel<(\w+), (true|false), ([36])>")
+
+
+def mel_variant(kernel_name: str):
+    """A profiler kernel name -> its mel variant ('tfb_fast', ...) or None."""
+    m = MEL_NAME_RE.search(kernel_name)
+    if m is None:
+        return None
+    return f"{'tfb' if m.group(2) == 'true' else 'row'}_{PRECISION_OF_PASSES[m.group(3)]}"
+
+
+def traced_mel_launches(call) -> dict:
+    """The mel kernels on the card's timeline in a torch.profiler trace of
+    one ``call()``, by variant (None where the trace holds no device event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        return None
+    out: dict = {}
+    for e in dev:
+        v = mel_variant(e.name)
+        if v is not None:
+            out[v] = out.get(v, 0) + 1
+    return out
+
+
+def issue_ms(call, n: int = 10) -> float:
+    """Median host time to issue one ``call()`` (no sync inside)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        times.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def dispatch_readings(eager, replay, graphed, n_prof: int = 3) -> dict:
+    """Eager and replay of one path side by side: CUDA-event medians, host
+    ms to issue a call, the device's idle share (torch.profiler), the graph's
+    capture seconds and pool bytes, and its mel launches a replay from the
+    counters and from a trace of one replay."""
+    from uit_mobile_tpu_torch.ops import launches
+
+    out = {}
+    for name, call in (("eager", eager), ("replay", replay)):
+        ms = time_ms(call, warmup=2, iters=10)
+        prof = profile_steps(call, ms, n=n_prof)
+        out.update({f"{name}_ms": ms, f"{name}_issue_ms": issue_ms(call, n=5),
+                    f"{name}_device_busy_ms": prof["device_busy_ms"],
+                    f"{name}_idle_share": prof["device_idle_share"],
+                    f"{name}_kernels": prof["kernels_per_step"]})
+    torch.cuda.synchronize()
+    reset_launches()
+    replay()
+    torch.cuda.synchronize()
+    stats = graphed.stats()
+    out.update(graphs=len(stats), capture_s=[s["capture_s"] for s in stats],
+               pool_bytes=[s["pool_bytes"] for s in stats],
+               mel_per_replay_counters={k: v for k, v in launches.items() if v},
+               mel_per_replay_captured=[s["launches"] for s in stats],
+               mel_per_replay_traced=traced_mel_launches(replay))
+    return out
+
+
+def graph_forward_path(name, fn, x0, x1, want1, variant, info) -> dict:
+    """One graphed forward: the replay bitwise the eager body on the same
+    inputs, a replay on fresh inputs within 1e-3 of the CPU plain path
+    (``want1``: its first rows, where the clamp is per sample),
+    ``variant`` in every replay, one replay a call; dispatch_readings."""
+    t0 = time.perf_counter()
+    g = fn.graphs
+    check(g is not None, f"graphs {name}: the forward on the card is not graphed")
+    x0, x1 = (torch.as_tensor(x).to(CARD) for x in (x0, x1))
+    with torch.inference_mode():
+        eager0 = g.fn(x0)
+    for _ in range(graphs_calls_to_capture(fn)):
+        fn(x0)
+    replays = sum(s["replays"] for s in g.stats())
+    got0 = fn(x0)
+    check(sum(s["replays"] for s in g.stats()) == replays + 1,
+          f"graphs {name}: a call was not one replay")
+    bitwise = bool(torch.equal(got0, eager0))
+    fresh = fn(x1).cpu().numpy()
+    rows = want1.shape[-2]
+    drift = float(np.abs(fresh[..., :rows, :] - want1).max())
+
+    def eager():
+        with torch.inference_mode():
+            return g.fn(x0)
+
+    rec = {"phase": "graphs", "path": name, "shape": list(x0.shape),
+           "input": str(x0.dtype).replace("torch.", ""), "gate": "replay == eager bitwise; "
+           "fresh inputs within 1e-3 of the CPU plain path",
+           "replay_vs_eager_bitwise": bitwise,
+           "replay_vs_eager_max_abs": float((got0 - eager0).abs().max()),
+           "fresh_max_abs_drift_vs_cpu": drift, "fresh_rows_held": rows,
+           **dispatch_readings(eager, lambda: fn(x0), g), "card": info["nvidia_smi"]}
+    rec["wall_s"] = time.perf_counter() - t0
+    emit(rec)
+    check(bitwise, f"graphs {name}: replay differs from eager: {rec}")
+    check(drift <= 1e-3, f"graphs {name}: fresh replay vs CPU drift {drift} > 1e-3")
+    check(rec["mel_per_replay_counters"].get(variant, 0) > 0,
+          f"graphs {name}: no {variant} in a replay: {rec['mel_per_replay_counters']}")
+    return rec
+
+
+def graphs_calls_to_capture(fn) -> int:
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
+
+    return calls_to_capture(fn)
+
+
+GRAPH_STEPS = {  # B, student layout, precision, int16 input, the mel variant
+    "recipe": (32, "bft", "exact", False, "row_exact"),
+    "frontier": (1024, "tfb", "fast", True, "tfb_fast"),
+}
+GRAPH_K = 4
+
+
+def graph_step_world(name: str):
+    """The step's fixed start (student and teacher weights), its batches and
+    factory -> (fresh(): (step, multi, state_of(), generator), batches)."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.augment import parse_spectransforms, parse_wavtransforms
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.train import (build_optimizer, cosine_with_warmup,
+                                            make_multi_step, make_train_step, wrap_optimizer)
+
+    B, layout, precision, int16, _ = GRAPH_STEPS[name]
+    n_as = B // 2
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102, mel_layout=layout)
+    t_cfg = models.get_model_config("MobileNetV2", outputdim=527)
+    student = module_to_numpy(models.build(cfg, torch.Generator().manual_seed(17), "cpu"))
+    teacher = module_to_numpy(models.build(t_cfg, torch.Generator().manual_seed(18), "cpu"))
+    rng = np.random.default_rng(19)
+    batches = []
+    for _ in range(1 + 2 * GRAPH_K):
+        clips_as, _ = synth_split(rng, n_as, False)
+        clips_kws, labels = synth_split(rng, B - n_as, True)
+        pcm = np.stack(clips_as + clips_kws)
+        target = np.zeros((B, 537), np.float32)
+        target[:n_as, 0] = 1.0
+        target[np.arange(n_as, B), labels] = 1.0
+        batches.append({"wav": torch.from_numpy(pcm if int16 else pcm.astype(np.float32)
+                                                 / 32768.0).to(CARD),
+                        "target": torch.from_numpy(target).to(CARD)})
+    fe = make_frontend_fn(cfg.frontend, precision=precision, layout=layout)
+    psl_fe = make_frontend_fn(t_cfg.frontend, precision=precision, layout="tfb_to_bft")
+    augments = {} if int16 else dict(
+        wav_augment=parse_wavtransforms(RECIPE["wavtransforms"]),
+        spec_augment=parse_spectransforms(RECIPE["spectransforms"], layout=layout))
+
+    def fresh():
+        model = module_from_numpy(cfg, *student, device=CARD)
+        t_model = module_from_numpy(t_cfg, *teacher, device=CARD).requires_grad_(False)
+        opt = wrap_optimizer(build_optimizer("AdamW", cosine_with_warmup(1e-3, 100, 5),
+                                             weight_decay=5e-8), ema_decay=0.999).init(model)
+        step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
+                               psl_split=n_as, mixup_alpha=0.3, max_grad_norm=1.0,
+                               frontend_fn=fe, psl_frontend_fn=psl_fe, **augments)
+        gen = torch.Generator(device=CARD).manual_seed(21)
+
+        def state():
+            torch.cuda.synchronize()
+            return ([v.detach().clone() for v in model.state_dict().values()]
+                    + [t.detach().clone() for t in opt.state_leaves()[1:]]
+                    + [torch.tensor([opt.count, gen.get_offset()])])
+
+        return step, make_multi_step(step), state, gen
+
+    return fresh, batches
+
+
+def state_gap(a: list, b: list) -> float:
+    return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0
+               for x, y in zip(a, b))
+
+
+def graph_step_path(name: str, info) -> list:
+    """The fused train step of one configuration (PSL teacher, mixup, clip,
+    EMA; the recipe with its augments) on the card: two eager runs, the
+    graphed single step and the graphed K-step from one state and one
+    generator state. Gate: where the two eager runs agree bitwise, the
+    graphed runs equal them bitwise (parameters, BN buffers, moments, EMA,
+    count and the generator's offset), else within twice the eager spread;
+    each call one replay."""
+    t0 = time.perf_counter()
+    fresh, batches = graph_step_world(name)
+    variant = GRAPH_STEPS[name][4]
+    K, n = GRAPH_K, len(batches)
+
+    def eager_run():
+        step, _, state, gen = fresh()
+        opt, body = step.optimizer, step.device_step
+        for b in batches:
+            (kind,) = opt.plan(1)
+            body(b, gen, kind, opt.scalars(1)[0])
+        return state()
+
+    e1, e2 = eager_run(), eager_run()
+    spread = state_gap(e1, e2)
+    gate = "bitwise" if spread == 0.0 else f"2 x the eager spread {spread}"
+    limit = 2.0 * spread
+    recs = []
+    for how in ("single", "multi"):
+        step, multi, state, gen = fresh()
+        if how == "single":
+            for b in batches:
+                step(b, gen)
+            g, calls = step.graphs, n
+        else:
+            step(batches[0], gen)
+            for i in range(1, n, K):
+                multi({k: torch.stack([b[k] for b in batches[i:i + K]]) for k in batches[0]},
+                      gen)
+            g, calls = multi.graphs, (n - 1) // K
+        got = state()
+        gap = state_gap(got, e1)
+        check(g is not None, f"graphs {name} {how}: the step on the card is not graphed")
+        replays = sum(s["replays"] for s in g.stats())
+        check(replays == calls - 1, f"graphs {name} {how}: {replays} replays for {calls} "
+                                    f"calls (one eager warm-up, then one replay a call)")
+        b0 = batches[0]
+        opt = step.optimizer
+        if how == "single":
+            def eager_call():
+                (kind,) = opt.plan(1)
+                return step.device_step(b0, gen, kind, opt.scalars(1)[0])
+
+            replay_call = lambda: step(b0, gen)  # noqa: E731
+        else:
+            block = {k: torch.stack([b0[k]] * K) for k in b0}
+
+            def eager_call():
+                kinds = opt.plan(K)
+                return [step.device_step(b0, gen, kind, opt.scalars(K)[i])
+                        for i, kind in enumerate(kinds)]
+
+            replay_call = lambda: multi(block, gen)  # noqa: E731
+        rec = {"phase": "graphs", "path": f"{name}_{'step' if how == 'single' else f'{K}_steps'}",
+               "B": GRAPH_STEPS[name][0], "steps": n, "calls": calls, "gate": gate,
+               "max_abs_gap_vs_eager": gap, "eager_vs_eager_spread": spread,
+               "generator_offset": [int(got[-1][1]), int(e1[-1][1])],
+               **dispatch_readings(eager_call, replay_call, g, n_prof=1),
+               "card": info["nvidia_smi"],
+               "wall_s_since_start": time.perf_counter() - t0}
+        emit(rec)
+        check(gap <= limit, f"graphs {name} {how}: replay vs eager gap {gap} over {gate}")
+        check(rec["mel_per_replay_counters"].get(variant, 0) > 0,
+              f"graphs {name} {how}: no {variant} in a replay")
+        recs.append(rec)
+    return recs
+
+
+def phase_graphs(cfg, cpu_model, gpu_model, info) -> dict:
+    """Every path the card runs as CUDA graphs (ops/graphs.py): both
+    serving buckets, an eval batch of GSC 1 s and one of AudioSet 10 s, an
+    S=1024 stream hop, a K=4 scanned forward, the recipe and frontier train
+    steps and their K=4 multi-steps; each held replay against eager and
+    read side by side (graph_forward_path, graph_step_path). -> the mel
+    launches of one replay of each path, by variant."""
+    from uit_mobile_tpu_torch.ops import make_forward_fn, make_scanned_forward
+    from uit_mobile_tpu_torch.serve import MultiStreamTagger, StreamingConfig
+
+    rng = np.random.default_rng(23)
+    serve = make_forward_fn(cfg, gpu_model, precision="fast", top_db_mode="per_sample")
+    evalf = make_forward_fn(cfg, gpu_model, precision="exact", btf=False)
+    tagger = MultiStreamTagger(cfg, cpu_model, n_streams=1024,
+                               config=StreamingConfig(dtype="int16"), device="cuda")
+    scanned = make_scanned_forward(serve)
+    paths, held = {}, 64  # rows held against the CPU where the clamp is per sample
+    for name, fn, make, prec, mode, variant in (
+            ("serve_1s", serve, lambda: pcm_batch(rng, 256, SR), "fast", "per_sample",
+             "tfb_fast"),
+            ("serve_3s", serve, lambda: pcm_batch(rng, 85, 3 * SR), "fast", "per_sample",
+             "row_fast"),
+            ("eval_gsc_1s", evalf, lambda: pcm_batch(rng, 32, SR).astype(np.float32) / 32768.0,
+             "exact", None, "row_exact"),
+            ("eval_audioset_10s", evalf,
+             lambda: pcm_batch(rng, 32, 10 * SR).astype(np.float32) / 32768.0, "exact", None,
+             "row_exact"),
+            ("stream_hop_S1024", tagger._fwd, lambda: pcm_batch(rng, 1024, SR), "fast",
+             "per_sample", "tfb_fast")):
+        x0, x1 = make(), make()
+        rows = held if mode == "per_sample" else len(x1)  # the batch clamp couples rows
+        want = cpu_reference(cfg, cpu_model, x1[:rows], prec, mode, chunk=rows)
+        paths[name] = graph_forward_path(name, fn, x0, x1, want, variant, info)
+    x0 = np.stack([pcm_batch(rng, 256, SR) for _ in range(GRAPH_K)])
+    x1 = np.stack([pcm_batch(rng, 256, SR) for _ in range(GRAPH_K)])
+    want = np.stack([cpu_reference(cfg, cpu_model, x[:held], "fast", "per_sample")
+                     for x in x1])
+    paths[f"scan_{GRAPH_K}x_serve_1s"] = graph_forward_path(
+        f"scan_{GRAPH_K}x_serve_1s", scanned, x0, x1, want, "tfb_fast", info)
+    for name in GRAPH_STEPS:
+        for rec in graph_step_path(name, info):
+            paths[rec["path"]] = rec
+    return {p: r["mel_per_replay_counters"] for p, r in paths.items()}
+
+
 def cli_ranking(npz: Path, device: str) -> list:
     wavs = sorted(str(p.relative_to(REPO)) for p in (REPO / "samples").glob("*.wav"))
     out = subprocess.run(
@@ -918,15 +1238,19 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
 
 
 def step_grads(opt) -> dict:
-    """{name: gradient} of the optimizer's next update, filled in when it
-    is applied (the gradients after any clipping)."""
-    grads, update = {}, opt.update
+    """{name: gradient} of the optimizer's next micro-step, filled in when
+    its device side runs (the gradients after any clipping; every step
+    reaches the optimizer through ``device_update``). That micro-step only:
+    its copy to the host could not run inside a CUDA graph, and the first
+    call of a graphed step runs eagerly."""
+    grads, device_update = {}, opt.device_update
 
-    def recorded(g):
+    def recorded(g, kind, row):
+        opt.device_update = device_update
         grads.update({n: v.detach().cpu().clone() for n, v in zip(opt.names, g)})
-        return update(g)
+        return device_update(g, kind, row)
 
-    opt.update = recorded
+    opt.device_update = recorded
     return grads
 
 
@@ -1884,10 +2208,17 @@ def phase_moe(info) -> dict:
     want = cpu_reference(cfg, cpu_model, pcm, "exact", None, chunk=MOE_B)
     serve_drift = float(np.abs(probs.cpu().numpy() - want).max())
     forward_ms = time_ms(lambda: fwd(x), warmup=1, iters=5)
+
+    def eager():  # the span reads the host's ranges, which a graph replay has not
+        with torch.inference_mode():
+            return fwd.graphs.fn(x)
+
+    eager_ms = time_ms(eager, warmup=1, iters=5)
     rec = {"phase": "moe", "path": "serve", "B": MOE_B, "seconds": 10, "input": "int16",
            "precision": "exact", "launches": counts["serve"], "max_abs_drift_vs_cpu": serve_drift,
            "forward_ms": forward_ms, "clips_per_s": MOE_B * 1e3 / forward_ms,
-           **profile_moe(moe, lambda: fwd(x), forward_ms), "card": info["nvidia_smi"]}
+           "eager_forward_ms": eager_ms, "profiled": "the eager body",
+           **profile_moe(moe, eager, eager_ms), "card": info["nvidia_smi"]}
     emit(rec)
     check(probs.shape == (MOE_B, 537) and serve_drift <= 1e-3,
           f"moe serve: {tuple(probs.shape)}, drift {serve_drift} from the CPU plain path")
@@ -3046,6 +3377,8 @@ def phase_parallel(info) -> dict:
     -> {path: mel launch counts}."""
     import tempfile
 
+    torch.cuda.empty_cache()  # the ranks share the card (the graphs' pool stays held)
+
     counts: dict = {}
     work = Path(tempfile.mkdtemp(prefix="uit_parallel_"))
 
@@ -3552,6 +3885,9 @@ def phase_model_parallel(info) -> dict:
     printed. -> {path: mel launch counts}."""
     import tempfile
 
+    # the ranks share the card: give back this process's cached blocks
+    # (the graphs' pool stays held)
+    torch.cuda.empty_cache()
     counts: dict = {}
     work = Path(tempfile.mkdtemp(prefix="uit_model_parallel_"))
     worlds = {}
@@ -3734,6 +4070,7 @@ def main() -> int:
     serve_counts = timed("serve", phase_serve, cfg, cpu_model, info)
     exact_counts = timed("exact", phase_exact, cfg, cpu_model, gpu_model)
     timed("forward", phase_forward, cfg, gpu_model, records, info)
+    graph_counts = timed("graphs", phase_graphs, cfg, cpu_model, gpu_model, info)
     train_counts, recipe_npz = timed("train", phase_train, info)
     bf16_counts = timed("bf16", phase_bf16, info)
     psl_cache_counts, offline_counts = timed("psl_cache", phase_psl_cache, info)
@@ -3781,6 +4118,8 @@ def main() -> int:
             "model_parallel_launches": {path: c[variant]
                                         for path, c in model_parallel_counts.items()},
             "gate_launches": {path: c[variant] for path, c in gate_counts.items()},
+            "graph_launches_per_replay": {path: c.get(variant, 0)
+                                          for path, c in graph_counts.items()},
             "max_abs_err": rec["max_abs_err_all_shapes_db"],
             "tolerance": TOLERANCE[precision].format(mel_ops.TOL_ROUNDINGS[precision]),
             "mean_abs_err": rec["mean_abs_err_db"], "kernel_ms": rec["kernel_ms"],

@@ -256,8 +256,15 @@ def main(argv=None):
         run()
         sync()
         times.append(time.perf_counter() - t0)
+    graphs = getattr(fwd, "graphs", None)
+
+    def eager():
+        with torch.inference_mode():
+            return graphs.fn(bufs[0])
+
     rec = {"mode": "frontend" if args.frontend_only else "forward", "label": label,
            "batch": B, "clip": args.seconds, "scan": args.scan, "pipelined": thr,
+           **_eager_vs_replay(run, eager if graphs is not None else None, sync),
            "blocking_p50": float(np.percentile(times, 50)) * 1e3,
            "blocking_p50_unit": f"ms/call({args.scan} batches)" if args.scan else "ms/batch",
            "launches": timed_launches,
@@ -322,9 +329,36 @@ def _bench_train(args, dev, use_kernel, prec) -> dict:
     sync()
     dt = (time.perf_counter() - t0) / (iters * K)
     loss = m["total_loss"].reshape(-1)[-1]
+    launched = dict(launches)
+    graphs = step.graphs
+
+    def eager():  # the same K steps through the body the graph holds
+        kinds = optimizer.plan(K)
+        return graphs.fn(batches[0], gen, kinds if args.scan else kinds[0])
+
     return {"mode": "train", "layout": args.train_layout, "batch": B, "scan": args.scan,
             "ms_per_step": dt * 1e3, "clips_per_s": B / dt, "loss": float(loss),
-            "launches": dict(launches)}
+            "launches": launched,
+            **_eager_vs_replay(lambda: step(batches[0], gen),
+                               eager if graphs is not None else None, sync)}
+
+
+def _eager_vs_replay(call, eager, sync, n: int = 5) -> dict:
+    """Blocking ms of one call (median of n), as a CUDA-graph replay and
+    through the eager body it holds, side by side; where nothing is graphed
+    (the CPU) the call is the eager body and ``replay_ms`` is None."""
+    def p50(fn):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return float(np.percentile(times, 50))
+
+    if eager is None:
+        return {"eager_ms": p50(call), "replay_ms": None}
+    return {"eager_ms": p50(eager), "replay_ms": p50(call)}
 
 
 if __name__ == "__main__":

@@ -73,7 +73,9 @@ class Evaluator:
         frontends fold the 1/32768 scale in exactly, so results are
         bitwise float32's).
         scan_batches: K>1 runs K consecutive same-shape batches as one
-        (K, B, T) block through ops.pipeline.make_scanned_forward; shape
+        (K, B, T) block through ops.pipeline.make_scanned_forward (on the
+        card one CUDA-graph replay a block, as the per-batch forward is one
+        replay a batch: one graph per batch shape, ops/graphs.py); shape
         changes and the epoch tail go batch by batch, so loader order and
         coverage are kept and results equal the per-batch run.
         dispatch_depth: up to this many batch outputs stay on the device
@@ -164,7 +166,7 @@ class Evaluator:
         top_db_mode = "per_sample" if kernel and self.fast else None
         fns = [make_forward_fn(cfg, m, use_kernel=kernel,
                                precision="fast" if self.fast else "exact", btf=self.fast,
-                               top_db_mode=top_db_mode)
+                               top_db_mode=top_db_mode, graph=False)
                for m in replicate_tree(self.mesh, model)]
         dp = data_parallel_forward(fns, self.mesh)
         n = self.mesh.size

@@ -66,6 +66,10 @@ TOL_ROUNDINGS = {"fast": 8, "exact": 4}
 # of an in-process mesh launch from their own threads).
 launches = {"row_exact": 0, "row_fast": 0, "tfb_exact": 0, "tfb_fast": 0}
 _launches_lock = threading.Lock()
+# A CUDA-graph capture on this thread (ops/graphs.py) sets ``launches`` here:
+# the launches it records go there, not into the counters (nothing runs at
+# capture; each replay adds them to the counters).
+capture = threading.local()
 
 _DB = 10.0 / math.log(10.0)
 _AMIN = 1e-10
@@ -305,8 +309,13 @@ def cuda_log_mel_rows(wavp: torch.Tensor, mats, precision: str, hop: int,
                           out.data_ptr(), B, Tp, n_frames, hop, stream)
     if rc != 0:
         raise RuntimeError(f"uit_log_mel kernel launch failed with CUDA error {rc}")
-    with _launches_lock:
-        launches[f"{'tfb' if transposed else 'row'}_{precision}"] += 1
+    variant = f"{'tfb' if transposed else 'row'}_{precision}"
+    recorded = getattr(capture, "launches", None)
+    if recorded is not None:
+        recorded[variant] += 1
+    else:
+        with _launches_lock:
+            launches[variant] += 1
     return out
 
 

@@ -8,6 +8,11 @@ with init_bn folded into the patch embed, and other families (MobileNetV2,
 the MoE UiT) the canonical mel through 'tfb_to_bft'; elsewhere the rfft reference
 frontend feeds the canonical 'bft' path. A list of models is an ensemble:
 the frontend runs once and the member probabilities are averaged.
+
+On the card every forward here is a CUDA graph per input shape
+(``ops/graphs.py``), as the JAX package jits each: ``make_scanned_forward``
+captures the K forwards of a (K, B, T) block as one graph. On the CPU they
+run eagerly.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from .. import models
 from ..models.moe import MoEUITConfig
 from ..models.uit import UITConfig
 from ..utils.device import resolve_device
+from .graphs import graphed
 from .mel import make_frontend_fn
 
 
@@ -79,7 +85,7 @@ def ensemble_forward(members: list, run_cfg, frontend, wav: torch.Tensor) -> tor
 
 def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
                     precision: str = "exact", top_db_mode: Optional[str] = None,
-                    btf: Optional[bool] = None):
+                    btf: Optional[bool] = None, graph: bool = True):
     """Eval forward fn(wav) -> probs on the model's device.
 
     model: one model, or a list of models of one config (an ensemble: the
@@ -92,16 +98,33 @@ def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
     btf: None = the transposed-kernel routes whenever the kernel runs ('tfb'
     for UiT, 'tfb_to_bft' for other families); False pins the plain 'bft'
     chain. ``wav`` is a (B, T) float32 or int16 tensor or array.
-    fn.uses_kernel and fn.top_db_mode say which frontend runs."""
+    fn.uses_kernel and fn.top_db_mode say which frontend runs; fn.body is
+    the forward of a device batch and fn.graphs its ``GraphedFn`` on the
+    card (None on the CPU). graph=False keeps the card's forward eager: the
+    data-parallel shards (parallel/mesh.py) meet in a collective inside it."""
     members, device, run_cfg, frontend, use_kernel = _policy(
         cfg, model, use_kernel, precision, top_db_mode, btf)
 
+    def body(wav):
+        return ensemble_forward(members, run_cfg, frontend, wav)
+
+    return _device_fn(body, device, use_kernel, run_cfg, graph)
+
+
+def _device_fn(body, device, use_kernel, run_cfg, graph=True):
+    """fn(wav): ``body`` on the batch moved to ``device``, under inference
+    mode, graphed on the card unless ``graph`` is False; with the
+    attributes make_forward_fn lists."""
+    run = graphed(body, device) if graph else body
+
     @torch.inference_mode()
     def fn(wav):
-        return ensemble_forward(members, run_cfg, frontend, torch.as_tensor(wav).to(device))
+        return run(torch.as_tensor(wav).to(device))
 
     fn.uses_kernel = use_kernel
     fn.top_db_mode = run_cfg.frontend.top_db_mode
+    fn.body, fn.device = body, device
+    fn.graphs = None if run is body else run
     return fn
 
 
@@ -114,9 +137,7 @@ def make_framewise_fn(cfg, model, use_kernel: Optional[bool] = None,
     members, device, run_cfg, frontend, use_kernel = _policy(
         cfg, model, use_kernel, precision, top_db_mode, None, framewise=True)
 
-    @torch.inference_mode()
-    def fn(wav):
-        wav = torch.as_tensor(wav).to(device)
+    def body(wav):
         if len(members) == 1:
             return models.apply_framewise(run_cfg, members[0], wav, frontend_fn=frontend)
         mel = frontend(wav)
@@ -124,18 +145,26 @@ def make_framewise_fn(cfg, model, use_kernel: Optional[bool] = None,
                 for m in members]
         return torch.stack([p for p, _ in outs]).mean(dim=0), outs[0][1]
 
-    fn.uses_kernel = use_kernel
-    fn.top_db_mode = run_cfg.frontend.top_db_mode
-    return fn
+    return _device_fn(body, device, use_kernel, run_cfg)
 
 
 def make_scanned_forward(fwd_fn):
     """(K, B, T) wav block -> (K, B, C) probs, the K batches run one after
-    another through ``fwd_fn``."""
+    another through ``fwd_fn`` (a ``make_forward_fn`` forward): on the card
+    one CUDA graph of the K forwards (one replay a block, as ``lax.scan`` is
+    one program in the JAX package)."""
+    body, device = fwd_fn.body, fwd_fn.device
 
+    def scanned_body(block):
+        return torch.stack([body(block[k]) for k in range(block.shape[0])])
+
+    run = graphed(scanned_body, device)
+
+    @torch.inference_mode()
     def scanned(wav_block):
-        return torch.stack([fwd_fn(wav_block[k]) for k in range(len(wav_block))])
+        return run(torch.as_tensor(wav_block).to(device))
 
+    scanned.graphs = None if run is scanned_body else run
     return scanned
 
 

@@ -15,7 +15,10 @@
   co-batched requests do not couple through a batch-global dB clamp.
 - On the card the forward is ``make_forward_fn(precision='fast')``: the
   fused mel kernel in the 'tfb' layout (transposed kernel for batches of
-  at least 128, row kernel below).
+  at least 128, row kernel below). Each bucket's forward, and its K-batch
+  forward with ``scan_batches > 1``, is a CUDA graph (ops/graphs.py)
+  captured by the warmup, before the worker threads start; a batch is one
+  replay, a K-batch block one replay.
 - Calibration (temperature scaling from ``cli.evaluate calibrate -o``) is
   applied on the host in the completer, on the small (B, C) block of
   probabilities; it belongs to the deployment and survives ``reload()``.
@@ -38,6 +41,7 @@ import torch
 
 from ..evaluate.calibration import apply_temperature, load_calibration
 from ..frontend import normalize_pcm16, quantize_pcm16
+from ..ops.graphs import calls_to_capture
 from ..ops.pipeline import make_forward_fn, make_scanned_forward
 from ..utils.device import resolve_device
 
@@ -207,7 +211,7 @@ class TaggingService:
             return data_parallel_forward(
                 [make_forward_fn(self._model_cfg, m, use_kernel=use_kernel,
                                  precision="fast" if use_kernel else "exact",
-                                 top_db_mode=self.cfg.top_db_mode)
+                                 top_db_mode=self.cfg.top_db_mode, graph=False)
                  for m in replicate_tree(self._mesh, model)], self._mesh), None
         fwd = make_forward_fn(self._model_cfg, model, use_kernel=use_kernel,
                               precision="fast" if use_kernel else "exact",
@@ -228,13 +232,18 @@ class TaggingService:
         return out, event
 
     def _warmup(self, fwd, scanned_fwd):
-        """Run every bucket once (kernel build and first-launch costs are
-        paid here, not by the first requests)."""
+        """Run every bucket until its forward is ready: once eagerly, and on
+        the card until its CUDA graph (and its K-batch graph with
+        ``scan_batches > 1``) is captured, as the JAX warmup compiles every
+        bucket. Kernel build, first-launch and capture costs are paid here,
+        before the worker threads start, not by the first requests."""
         for length, bs in self._buckets:
-            _, ev = self._enqueue(fwd, np.zeros((bs, length), self._np_dtype))
+            for _ in range(calls_to_capture(fwd)):
+                _, ev = self._enqueue(fwd, np.zeros((bs, length), self._np_dtype))
             if scanned_fwd is not None:
-                _, ev = self._enqueue(
-                    scanned_fwd, np.zeros((self._scan_k, bs, length), self._np_dtype))
+                for _ in range(calls_to_capture(scanned_fwd)):
+                    _, ev = self._enqueue(
+                        scanned_fwd, np.zeros((self._scan_k, bs, length), self._np_dtype))
             if ev is not None:
                 ev.synchronize()
 

@@ -23,7 +23,9 @@ was built, whichever thread calls it.
 
 Precision follows ``ops.pipeline.make_forward_fn``: on the card the fast
 mel kernel with a per-stream dB clamp (S >= 128 streams take ``tfb_fast``,
-fewer ``row_fast``); on the CPU the exact plain frontend.
+fewer ``row_fast``); on the CPU the exact plain frontend. On the card the
+scoring forward of the fixed (S, window) shape is one CUDA-graph replay a
+hop (ops/graphs.py); the ring and ``_emit`` stay on the host side of it.
 
 Events: every scored window yields (stream, t_end_seconds, probs); keyword
 triggers (prob >= threshold, default the GSC operating point 0.2) fire with

@@ -12,9 +12,13 @@ package's npz format. Both the student and the teacher take the fused mel
 kernel through ``ops.mel.make_frontend_fn`` (on a CUDA device the kernel
 launches; a CPU device takes its plain version): the student in its
 ``mel_layout`` at ``frontend_precision``, the teacher through
-``'tfb_to_bft'``. ``psl: {mode: offline, cache: ...}`` loads no teacher:
-the AudioSet dataset draws grid crops whose targets come from a PSL cache
-(data/psl_cache.py) and the step is the plain one. ``pretrained:``
+``'tfb_to_bft'``. On the card each step is a CUDA-graph replay
+(train/steps.py), and ``steps_per_dispatch: K`` runs groups of K steps as
+one replay of ``make_multi_step`` (the epoch's last steps alone), as the
+JAX loop runs them as one jitted program. ``psl: {mode: offline, cache:
+...}`` loads no teacher: the AudioSet dataset draws grid crops whose
+targets come from a PSL cache (data/psl_cache.py) and the step is the
+plain one. ``pretrained:``
 retargets the positional embeddings to the student's grid before its
 shape-filtered load.
 
@@ -59,8 +63,8 @@ from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows
 from ..utils import add_file_sink, get_logger, resolve_device, validate_frontend_precision
 from .schedule import cosine_with_warmup
-from .steps import (build_optimizer, find_ema_params, make_eval_step, make_train_step,
-                    wrap_optimizer)
+from .steps import (build_optimizer, find_ema_params, make_eval_step, make_multi_step,
+                    make_train_step, wrap_optimizer)
 
 log = get_logger()
 
@@ -333,6 +337,13 @@ class Trainer:
             wav_augment=parse_wavtransforms(c.get("wavtransforms", {})),
             spec_augment=parse_spectransforms(c.get("spectransforms", {}), layout=mel_layout),
             frontend_fn=self.frontend, psl_frontend_fn=self.psl_frontend, rows=self.rows)
+        # K optimizer updates per dispatch (make_multi_step: one CUDA-graph
+        # replay on the card, as the JAX loop's one jitted lax.scan)
+        self.steps_per_dispatch = int(c.get("steps_per_dispatch", 1))
+        self.multi_step = (make_multi_step(self.train_step) if self.steps_per_dispatch > 1
+                           else None)
+        if self.multi_step is not None:
+            log.info(f"scanned training: {self.steps_per_dispatch} steps per dispatch")
         self.eval_step = make_eval_step(self.cfg, frontend_fn=self.frontend)
         self.generator = torch.Generator(device=self.device).manual_seed(c.get("seed", 42))
 
@@ -348,6 +359,22 @@ class Trainer:
         kw = np.pad(kw, ((0, 0), (0, T - kw.shape[-1])))
         return {"wav": np.concatenate([aw, kw]),
                 "target": np.concatenate([batch["audioset"]["target"], batch["kws"]["target"]])}
+
+    @staticmethod
+    def stack_group(group: list) -> dict:
+        """K device step batches -> one (K, ...) batch for the K-step: each
+        leaf zero-padded on its last axis to the group's longest (a
+        full-clip loader pads each batch to its own longest clip), the
+        same semantics as the clips having shared one batch, as the JAX
+        loop's ``stack_leaves``."""
+        def stack(xs):
+            T = max(x.shape[-1] for x in xs)
+            out = xs[0].new_zeros((len(xs), *xs[0].shape[:-1], T))
+            for o, x in zip(out, xs):
+                o[..., : x.shape[-1]] = x
+            return out
+
+        return {k: stack([b[k] for b in group]) for k in group[0]}
 
     # ---------------------------------------------------------------- train
 
@@ -386,21 +413,31 @@ class Trainer:
             raise ValueError(f"score_function must be a metric name or [name, sign], got {sf!r}")
         score_name, score_sign = sf[0], float(sf[1])
 
-        # 'steps_per_dispatch' is accepted and runs as single steps: stacking
-        # K batches saves no launch in eager mode (it will once a CUDA graph
-        # of the step exists)
+        # the prefetch depth covers a K-step group plus one batch; the steps'
+        # graphs are captured with capture_error_mode="thread_local"
+        # (ops/graphs.py), so the prefetch thread's copies may run meanwhile
+        K = self.steps_per_dispatch
         train_iter = device_prefetch((self.to_step_batch(b) for b in self.train_loader),
-                                     self.device, size=2)
+                                     self.device, size=max(2, K + 1))
         stop = False
         try:
             for epoch in range(start_epoch, epochs + 1):
                 if stop:
                     break
                 t0 = time.time()
-                losses = [self.train_step(next(train_iter), self.generator)["total_loss"]
-                          for _ in range(self.epoch_length)]
+                losses, done = [], 0
+                while done < self.epoch_length:
+                    # groups of K; the steps left over at the epoch's end run alone
+                    if self.multi_step is not None and self.epoch_length - done >= K:
+                        group = self.stack_group([next(train_iter) for _ in range(K)])
+                        losses.append(self.multi_step(group, self.generator)["total_loss"])
+                        done += K
+                    else:
+                        losses.append(self.train_step(next(train_iter),
+                                                      self.generator)["total_loss"][None])
+                        done += 1
                 step_count += self.epoch_length
-                mean_loss = torch.stack(losses).mean().item()  # one sync per epoch
+                mean_loss = torch.cat(losses).mean().item()  # one sync per epoch
                 log.info(f"Epoch {epoch:<4} loss {mean_loss:.4f} "
                          f"({self.epoch_length / (time.time() - t0):.1f} it/s)")
                 if epoch % c.get("valid_every", 1) == 0:

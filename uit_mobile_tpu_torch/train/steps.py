@@ -8,13 +8,14 @@ then the loss, the backward pass, the pre-clip gradient norm, clipping and
 the optimizer update. The step mutates the model and the optimizer in place
 and returns its metrics as device tensors (no host sync).
 
-The optimizers are ``torch.optim``'s Adam, AdamW and SGD, the same update
-rules as optax's (AdamW's ``p * (1 - lr * wd)`` before the Adam step is
-optax's ``wd * p`` added to the Adam direction), and ``Adafactor``, a port
-of optax 0.2.6's ``adafactor`` (``torch.optim.Adafactor`` is another rule);
-``Adam8bit`` takes Adafactor's rule, as in the JAX package. The learning rate of
-update n is ``schedule(n)``, n counted before the update, as optax counts
-it: the wrapper sets it on the param groups before each step.
+The optimizers are ``torch.optim``'s foreach Adam, AdamW and SGD, the same
+update rules as optax's (AdamW's ``p * (1 - lr * wd)`` before the Adam step
+is optax's ``wd * p`` added to the Adam direction), and ``Adafactor``, a
+port of optax 0.2.6's ``adafactor`` (``torch.optim.Adafactor`` is another
+rule); ``Adam8bit`` takes Adafactor's rule, as in the JAX package. The
+learning rate of update n is ``schedule(n)``, n counted before the update,
+as optax counts it: the host writes it, with the update's other scalars,
+into a device tensor that the update reads (``Optimizer``).
 ``wrap_optimizer`` adds a parameter EMA and gradient accumulation (the mean
 of K micro-gradients per applied update); the schedule and the EMA advance
 per applied update.
@@ -47,7 +48,19 @@ def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
 
 
 def _weight(weight):
-    return None if weight is None else torch.as_tensor(weight, dtype=torch.float32)
+    """``weight`` -> None, or fn(device) -> it as float32 on that device,
+    moved once a device: a step on the card copies nothing from the host
+    (a CUDA graph could not)."""
+    if weight is None:
+        return None
+    w, placed = torch.as_tensor(weight, dtype=torch.float32), {}
+
+    def on(device):
+        if device not in placed:
+            placed[device] = w.to(device)
+        return placed[device]
+
+    return on
 
 
 def _bce_elements(probs: torch.Tensor, targets: torch.Tensor, eps: float) -> torch.Tensor:
@@ -69,7 +82,7 @@ def _make_bce(weight=None, reduction: str = "mean", eps: float = 1e-7):
     def loss(probs, targets):
         elt = _bce_elements(probs, targets, eps)
         if w is not None:
-            elt = elt * w.to(elt.device)
+            elt = elt * w(elt.device)
         return _reduce(elt, reduction)
 
     return loss
@@ -87,7 +100,7 @@ def _make_ce(weight=None, reduction: str = "mean", label_smoothing: float = 0.0,
         logp = torch.log(probs.clamp(eps, 1.0))
         logp = logp - torch.logsumexp(logp, dim=-1, keepdim=True)
         t = targets / targets.sum(-1, keepdim=True).clamp(min=eps)
-        ww = w.to(probs.device) if w is not None else torch.ones(C, device=probs.device)
+        ww = w(probs.device) if w is not None else torch.ones(C, device=probs.device)
         denom = global_sum((t * ww).sum()).clamp(min=eps)
         if label_smoothing > 0.0:
             t = (1.0 - label_smoothing) * t + label_smoothing / C
@@ -154,6 +167,13 @@ def _factored_dims(shape, factored: bool, min_dim_size_to_factor: int):
     return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
+def adafactor_decay(count: int, decay_offset: int, decay_rate: float) -> float:
+    """The second moments' decay of update ``count`` (counted from 0), in
+    float32 as optax computes it: 1 - (count + 1 - decay_offset) ** -decay_rate."""
+    t = np.float32(count - decay_offset + 1)
+    return float(np.float32(1.0) - t ** np.float32(-decay_rate))
+
+
 class Adafactor(torch.optim.Optimizer):
     """optax 0.2.6's ``adafactor`` as a ``torch.optim`` rule, the chain
     ``scale_by_factored_rms`` -> ``clip_by_block_rms`` -> the learning rate
@@ -163,15 +183,17 @@ class Adafactor(torch.optim.Optimizer):
     - second moments factored into row and column accumulators for leaves
       with two dims of at least ``min_dim_size_to_factor`` (the two largest
       dims), a full accumulator elsewhere, decayed by
-      1 - (step + 1 - decay_offset) ** -decay_rate (float32, as optax);
+      1 - (count + 1 - decay_offset) ** -decay_rate (float32, as optax);
     - the update's RMS clipped to ``clipping_threshold`` per leaf;
     - scaled by the lr and by max(RMS(param), 1e-3) per leaf;
     - ``weight_decay_rate`` adds wd * param after the lr (optax's order).
 
     The accumulators live in ``state[p]`` as ``v_row``, ``v_col`` and ``v``
     (optax's shapes: a (1,) placeholder where unused) and ``momentum``;
-    ``step`` counts the updates, as Adam's does; ``dims`` holds the leaf's
-    factored axes (None: a full accumulator), chosen once here."""
+    ``dims`` holds the leaf's factored axes (None: a full accumulator),
+    chosen once here. ``apply(grads, lr, decay, keep)`` is an update, its
+    scalars given as 0-dim tensors (the port's ``Optimizer`` writes them on
+    the device; ``adafactor_decay`` gives the decay of update n)."""
 
     def __init__(self, params, lr: float = 1e-3, min_dim_size_to_factor: int = 128,
                  decay_rate: float = 0.8, decay_offset: int = 0,
@@ -201,35 +223,36 @@ class Adafactor(torch.optim.Optimizer):
                               v=one)
                 if momentum is not None:
                     st["momentum"] = torch.zeros_like(p)
-                st["step"], st["dims"] = torch.tensor(0.0), dims
+                st["dims"] = dims
 
     @torch.no_grad()
-    def step(self, closure=None):
+    def apply(self, grads: list[torch.Tensor], lr, decay, keep) -> None:
+        """One update of every parameter from ``grads`` (in parameter order)
+        at ``lr``, with the second moments' ``decay`` and ``keep`` = 1 -
+        decay: no host read."""
+        grads = iter(grads)
         for group in self.param_groups:
             for p in group["params"]:
-                if p.grad is not None:
-                    self._update(group, p, p.grad, self.state[p])
+                self._update(group, p, next(grads), self.state[p], lr, decay, keep)
 
     @staticmethod
-    def _update(h: dict, p: torch.Tensor, g: torch.Tensor, st: dict) -> None:
-        t = np.float32(int(st["step"]) - h["decay_offset"] + 1)
-        decay = float(np.float32(1.0) - t ** np.float32(-h["decay_rate"]))
+    def _update(h: dict, p: torch.Tensor, g: torch.Tensor, st: dict, lr, decay, keep) -> None:
         grad_sqr = g * g + h["eps"]
         if st["dims"] is not None:
             d1, d0 = st["dims"]
-            st["v_row"].copy_(decay * st["v_row"] + (1.0 - decay) * grad_sqr.mean(dim=d0))
-            st["v_col"].copy_(decay * st["v_col"] + (1.0 - decay) * grad_sqr.mean(dim=d1))
+            st["v_row"].copy_(decay * st["v_row"] + keep * grad_sqr.mean(dim=d0))
+            st["v_col"].copy_(decay * st["v_col"] + keep * grad_sqr.mean(dim=d1))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_col_mean = st["v_row"].mean(dim=reduced_d1, keepdim=True)
             row_factor = (st["v_row"] / row_col_mean) ** -0.5
             col_factor = st["v_col"] ** -0.5
             u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
         else:
-            st["v"].copy_(decay * st["v"] + (1.0 - decay) * grad_sqr)
+            st["v"].copy_(decay * st["v"] + keep * grad_sqr)
             u = g * st["v"] ** -0.5
         if h["clipping_threshold"] is not None:
             u = u / torch.clamp(torch.sqrt((u * u).mean()) / h["clipping_threshold"], min=1.0)
-        u = u * h["lr"]
+        u = u * lr
         if h["multiply_by_parameter_scale"]:
             rms = torch.sqrt((p * p).mean())
             u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
@@ -239,7 +262,6 @@ class Adafactor(torch.optim.Optimizer):
         if h["weight_decay_rate"] is not None:
             u = u + h["weight_decay_rate"] * p
         p.sub_(u)
-        st["step"] += 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,13 +279,26 @@ class OptimizerSpec:
 
 
 class Optimizer:
-    """The optimizer state of one model: ``torch.optim``'s Adam, AdamW or
-    SGD (``foreach``), or ``Adafactor``, as the base rule, the update count that drives the
+    """The optimizer state of one model: the base rule (Adam, AdamW or SGD,
+    ``torch.optim``'s foreach updates written out with their per-update
+    scalars as tensors; or ``Adafactor``), the update count that drives the
     schedule, the parameter EMA and the gradient accumulator, all allocated
     at construction (``state_leaves`` is fixed for a spec and a model).
-    ``update(grads)`` takes one micro-step's gradients; it applies an
-    update to the parameters on every ``grad_accum``-th call, at the lr
-    ``schedule(count)`` read before the count advances, as optax reads it."""
+
+    A micro-step has a host side and a device side, so that a CUDA graph can
+    hold the device side (``make_train_step``). ``plan(k)`` is the host side
+    of the next k micro-steps: their kinds ('apply' on every
+    ``grad_accum``-th, else 'accumulate'), the counters advanced, and each
+    micro-step's scalars written into the (k, n) device tensor
+    ``scalars(k)``: the lr ``schedule(count)`` read before the count
+    advances, as optax reads it, the bias corrections and decays that follow
+    from the count, and the accumulator's weights (optax computes the same
+    values from its count inside the program; here they are the one host
+    write a step needs). ``device_update(grads, kind, row)`` reads them from
+    a row of that tensor and never reads the host. ``update(grads)`` is both
+    for one micro-step. On the CPU every update is bitwise the one
+    ``torch.optim``'s foreach rule gives with Python scalars
+    (tests/test_torch_dispatch.py)."""
 
     def __init__(self, spec: OptimizerSpec, model: torch.nn.Module):
         self.spec = spec
@@ -273,65 +308,150 @@ class Optimizer:
                          for p in self.params]
         self.count = 0  # applied updates (the schedule's and the EMA's clock)
         self.micro = 0  # micro-steps accumulated toward the next update
+        self.device = self.params[0].device if self.params else torch.device("cpu")
         h = spec.hparams
-        if spec.name == "SGD":
-            self.base = torch.optim.SGD(self.params, lr=0.0, momentum=h["momentum"],
-                                        nesterov=h["nesterov"], foreach=True)
-            # a zero trace makes the first update's trace the gradient, as
-            # in optax (and keeps the state's leaves fixed from the start)
-            self._slots = ("momentum_buffer",) if h["momentum"] else ()
-        elif spec.name == "Adafactor":
+        self.base = None
+        if spec.name == "Adafactor":
             # allocates its factored accumulators itself (their shapes are
             # not the parameters')
             self.base = Adafactor(self.params, lr=0.0, **h)
             self._slots = self.base.slots
+            self._state = {k: [self.base.state[p][k] for p in self.params] for k in self._slots}
+            self._columns = ("lr", "decay", "keep")
         else:
-            rule = torch.optim.AdamW if spec.name == "AdamW" else torch.optim.Adam
-            self.base = rule(self.params, lr=0.0, betas=(h["b1"], h["b2"]), eps=h["eps"],
-                             weight_decay=h["weight_decay"], foreach=True)
-            self._slots = ("exp_avg", "exp_avg_sq")
-        for p in self.params if spec.name != "Adafactor" else ():
-            self.base.state[p].update({k: torch.zeros_like(p, memory_format=torch.preserve_format)
-                                       for k in self._slots})
-            if spec.name != "SGD":
-                self.base.state[p]["step"] = torch.tensor(0.0)
+            if spec.name == "SGD":
+                # a zero trace makes the first update's trace the gradient,
+                # as in optax (and keeps the state's leaves fixed from the start)
+                self._slots = ("momentum_buffer",) if h["momentum"] else ()
+                self._columns = ("neg_lr",)
+            else:
+                self._slots = ("exp_avg", "exp_avg_sq")
+                self._columns = ("neg_step_size", "bc2_sqrt") + (
+                    ("wd_scale",) if h["weight_decay"] else ())
+            self._state = {k: zeros() for k in self._slots}
+        if spec.grad_accum > 1:
+            self._columns += ("acc_keep", "acc_new")
         self.ema = ([p.detach().clone() for p in self.params]
                     if spec.ema_decay is not None else None)
         self.acc = zeros() if spec.grad_accum > 1 else None
+        self._scalars: dict = {}
 
     @property
     def moments(self) -> list[list[torch.Tensor]]:
         """The base rule's state per slot: Adam's first and second moments,
         SGD's momentum trace, or Adafactor's row, column and full second
         moments (and momentum)."""
-        return [[self.base.state[p][k] for p in self.params] for k in self._slots]
+        return [self._state[k] for k in self._slots]
+
+    def scalars(self, k: int) -> torch.Tensor:
+        """The (k, n) float32 tensor on the parameters' device that
+        ``plan(k)`` writes: one per k, at a fixed address for the graphs
+        that read it."""
+        t = self._scalars.get(k)
+        if t is None:
+            t = self._scalars[k] = torch.zeros((k, len(self._columns)), dtype=torch.float32,
+                                               device=self.device)
+        return t
+
+    def _host_scalars(self, apply: bool) -> list[float]:
+        """The next micro-step's scalars from the host's count and micro
+        (before they advance), in ``_columns``' order, each computed as
+        torch.optim computes its Python scalar (it reaches the kernel as
+        float32 either way)."""
+        h, vals = self.spec.hparams, {}
+        if self.acc is not None:
+            vals.update(acc_keep=self.micro / (self.micro + 1), acc_new=1.0 / (self.micro + 1))
+        if apply:
+            lr = self.spec.schedule(self.count)
+            if self.spec.name == "SGD":
+                vals["neg_lr"] = -lr
+            elif self.spec.name == "Adafactor":
+                decay = adafactor_decay(self.count, self.base.defaults["decay_offset"],
+                                        self.base.defaults["decay_rate"])
+                vals.update(lr=lr, decay=decay, keep=1.0 - decay)
+            else:
+                t = float(self.count + 1)  # torch.optim's step, after its increment
+                vals.update(neg_step_size=(lr / (1 - h["b1"] ** t)) * -1,
+                            bc2_sqrt=(1 - h["b2"] ** t) ** 0.5,
+                            wd_scale=1 - lr * h["weight_decay"])
+        return [vals.get(c, 0.0) for c in self._columns]
+
+    def plan(self, k: int) -> tuple[str, ...]:
+        """The host side of the next k micro-steps -> their kinds (class
+        docstring)."""
+        kinds, rows = [], []
+        for _ in range(k):
+            apply = self.acc is None or self.micro + 1 == self.spec.grad_accum
+            rows.append(self._host_scalars(apply))
+            kinds.append("apply" if apply else "accumulate")
+            self.count += apply
+            self.micro = 0 if apply else self.micro + 1
+        host = torch.tensor(rows, dtype=torch.float32)
+        if self.device.type == "cuda":
+            # pinned and asynchronous: ordered on the stream after the steps
+            # that read the last values, before the ones that read these
+            self.scalars(k).copy_(host.pin_memory(), non_blocking=True)
+        else:
+            self.scalars(k).copy_(host)
+        return tuple(kinds)
 
     @torch.no_grad()
-    def update(self, grads: list[torch.Tensor]) -> bool:
-        """One micro-step -> whether an update was applied."""
+    def device_update(self, grads: list[torch.Tensor], kind: str, row: torch.Tensor) -> None:
+        """The device side of one micro-step of ``kind``, its scalars in
+        ``row`` (a row of ``scalars(k)``): no host read, no host sync."""
+        s = dict(zip(self._columns, row.unbind()))
+        grads = list(grads)
         if self.acc is not None:
             # running mean of the micro-gradients
-            torch._foreach_mul_(self.acc, self.micro / (self.micro + 1))
-            torch._foreach_add_(self.acc, grads, alpha=1.0 / (self.micro + 1))
-            self.micro += 1
-            if self.micro < self.spec.grad_accum:
-                return False
-            grads, self.micro = self.acc, 0
-        for group in self.base.param_groups:
-            group["lr"] = self.spec.schedule(self.count)
-        for p, g in zip(self.params, grads):
-            p.grad = g
-        self.base.step()
-        for p in self.params:
-            p.grad = None
+            torch._foreach_mul_(self.acc, s["acc_keep"])
+            torch._foreach_addcmul_(self.acc, grads, [s["acc_new"]] * len(grads))
+            if kind == "accumulate":
+                return
+            grads = self.acc
+        self._rule(grads, s)
         if self.acc is not None:
             torch._foreach_zero_(self.acc)
-        self.count += 1
         if self.ema is not None:
             d = self.spec.ema_decay
             torch._foreach_mul_(self.ema, d)
             torch._foreach_add_(self.ema, self.params, alpha=1.0 - d)
-        return True
+
+    def _rule(self, grads: list[torch.Tensor], s: dict) -> None:
+        """The base rule's update at the scalars ``s``: torch.optim's foreach
+        ops, each Python scalar that changes between updates a 0-dim tensor
+        (``_foreach_add_(p, g, alpha=-lr)`` as ``addcmul`` by -lr, and
+        ``addcdiv_(p, m, d, step_size)`` as ``addcdiv_(p, step_size * m,
+        d)``: the same float32 roundings on the CPU)."""
+        h, params = self.spec.hparams, self.params
+        if self.spec.name == "Adafactor":
+            self.base.apply(grads, s["lr"], s["decay"], s["keep"])
+        elif self.spec.name == "SGD":
+            if h["momentum"]:
+                bufs = self._state["momentum_buffer"]
+                torch._foreach_mul_(bufs, h["momentum"])
+                torch._foreach_add_(bufs, grads, alpha=1)
+                grads = (torch._foreach_add(grads, bufs, alpha=h["momentum"])
+                         if h["nesterov"] else bufs)
+            torch._foreach_addcmul_(params, grads, [s["neg_lr"]] * len(params))
+        else:
+            exp_avgs, exp_avg_sqs = self._state["exp_avg"], self._state["exp_avg_sq"]
+            if "wd_scale" in s:
+                torch._foreach_mul_(params, s["wd_scale"])
+            torch._foreach_lerp_(exp_avgs, grads, 1 - h["b1"])
+            torch._foreach_mul_(exp_avg_sqs, h["b2"])
+            torch._foreach_addcmul_(exp_avg_sqs, grads, grads, 1 - h["b2"])
+            denom = torch._foreach_sqrt(exp_avg_sqs)
+            torch._foreach_div_(denom, s["bc2_sqrt"])
+            torch._foreach_add_(denom, h["eps"])
+            torch._foreach_addcdiv_(params, torch._foreach_mul(exp_avgs, s["neg_step_size"]),
+                                    denom)
+
+    def update(self, grads: list[torch.Tensor]) -> bool:
+        """One micro-step, host and device side -> whether an update was
+        applied."""
+        (kind,) = self.plan(1)
+        self.device_update(grads, kind, self.scalars(1)[0])
+        return kind == "apply"
 
     def state_leaves(self) -> list[torch.Tensor]:
         leaves = [torch.tensor([self.count, self.micro], dtype=torch.int64)]
@@ -350,9 +470,6 @@ class Optimizer:
             if tuple(dst.shape) != tuple(src.shape):
                 raise ValueError(f"optimizer leaf shape {tuple(src.shape)} != {tuple(dst.shape)}")
             dst.copy_(src)
-        for p in self.params:  # Adam's bias corrections count applied updates
-            if "step" in self.base.state[p]:
-                self.base.state[p]["step"].fill_(self.count)
 
 
 def find_ema_params(optimizer: Optimizer) -> Optional[dict]:
@@ -470,14 +587,16 @@ def _group_mean(grads, rows) -> list[torch.Tensor]:
 
 
 def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
-                     max_grad_norm: Optional[float] = None) -> torch.Tensor:
+                     max_grad_norm: Optional[float] = None, plan=None) -> torch.Tensor:
     """The tail of every train step: the gradients of ``loss`` over the
     optimizer's parameters (those the config leaves unused, the cls token
     under mean pooling, get zero gradients, as JAX gives them), their
     pre-clip global norm, with ``max_grad_norm`` the scaling by ``min(1,
     max / (norm + 1e-6))``, the new BN state and the optimizer update ->
     the pre-clip norm. Under ``parallel.rows.sharded`` the gradients are
-    the global batch's, the same on every rank."""
+    the global batch's, the same on every rank. ``plan``: (kind, row) of a
+    micro-step the host has planned (``Optimizer.plan``): only the device
+    side of the update runs; None runs both."""
     grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
     rows = current_rows()
     if rows is not None:
@@ -486,7 +605,10 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     if max_grad_norm is not None:
         grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
     models.load_state(model, new_state)
-    optimizer.update(list(grads))
+    if plan is None:
+        optimizer.update(list(grads))
+    else:
+        optimizer.device_update(grads, *plan)
     return gnorm
 
 
@@ -501,6 +623,12 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
                     psl_frontend_fn: Optional[Callable] = None,
                     rows: Optional[Rows] = None) -> Callable:
     """-> ``train_step(batch, generator) -> {'total_loss', 'grad_norm'}``.
+
+    On the card (a single process: no ``rows``) the step's device side is one
+    CUDA graph per batch shape and optimizer kind (``ops/graphs.py``), as
+    the JAX step is one jitted program; the host plans the optimizer's
+    micro-step (``Optimizer.plan``) before each replay. On the CPU it runs
+    eagerly. ``make_multi_step`` takes K of them as one graph.
 
     Without PSL the batch is ``{'wav': (B, T), 'target': (B, C)}``. With
     PSL it is either the same flat form with the AudioSet rows first
@@ -535,11 +663,11 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             return models.forward(psl_cfg, psl_model, wav,
                                   frontend_fn=psl_frontend_fn or frontend_fn)
 
-    def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+    def step(batch, generator, kind, row):
         with sharded(rows):
-            return step(batch, generator)
+            return _step(batch, generator, (kind, row))
 
-    def step(batch, generator):
+    def _step(batch, generator, plan):
         if psl_cfg is not None:
             if "wav" in batch:
                 wav, target, n_as = _step_wav(batch["wav"], wav_augment), batch["target"], psl_split
@@ -578,9 +706,36 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             model_cfg, model, wav, train=True, generator=generator, mixup_lamb=mixup_lamb,
             wav_augment=wav_augment, spec_augment=spec_augment, frontend_fn=frontend_fn)
         loss = loss_fn(probs, target)
-        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm)
+        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm, plan)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
+    return _dispatched(step, optimizer, rows)
+
+
+def _graphable(optimizer: Optimizer, rows) -> bool:
+    """Whether a step runs as CUDA graphs: one process on the card (the
+    multi-process steps meet in collectives and stay eager)."""
+    return (optimizer.device.type == "cuda" and rows is None
+            and not any(hasattr(p, "to_local") for p in optimizer.params))
+
+
+def _dispatched(step: Callable, optimizer: Optimizer, rows) -> Callable:
+    """``train_step(batch, generator)`` over the device side ``step(batch,
+    generator, kind, row)``: the host plans one micro-step, then the device
+    side runs, as a CUDA-graph replay where ``_graphable``."""
+    from ..ops.graphs import graphed
+
+    def body(batch, generator, kind):
+        return step(batch, generator, kind, optimizer.scalars(1)[0])
+
+    run = graphed(body, optimizer.device) if _graphable(optimizer, rows) else body
+
+    def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+        (kind,) = optimizer.plan(1)
+        return run(batch, generator, kind)
+
+    train_step.device_step, train_step.optimizer, train_step.rows = step, optimizer, rows
+    train_step.graphs = None if run is body else run
     return train_step
 
 
@@ -625,16 +780,32 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
 def make_multi_step(train_step: Callable) -> Callable:
     """K train steps in a row: ``multi(batches, generator)`` with a leading
     (K, ...) axis on every batch leaf -> metrics stacked over the K steps.
-    Exactly K sequential ``train_step`` calls."""
+    Exactly K sequential ``train_step`` calls. For a ``make_train_step``
+    step on the card the K steps are one CUDA graph (one replay, as JAX's
+    ``lax.scan`` is one program), the host writing the K micro-steps'
+    scalars (their learning rates) before it; the metrics are (K,) device
+    tensors. ``multi.body(batches, generator, kinds)`` is the device side
+    the graph holds, ``multi.graphs`` its ``GraphedFn`` (None on the CPU)."""
+
+    from ..ops.graphs import graphed
 
     def take(tree, i):
         return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
 
-    def multi(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
-        K = next(iter(_leaves(batches))).shape[0]
-        ms = [train_step(take(batches, i), generator) for i in range(K)]
+    step, optimizer = train_step.device_step, train_step.optimizer
+
+    def body(batches, generator, kinds):
+        rows = optimizer.scalars(len(kinds))
+        ms = [step(take(batches, i), generator, kind, rows[i]) for i, kind in enumerate(kinds)]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
+    run = body if train_step.graphs is None else graphed(body, optimizer.device)
+
+    def multi(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
+        K = next(iter(_leaves(batches))).shape[0]
+        return run(batches, generator, optimizer.plan(K))
+
+    multi.body, multi.graphs = body, None if run is body else run
     return multi
 
 
