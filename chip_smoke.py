@@ -666,10 +666,11 @@ def dispatch_readings(eager, replay, graphed, n_prof: int = 3) -> dict:
     out = {}
     for name, call in (("eager", eager), ("replay", replay)):
         ms = time_ms(call, warmup=2, iters=10)
-        prof = profile_steps(call, ms, n=n_prof)
+        prof = profile_steps(call, n=n_prof)
         out.update({f"{name}_ms": ms, f"{name}_issue_ms": issue_ms(call, n=5),
                     f"{name}_device_busy_ms": prof["device_busy_ms"],
                     f"{name}_idle_share": prof["device_idle_share"],
+                    f"{name}_busy_over_untraced": prof.get("busy_over_untraced"),
                     f"{name}_kernels": prof["kernels_per_step"]})
     torch.cuda.synchronize()
     reset_launches()
@@ -689,13 +690,15 @@ def graph_forward_path(name, fn, x0, x1, want1, variant, info) -> dict:
     inputs, a replay on fresh inputs within 1e-3 of the CPU plain path
     (``want1``: its first rows, where the clamp is per sample),
     ``variant`` in every replay, one replay a call; dispatch_readings."""
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
+
     t0 = time.perf_counter()
     g = fn.graphs
     check(g is not None, f"graphs {name}: the forward on the card is not graphed")
     x0, x1 = (torch.as_tensor(x).to(CARD) for x in (x0, x1))
     with torch.inference_mode():
         eager0 = g.fn(x0)
-    for _ in range(graphs_calls_to_capture(fn)):
+    for _ in range(calls_to_capture(fn)):
         fn(x0)
     replays = sum(s["replays"] for s in g.stats())
     got0 = fn(x0)
@@ -726,17 +729,12 @@ def graph_forward_path(name, fn, x0, x1, want1, variant, info) -> dict:
     return rec
 
 
-def graphs_calls_to_capture(fn) -> int:
-    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
-
-    return calls_to_capture(fn)
-
-
 GRAPH_STEPS = {  # B, student layout, precision, int16 input, the mel variant
     "recipe": (32, "bft", "exact", False, "row_exact"),
     "frontier": (1024, "tfb", "fast", True, "tfb_fast"),
 }
 GRAPH_K = 4
+GRAPH_BLOCKS = 3  # K-steps a graphed step path runs: one eager warm-up, then replays
 
 
 def graph_step_world(name: str):
@@ -757,7 +755,7 @@ def graph_step_world(name: str):
     teacher = module_to_numpy(models.build(t_cfg, torch.Generator().manual_seed(18), "cpu"))
     rng = np.random.default_rng(19)
     batches = []
-    for _ in range(1 + 2 * GRAPH_K):
+    for _ in range(1 + GRAPH_BLOCKS * GRAPH_K):
         clips_as, _ = synth_split(rng, n_as, False)
         clips_kws, labels = synth_split(rng, B - n_as, True)
         pcm = np.stack(clips_as + clips_kws)
@@ -801,12 +799,14 @@ def state_gap(a: list, b: list) -> float:
 
 def graph_step_path(name: str, info) -> list:
     """The fused train step of one configuration (PSL teacher, mixup, clip,
-    EMA; the recipe with its augments) on the card: two eager runs, the
-    graphed single step and the graphed K-step from one state and one
+    EMA; the recipe with its augments) on the card over 1 + GRAPH_BLOCKS x K
+    batches: two eager runs, the graphed single step (one eager warm-up,
+    then replays) and the graphed K-step (one single step, then
+    GRAPH_BLOCKS K-steps: a warm-up and two replays) from one state and one
     generator state. Gate: where the two eager runs agree bitwise, the
     graphed runs equal them bitwise (parameters, BN buffers, moments, EMA,
     count and the generator's offset), else within twice the eager spread;
-    each call one replay."""
+    each call after the warm-up one replay."""
     t0 = time.perf_counter()
     fresh, batches = graph_step_world(name)
     variant = GRAPH_STEPS[name][4]
@@ -875,13 +875,213 @@ def graph_step_path(name: str, info) -> list:
     return recs
 
 
+def replays_of(fns: dict) -> dict:
+    """{name: replays so far of fn's graphs (0 where fn is None)}."""
+    return {n: 0 if f is None else sum(s["replays"] for s in f.graphs.stats())
+            for n, f in fns.items()}
+
+
+def graph_trainer_path(spread: float, info) -> dict:
+    """The Trainer (train/loop.py) at the recipe (full width, its PSL teacher
+    and augments) with a parameter EMA, 2 epochs of 2K + 1 steps with steps_per_dispatch K (an
+    epoch: two K-steps of stacked batches, then the leftover single step;
+    the K-step's graph captured while the loader's prefetch thread runs)
+    against the same Trainer at steps_per_dispatch 1, from the same seeds
+    (one start). Gate: every step's loss and gradient norm, the parameters,
+    BN buffers and optimizer leaves (count, moments, EMA) and the
+    generator's offset bitwise where the recipe's two eager runs agreed
+    bitwise (graph_step_path: ``spread`` 0), else within twice that spread.
+    Replays: the K-step 4 calls, a warm-up then 3 replays; the leftover step
+    2 calls, 1 replay; at K=1 18 calls, 17 replays."""
+    import tempfile
+
+    from uit_mobile_tpu_torch.ops import launches
+
+    K, epochs, blocks = GRAPH_K, 2, 2
+    steps = epochs * (blocks * K + 1)
+    config = dict(RECIPE, epochs=epochs, epoch_length=blocks * K + 1, valid_every=epochs + 1,
+                  ema_decay=0.999)
+    runs = {}
+    for k in (1, K):
+        out_dir = Path(tempfile.mkdtemp(prefix="uit_graph_trainer_"))
+        trainer = synth_trainer_class()(dict(config, steps_per_dispatch=k,
+                                             outputdir=str(out_dir)), device="cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(launches)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        metrics = torch.stack([torch.stack([m["total_loss"], m["grad_norm"]])
+                               for m in trainer.metrics]).cpu()
+        state = ([v.detach().clone() for v in trainer.model.state_dict().values()]
+                 + [t.detach().clone() for t in trainer.optimizer.state_leaves()]
+                 + [torch.tensor([trainer.generator.get_offset()])])
+        runs[k] = {"start": trainer.start, "metrics": metrics, "state": state,
+                   "replays": replays_of({"step": trainer.train_step,
+                                          "k_step": trainer.multi_step}),
+                   "launches": {v: n for v, n in counts.items() if n}, "wall_s": wall,
+                   "count": trainer.optimizer.count}
+    one, many = runs[1], runs[K]
+    check(all(torch.equal(v, many["start"][n]) for n, v in one["start"].items()),
+          "graphs trainer: the two runs started from other weights")
+    gap = max(state_gap(many["state"], one["state"]),
+              float((many["metrics"].double() - one["metrics"].double()).abs().max()))
+    gate = "bitwise" if spread == 0.0 else f"2 x the eager spread {spread}"
+    rec = {"phase": "graphs", "path": f"trainer_steps_per_dispatch_{K}", "B": RECIPE["batch_size"],
+           "epochs": epochs, "steps": steps, "gate": gate, "max_abs_gap_vs_k1": gap,
+           "generator_offset": [int(many["state"][-1]), int(one["state"][-1])],
+           "replays": {k: r["replays"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()}, "card": info["nvidia_smi"]}
+    emit(rec)
+    check(len(one["metrics"]) == len(many["metrics"]) == steps
+          and one["count"] == many["count"] == steps,
+          f"graphs trainer: steps {len(one['metrics'])} / {len(many['metrics'])}")
+    check(gap <= 2.0 * spread, f"graphs trainer: steps_per_dispatch {K} vs 1 gap {gap} over {gate}")
+    check(one["replays"] == {"step": steps - 1, "k_step": 0}
+          and many["replays"] == {"step": epochs - 1, "k_step": epochs * blocks - 1},
+          f"graphs trainer: replays {rec['replays']}")
+    check(one["launches"] == many["launches"] == {"row_exact": 2 * steps},
+          f"graphs trainer: launches {rec['launches']}")
+    return rec
+
+
+def graph_service_path(cfg, cpu_model, info) -> dict:
+    """The TaggingService with scan_batches K (its warmup captures the
+    K-batch graph of its 1 s bucket before the worker starts) against the
+    same service at scan_batches 1: 2 x K x 256 int16 requests of 0.5-1 s,
+    all queued before the worker starts, so that each dispatch takes a full
+    block. Gates: each block one replay of the K-batch graph and no batch
+    replay (at K=1 one replay a batch), ``tfb_fast`` once a batch, results
+    bitwise the per-batch service's, and its first 64 within 1e-3 of the CPU
+    plain path."""
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
+
+    K, bs, blocks = GRAPH_K, 256, 2
+    rng = np.random.default_rng(29)
+    padded = pcm_batch(rng, blocks * K * bs, SR)
+    lengths = rng.integers(SR // 2, SR + 1, len(padded))
+    for row, n in zip(padded, lengths):
+        row[n:] = 0  # the service right-pads a clip with zeros to its bucket
+    clips = [row[:n] for row, n in zip(padded, lengths)]
+    got, recs = {}, {}
+    for k in (1, K):
+        svc = TaggingService(cfg, cpu_model, ServiceConfig(
+            batch_size=bs, max_seconds=1, max_wait_ms=1000.0, dtype="int16", scan_batches=k),
+            device="cuda", _start_worker=False)
+        try:
+            fns = {"batch": svc._fwd, "block": svc._scanned_fwd}
+            before = replays_of(fns)
+            futs = [svc.submit(c) for c in clips]
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            svc._start()
+            got[k] = np.stack([f.result(timeout=300) for f in futs])
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            counts = {v: n for v, n in launches.items() if n}
+            after = replays_of(fns)
+            recs[k] = {"replays": {n: after[n] - before[n] for n in fns}, "launches": counts,
+                       "wall_s": wall, "graphs": {n: None if f is None else f.graphs.stats()
+                                                  for n, f in fns.items()}}
+        finally:
+            svc.close()
+    want = cpu_reference(cfg, cpu_model, padded[:64], "fast", "per_sample")
+    drift = float(np.abs(got[K][:64] - want).max())
+    bitwise = bool(np.array_equal(got[K], got[1]))
+    rec = {"phase": "graphs", "path": f"service_scan_batches_{K}", "requests": len(clips),
+           "batch": bs, "gate": "K-block results bitwise the per-batch service's; the first 64 "
+           "within 1e-3 of the CPU plain path", "bitwise_vs_k1": bitwise,
+           "max_abs_drift_vs_cpu": drift, "runs": recs, "card": info["nvidia_smi"]}
+    emit(rec)
+    check(bitwise and drift <= 1e-3, f"graphs service: bitwise {bitwise}, drift {drift}")
+    check(recs[1]["replays"] == {"batch": blocks * K, "block": 0}
+          and recs[K]["replays"] == {"batch": 0, "block": blocks},
+          f"graphs service: replays {recs[1]['replays']} / {recs[K]['replays']}")
+    check(recs[1]["launches"] == recs[K]["launches"] == {"tfb_fast": blocks * K},
+          f"graphs service: launches {recs[1]['launches']} / {recs[K]['launches']}")
+    return rec
+
+
+def graph_evaluator_path(info) -> dict:
+    """The Evaluator with scan_batches K at batch 8 (the seed-1234 uit_xs
+    checkpoint; eval_sets' 64 GSC 1 s and 64 AudioSet 10 s clips, 8 batches
+    a set) against the same Evaluator at scan_batches 1, each through
+    ``cli.train``'s evaluation (evaluate_run). The K Evaluator runs it twice:
+    the first captures each shape's K-batch graph (a block's first call is
+    its warm-up), the second is held. Gates: the predictions bitwise the
+    K=1 run's (its metrics are read beside them); in the held run each block
+    one replay (2 a set) and no batch replay, ``row_exact`` once a batch."""
+    import logging
+
+    from uit_mobile_tpu_torch.cli.train import evaluate_run
+    from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.utils import get_logger
+
+    K, bs, blocks = GRAPH_K, 8, 4  # blocks: 2 a set
+    log = get_logger()
+    level = log.level
+    log.setLevel(logging.WARNING)  # the reports go to files, not stdout
+    try:
+        Ev = synth_evaluator_class(eval_sets(np.random.default_rng(11)))
+        runs = {}
+        for k in (1, K):
+            ev = Ev(str(OUT_DIR / "uit_xs_seed1234.npz"), batch_size=bs, scan_batches=k,
+                    device="cuda")
+            ev._setup()  # builds the forwards
+            fns = {"batch": ev._fwd_fn, "block": ev._scan_fn}
+            if k > 1:
+                evaluate_run(ev, EVAL_RUN_CONFIG)
+            before = replays_of(fns)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            scores = evaluate_run(ev, EVAL_RUN_CONFIG)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            after = replays_of(fns)
+            runs[k] = {"preds": [e[0] for e in ev.epochs[-2:]],
+                       "scores": {"gsc_accuracy@0.2": scores["gsc"]["Accuracy@0.2"],
+                                  "audioset_mAP": scores["audioset"]["mAP"]},
+                       "replays": {n: after[n] - before[n] for n in fns},
+                       "launches": {v: n for v, n in launches.items() if n}, "wall_s": wall}
+    finally:
+        log.setLevel(level)
+    one, many = runs[1], runs[K]
+    bitwise = all(np.array_equal(a, b) for a, b in zip(one["preds"], many["preds"]))
+    rec = {"phase": "graphs", "path": f"evaluator_scan_batches_{K}", "batch": bs,
+           "gate": "predictions bitwise the K=1 run's", "bitwise_vs_k1": bitwise,
+           "shapes": [list(p.shape) for p in many["preds"]],
+           "scores": {k: r["scores"] for k, r in runs.items()},
+           "replays": {k: r["replays"] for k, r in runs.items()},
+           "launches": {k: r["launches"] for k, r in runs.items()},
+           "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+           "block_graphs": ev._scan_fn.graphs.stats(), "card": info["nvidia_smi"]}
+    emit(rec)
+    check(bitwise, "graphs evaluator: scan_batches K differs from the per-batch run")
+    check(many["replays"] == {"batch": 0, "block": blocks},
+          f"graphs evaluator: replays {rec['replays']}")
+    check(one["launches"] == many["launches"] == {"row_exact": blocks * K},
+          f"graphs evaluator: launches {rec['launches']}")
+    return rec
+
+
 def phase_graphs(cfg, cpu_model, gpu_model, info) -> dict:
     """Every path the card runs as CUDA graphs (ops/graphs.py): both
     serving buckets, an eval batch of GSC 1 s and one of AudioSet 10 s, an
     S=1024 stream hop, a K=4 scanned forward, the recipe and frontier train
     steps and their K=4 multi-steps; each held replay against eager and
-    read side by side (graph_forward_path, graph_step_path). -> the mel
-    launches of one replay of each path, by variant."""
+    read side by side (graph_forward_path, graph_step_path). Then the entry
+    points that fold K calls into one replay, each against itself at K=1:
+    the TaggingService and the Evaluator with scan_batches 4, the Trainer
+    with steps_per_dispatch 4 (graph_service_path, graph_evaluator_path,
+    graph_trainer_path). -> the mel launches of one replay of each path of
+    the first kind, by variant."""
     from uit_mobile_tpu_torch.ops import make_forward_fn, make_scanned_forward
     from uit_mobile_tpu_torch.serve import MultiStreamTagger, StreamingConfig
 
@@ -914,9 +1114,15 @@ def phase_graphs(cfg, cpu_model, gpu_model, info) -> dict:
                      for x in x1])
     paths[f"scan_{GRAPH_K}x_serve_1s"] = graph_forward_path(
         f"scan_{GRAPH_K}x_serve_1s", scanned, x0, x1, want, "tfb_fast", info)
+    spread = {}
     for name in GRAPH_STEPS:
         for rec in graph_step_path(name, info):
             paths[rec["path"]] = rec
+            spread[name] = rec["eager_vs_eager_spread"]
+    # the entry points that take scan_batches and steps_per_dispatch
+    graph_service_path(cfg, cpu_model, info)
+    graph_evaluator_path(info)
+    graph_trainer_path(spread["recipe"], info)
     return {p: r["mel_per_replay_counters"] for p, r in paths.items()}
 
 
@@ -1021,7 +1227,8 @@ class ClipDataset:
 
 def synth_trainer_class():
     """The port's Trainer with in-memory data from data/synthworld.py, and
-    the train step wrapped to keep its metrics. With psl: {mode: offline}
+    the train step and the K-step wrapped to keep each step's metrics (the
+    wrappers keep the steps' ``graphs``). With psl: {mode: offline}
     the AudioSet half is the port's PSLCachedRandomCropHDF5Dataset over
     audioset_train_data, a list of manifest rows whose hdf5path is an
     in-memory {filename: PCM} store."""
@@ -1067,7 +1274,16 @@ def synth_trainer_class():
                 self.metrics.append(m)
                 return m
 
-            self.train_step = recorded
+            recorded.graphs, self.train_step = getattr(step, "graphs", None), recorded
+            multi = self.multi_step
+            if multi is not None:
+                def recorded_multi(batches, generator=None):
+                    m = multi(batches, generator)
+                    self.metrics.extend({k: v[i] for k, v in m.items()}
+                                        for i in range(len(m["total_loss"])))
+                    return m
+
+                recorded_multi.graphs, self.multi_step = multi.graphs, recorded_multi
             self.start = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
             self.teacher_start = ({} if self.psl_model is None else
                                   {k: v.detach().clone()
@@ -1176,11 +1392,15 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
     """One train step of a configuration (PSL teacher, AdamW or
     ``optimizer``, constant lr, no augments, no dropout, no mixup) from the
     same weights and batch on the card (the mel kernels) and through the
-    plain path on the CPU. Gates: the step's two frontends (frontend_gate)
-    and step_agreement (the step's own params too where PARITY says so)."""
+    plain path on the CPU. The card's step is a CUDA-graph replay: its
+    warm-up and capturing calls run first, then the model and the optimizer
+    are put back in place to the start and the next call, a replay, is the
+    step held. Gates: the step's two frontends (frontend_gate) and
+    step_agreement (the step's own params too where PARITY says so)."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ckpt import module_from_numpy, module_to_numpy
     from uit_mobile_tpu_torch.ops import launches
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
     from uit_mobile_tpu_torch.utils import resolve_device
@@ -1217,18 +1437,33 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
         dev = resolve_device(dev_name)
         model, opt = fresh(dev)
         t_model = module_from_numpy(t_cfg, *teacher, device=dev).requires_grad_(False)
-        grads = step_grads(opt)
+        grads = step_grads(opt, every_call=True)
         step = make_train_step(cfg, model, opt, psl_cfg=t_cfg, psl_model=t_model,
                                psl_split=n_as, frontend_fn=fe, psl_frontend_fn=psl_fe)
+        batch = {"wav": torch.from_numpy(wav).to(dev), "target": torch.from_numpy(target).to(dev)}
+        if step.graphs is not None:
+            start = ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                     [t.detach().clone() for t in opt.state_leaves()])
+            for _ in range(calls_to_capture(step)):
+                step(batch)
+            model.load_state_dict(start[0])  # in place: the graph reads these tensors
+            opt.load_state_leaves(start[1])
+            replays = sum(s["replays"] for s in step.graphs.stats())
+        torch.cuda.synchronize()
         before = dict(launches)
         t0 = time.perf_counter()
-        m = step({"wav": torch.from_numpy(wav).to(dev),
-                  "target": torch.from_numpy(target).to(dev)})
+        m = step(batch)
         loss = m["total_loss"].item()
         rec[f"{dev_name}_step_s"] = time.perf_counter() - t0
         rec[f"{dev_name}_launches"] = {k: launches[k] - before[k] for k in before}
+        if step.graphs is not None:
+            check(sum(s["replays"] for s in step.graphs.stats()) == replays + 1,
+                  f"{name}: the step held on the card was not a replay")
+        rec[f"{dev_name}_step"] = "replay" if step.graphs is not None else "eager"
         runs[dev_name] = (loss, m["grad_norm"].item(),
-                          {k: v.detach().cpu() for k, v in model.named_parameters()}, grads)
+                          {k: v.detach().cpu() for k, v in model.named_parameters()},
+                          {k: v.cpu() for k, v in grads.items()})
+    check(rec["cuda_step"] == "replay", f"{name}: the step on the card is not graphed")
     check(rec["cuda_launches"][variant] == 2,
           f"{name}: the step on the card did not launch {variant} twice: {rec['cuda_launches']}")
     rec.update(step_agreement(runs, fresh, all_params), card=info["nvidia_smi"])
@@ -1237,17 +1472,26 @@ def train_parity(name: str, info, optimizer=("AdamW", {"weight_decay": 5e-8})) -
     return rec
 
 
-def step_grads(opt) -> dict:
-    """{name: gradient} of the optimizer's next micro-step, filled in when
-    its device side runs (the gradients after any clipping; every step
-    reaches the optimizer through ``device_update``). That micro-step only:
-    its copy to the host could not run inside a CUDA graph, and the first
-    call of a graphed step runs eagerly."""
+def step_grads(opt, every_call: bool = False) -> dict:
+    """{name: gradient} of the optimizer's micro-step, filled in when its
+    device side runs (the gradients after any clipping; every step reaches
+    the optimizer through ``device_update``). By default the next
+    micro-step's only, copied to the host. ``every_call``: every
+    micro-step's, copied into buffers on the gradients' device that the
+    first call allocates (a graphed step's first call runs eagerly), so the
+    graph captured after it holds the copy and a replay refreshes them; the
+    caller copies them to the host."""
     grads, device_update = {}, opt.device_update
 
     def recorded(g, kind, row):
-        opt.device_update = device_update
-        grads.update({n: v.detach().cpu().clone() for n, v in zip(opt.names, g)})
+        if not every_call:
+            opt.device_update = device_update
+            grads.update({n: v.detach().cpu().clone() for n, v in zip(opt.names, g)})
+        else:
+            if not grads:
+                grads.update({n: torch.empty_like(v) for n, v in zip(opt.names, g)})
+            for n, v in zip(opt.names, g):
+                grads[n].copy_(v)
         return device_update(g, kind, row)
 
     opt.device_update = recorded
@@ -1351,7 +1595,7 @@ def time_train_step(trainer, name: str, info) -> dict:
            "mel_share": (mel_student + mel_teacher) / step_ms, "teacher_forward_ms": teacher_ms,
            "teacher_share": teacher_ms / step_ms, "teacher_enqueue_ms": teacher_enqueue,
            "clips_per_s": B * 1e3 / step_ms,
-           **profile_steps(lambda: trainer.train_step(batch, gen), step_ms),
+           **profile_steps(lambda: trainer.train_step(batch, gen)),
            "card": info["nvidia_smi"]}
     emit(rec)
     return rec
@@ -1374,19 +1618,27 @@ def union_us(intervals) -> float:
     return total
 
 
-def profile_steps(step, step_ms: float, n: int = 5, spans: dict | None = None) -> dict:
-    """torch.profiler over n steps: the device's busy time a step (the union
-    of its kernels', memcpys' and memsets' intervals), its idle share of the
-    CUDA-event step time, the kernels launched a step, and the busy time by
-    kind of kernel. ``spans`` {name: device_us(events)} (moe_mlp_span's)
-    adds each span's device ms a step and its share of the busy time. None
-    where the trace holds no device event."""
+def profile_steps(step, n: int = 5, spans: dict | None = None) -> dict:
+    """n steps timed untraced (CUDA events around them), then torch.profiler
+    over n more: the device's busy time a step (the union of its kernels',
+    memcpys' and memsets' intervals), its idle share of the untraced steps'
+    time, the kernels launched a step, and the busy time by kind of kernel.
+    ``spans`` {name: device_us(events)} (moe_mlp_span's) adds each span's
+    device ms a step and its share of the busy time. None where the trace
+    holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     spans = spans or {}
     step()
     torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        step()
+    end.record()
+    end.synchronize()
+    untraced_ms = start.elapsed_time(end) / n
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             step()
@@ -1403,9 +1655,16 @@ def profile_steps(step, step_ms: float, n: int = 5, spans: dict | None = None) -
                     "elementwise/other")
         groups[kind] = groups.get(kind, 0.0) + (e.time_range.end - e.time_range.start) / n / 1e3
     busy_ms = busy / n / 1e3
-    # not clamped: a busy time above the CUDA-event step shows as a negative
-    # share, i.e. the two readings disagree
-    out = {"device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / step_ms,
+    # The share is of the untraced steps' time: under the profiler a graph's
+    # kernels run ~0.6-1.4 us further apart on an H100, so the trace's span
+    # overstates a replay's idle time. Where the untraced steps are next to
+    # never idle, the traced busy time can exceed their time (the frontier
+    # K-step's replay: 0.56 % over it, the profiler's tracing or the run-to-
+    # run spread, which these readings cannot tell apart): the share reads
+    # 0 there, and busy_over_untraced, kept beside it, says by how much.
+    out = {"device_busy_ms": busy_ms, "untraced_ms": untraced_ms,
+           "busy_over_untraced": busy_ms / untraced_ms,
+           "device_idle_share": max(0.0, 1.0 - busy_ms / untraced_ms),
            "kernels_per_step": len(dev) / n,
            "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
     for name, device_us in spans.items():
@@ -1497,7 +1756,7 @@ def phase_bf16(info) -> dict:
         for name, step in steps.items():
             ms[name].append(time_ms(lambda: step(batch), warmup=2, iters=10))
     step_ms = {name: min(v) for name, v in ms.items()}
-    prof = {name: profile_steps(lambda: step(batch), step_ms[name]) for name, step in steps.items()}
+    prof = {name: profile_steps(lambda: step(batch)) for name, step in steps.items()}
     # serving forward, uit_xs at full depth in both dtypes on the card
     cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102)
     model = models.build(cfg, torch.Generator().manual_seed(1234), device="cuda")
@@ -1632,7 +1891,7 @@ def phase_psl_cache(info) -> tuple:
     crops_256 = np.stack([c[:SR] for _, c in clips[::2][:16]] * 16)
     frontend = frontend_gate(fn.frontend, torch.from_numpy(crops_256).cuda(), "exact", "bft")
     score_ms = time_ms(lambda: fn(crops_256), warmup=2, iters=10)
-    score_prof = profile_steps(lambda: fn(crops_256), score_ms)
+    score_prof = profile_steps(lambda: fn(crops_256))
     sub = clips[:8]
     cpu = score_psl_cache(sub, make_teacher_fn(t_cfg, module_from_numpy(t_cfg, *t_init, "cpu")),
                           batch_size=64, teacher_name="MobileNetV2 (seed 0)")
@@ -1681,7 +1940,7 @@ def phase_psl_cache(info) -> tuple:
         batch = {"wav": wav, "target": torch.from_numpy(target).cuda()}
         losses[mode] = step(batch)["total_loss"].item()
     offline_ms = time_ms(lambda: step(batch), warmup=2, iters=10)
-    offline_prof = profile_steps(lambda: step(batch), offline_ms)
+    offline_prof = profile_steps(lambda: step(batch))
     gap = abs(losses["online"] - losses["offline"])
     emit({"phase": "psl_cache", "clips": 64, "crops": crops, "teacher_B": 256,
           "scoring_s": wall, "crops_per_s": crops / wall, "scoring_launches": score_counts,
@@ -1826,7 +2085,7 @@ def phase_sed(info) -> dict:
     whole = step_agreement(runs, fresh)
     agree = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)
     step_ms = time_ms(lambda: steps["cuda"](card_batch), warmup=2, iters=10)
-    prof = profile_steps(lambda: steps["cuda"](card_batch), step_ms)
+    prof = profile_steps(lambda: steps["cuda"](card_batch))
     emit({"phase": "sed", "B": 64, "steps": 10, "wall_s": wall, "launches": counts,
           "segment_f1_micro_by_epoch": [float(x) for x in f1], "best_epoch": extra["epoch"],
           "best_sed_framewise": list(fw.shape), "frontend": frontend,
@@ -1908,7 +2167,7 @@ def phase_pretrain(info) -> dict:
     step = mae.make_mae_step(cfg, model, build_optimizer("AdamW", 1.5e-4).init(model))
     card_wav, gen = wav.cuda(), torch.Generator(device="cuda").manual_seed(24)
     step_ms = time_ms(lambda: step(card_wav, gen), warmup=2, iters=10)
-    prof = profile_steps(lambda: step(card_wav, gen), step_ms)
+    prof = profile_steps(lambda: step(card_wav, gen))
     # the snapshot into a 102-frame student, on the card and on the CPU
     loaded = {}
     for dev in ("cuda", "cpu"):
@@ -2154,12 +2413,12 @@ def moe_mlp_span(moe_mod):
     return (lambda: setattr(moe_mod, "moe_mlp", orig)), device_us
 
 
-def profile_moe(moe_mod, step, step_ms: float) -> dict:
+def profile_moe(moe_mod, step) -> dict:
     """profile_steps over 3 steps with moe_mlp's span: its device time a
     step and its share of the device's busy time."""
     restore, device_us = moe_mlp_span(moe_mod)
     try:
-        prof = profile_steps(step, step_ms, n=3, spans={"moe_mlp": device_us})
+        prof = profile_steps(step, n=3, spans={"moe_mlp": device_us})
     finally:
         restore()
     share = prof.get("moe_mlp_share_of_busy")
@@ -2218,7 +2477,7 @@ def phase_moe(info) -> dict:
            "precision": "exact", "launches": counts["serve"], "max_abs_drift_vs_cpu": serve_drift,
            "forward_ms": forward_ms, "clips_per_s": MOE_B * 1e3 / forward_ms,
            "eager_forward_ms": eager_ms, "profiled": "the eager body",
-           **profile_moe(moe, eager, eager_ms), "card": info["nvidia_smi"]}
+           **profile_moe(moe, eager), "card": info["nvidia_smi"]}
     emit(rec)
     check(probs.shape == (MOE_B, 537) and serve_drift <= 1e-3,
           f"moe serve: {tuple(probs.shape)}, drift {serve_drift} from the CPU plain path")
@@ -2252,7 +2511,7 @@ def phase_moe(info) -> dict:
           and f"{last}.fc2.kernel" in moved,
           f"moe train: moved {len(moved)} tensors")
     step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
-    prof = profile_moe(moe, lambda: step(x, t), step_ms)
+    prof = profile_moe(moe, lambda: step(x, t))
     # one step on the card against the CPU, from the same weights: through
     # the plain mel (the whole step), through the card's mel (the step after
     # the frontend), and through the card's mel and the card's expert ReLU
@@ -2636,7 +2895,7 @@ def phase_eval(npz: Path, other: Path, info) -> dict:
                 "mel_launches_per_batch": per_batch,
                 "forward_clips_per_s": x.shape[0] * 1e3 / forward_ms,
                 "epoch_clips": 64, "epoch_s": epoch_s, "epoch_clips_per_s": 64 / epoch_s,
-                **profile_steps(lambda: fwd(x), forward_ms)}
+                **profile_steps(lambda: fwd(x))}
         rec["timing"] = timing
         rec["wall_s"] = time.perf_counter() - t_phase
         emit(rec)

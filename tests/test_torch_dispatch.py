@@ -151,6 +151,35 @@ def test_multi_step_bitwise_single_steps(world, opt_name, wrap):
     assert len(o1) == len(o2) and all(torch.equal(a, b) for a, b in zip(o1, o2))
 
 
+def test_multi_step_of_any_train_step_is_k_calls(world):
+    """A train step that ``make_train_step`` did not build (here one
+    wrapped in a function, as the eager framewise, MAE and MoE steps are
+    their own) still takes K stacked batches: exactly K sequential calls,
+    bitwise, its metrics stacked."""
+    wavs, tgts = torch.from_numpy(world["wavs"]), torch.from_numpy(world["tgts"])
+    runs = []
+    for multi in (False, True):
+        model = _model(world)
+        opt = build_optimizer("AdamW", 1e-3).init(model)
+        inner = make_train_step(world["cfg"], model, opt, mixup_alpha=0.3, max_grad_norm=1.0)
+
+        def step(batch, generator=None):
+            return inner(batch, generator)
+
+        g = torch.Generator().manual_seed(5)
+        if multi:
+            m = make_multi_step(step)({"wav": wavs, "target": tgts}, g)
+            assert m["grad_norm"].shape == (K,)
+            losses = m["total_loss"]
+        else:
+            losses = torch.stack([step({"wav": wavs[i], "target": tgts[i]}, g)["total_loss"]
+                                  for i in range(K)])
+        runs.append((losses, copy.deepcopy(model.state_dict()), g.get_state()))
+    (l1, s1, g1), (l2, s2, g2) = runs
+    assert torch.equal(l1, l2) and torch.equal(g1, g2)
+    assert all(torch.equal(s1[k], s2[k]) for k in s1)
+
+
 # ------------------------------------------------------------ the Trainer
 
 
@@ -438,7 +467,8 @@ def test_captured_bodies_read_nothing_on_the_host(world):
 
 def test_graphed_is_the_function_on_the_cpu():
     """On a CPU device ``graphed`` returns the function: the eager path the
-    caller asked for; the forwards carry no graphs there."""
+    caller asked for; the forwards carry no graphs there, and their eager
+    version (the data-parallel shards') is the forward itself."""
     def f(x):
         return x + 1
 
@@ -449,3 +479,4 @@ def test_graphed_is_the_function_on_the_cpu():
                                                                depth=1),
                                        torch.Generator().manual_seed(0), "cpu"))
     assert fwd.graphs is None and graphs.calls_to_capture(fwd) == 1
+    assert fwd.eager is fwd

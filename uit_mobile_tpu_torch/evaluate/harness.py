@@ -146,10 +146,11 @@ class Evaluator:
         self._fwd_fn = make_forward_fn(cfg, model, use_kernel=self._kernel(),
                                        precision="fast" if self.fast else "exact",
                                        btf=self.fast)
-        scanned = make_scanned_forward(self._fwd_fn) if self.scan_batches > 1 else None
+        self._scan_fn = (make_scanned_forward(self._fwd_fn) if self.scan_batches > 1
+                         else None)
         self._fwd_async = lambda wav_np: self._fwd_fn(to_device(wav_np, self.device))
-        self._fwd_block = (None if scanned is None else
-                           lambda block_np: scanned(to_device(block_np, self.device))
+        self._fwd_block = (None if self._scan_fn is None else
+                           lambda block_np: self._scan_fn(to_device(block_np, self.device))
                            .flatten(0, 1))
 
     def _make_dp_forward(self, cfg, model):
@@ -166,7 +167,7 @@ class Evaluator:
         top_db_mode = "per_sample" if kernel and self.fast else None
         fns = [make_forward_fn(cfg, m, use_kernel=kernel,
                                precision="fast" if self.fast else "exact", btf=self.fast,
-                               top_db_mode=top_db_mode, graph=False)
+                               top_db_mode=top_db_mode)
                for m in replicate_tree(self.mesh, model)]
         dp = data_parallel_forward(fns, self.mesh)
         n = self.mesh.size
@@ -178,7 +179,7 @@ class Evaluator:
                     [wav_np, np.zeros((n - b % n, wav_np.shape[1]), wav_np.dtype)])
             return dp(torch.from_numpy(np.ascontiguousarray(wav_np)))[:b]
 
-        self._fwd_fn = dp
+        self._fwd_fn, self._scan_fn = dp, None
         self._fwd_async, self._fwd_block = fwd_async, None
         self.scan_batches = 1
 

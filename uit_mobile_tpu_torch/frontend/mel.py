@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..parallel.rows import global_max
+from ..utils.device import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,28 +128,11 @@ def frame_signal(wav: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     return wav.unfold(-1, config.n_fft, config.hop_length)
 
 
-_CONSTANTS: dict = {}
-
-
-def _constant(name: str, config: FrontendConfig, dtype, device, make) -> torch.Tensor:
-    """``make()`` (a numpy array) as a tensor on ``device``, moved once per
-    key: a forward on the card copies nothing from the host (a CUDA graph
-    could not). Under a trace (``torch.export``) the tensor is the trace's
-    and never cached."""
-    key = (name, config, dtype, torch.device(device))
-    t = _CONSTANTS.get(key)
-    if t is None:
-        t = torch.as_tensor(make(), dtype=dtype, device=device)
-        if not torch.compiler.is_compiling():
-            _CONSTANTS[key] = t
-    return t
-
-
 def spectrogram(wav: torch.Tensor, config: FrontendConfig) -> torch.Tensor:
     """Power spectrogram, (..., T) -> (..., n_freqs, n_frames). power=2.0."""
     frames = frame_signal(wav, config)
-    window = _constant("window", config, frames.dtype, wav.device,
-                       lambda: padded_window(config.win_length, config.n_fft))
+    window = device_constant(("window", config), frames.dtype, wav.device,
+                             lambda: padded_window(config.win_length, config.n_fft))
     spec = torch.fft.rfft(frames * window, n=config.n_fft, dim=-1)
     power = spec.real ** 2 + spec.imag ** 2
     return power.transpose(-1, -2)
@@ -199,6 +183,7 @@ def log_mel_spectrogram(wav: torch.Tensor, config: FrontendConfig) -> torch.Tens
     if wav.dtype == torch.int16:
         wav = wav.float() * (1.0 / 32768.0)
     power = spectrogram(wav, config)                       # (..., F, TT)
-    fb = _constant("fb", config, power.dtype, wav.device, lambda: mel_filterbank(config))
+    fb = device_constant(("fb", config), power.dtype, wav.device,
+                         lambda: mel_filterbank(config))
     mel = (power.transpose(-1, -2) @ fb).transpose(-1, -2)
     return amplitude_to_db(mel, config)

@@ -134,10 +134,6 @@ class GraphedFn:
                 g = self._capture(key, leaves, spec)
             return self._replay(g, leaves)
 
-    def calls_to_capture(self) -> int:
-        """Calls of a new key up to and including the one that captures it."""
-        return WARMUP + 1
-
     def _eager(self, args):
         card, cur = _card(self.device), torch.cuda.current_stream(self.device)
         with card.side_lock:
@@ -228,8 +224,9 @@ def graphed(fn: Callable, device) -> Callable:
 
 
 def calls_to_capture(fn) -> int:
-    """How many calls of a new key ``fn`` takes to hold its graph: ``fn``
-    may be a ``GraphedFn`` or a function with one as its ``graphs``
-    attribute (``ops.pipeline``'s forwards); 1 for an eager function."""
+    """How many calls of a new key ``fn`` takes to hold its graph (the
+    warm-up calls and the one that captures): ``fn`` may be a ``GraphedFn``
+    or a function with one as its ``graphs`` attribute (``ops.pipeline``'s
+    forwards, the train steps); 1 for an eager function."""
     g: Optional[GraphedFn] = fn if isinstance(fn, GraphedFn) else getattr(fn, "graphs", None)
-    return 1 if g is None else g.calls_to_capture()
+    return 1 if g is None else WARMUP + 1

@@ -85,7 +85,7 @@ def ensemble_forward(members: list, run_cfg, frontend, wav: torch.Tensor) -> tor
 
 def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
                     precision: str = "exact", top_db_mode: Optional[str] = None,
-                    btf: Optional[bool] = None, graph: bool = True):
+                    btf: Optional[bool] = None):
     """Eval forward fn(wav) -> probs on the model's device.
 
     model: one model, or a list of models of one config (an ensemble: the
@@ -100,27 +100,33 @@ def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
     chain. ``wav`` is a (B, T) float32 or int16 tensor or array.
     fn.uses_kernel and fn.top_db_mode say which frontend runs; fn.body is
     the forward of a device batch and fn.graphs its ``GraphedFn`` on the
-    card (None on the CPU). graph=False keeps the card's forward eager: the
-    data-parallel shards (parallel/mesh.py) meet in a collective inside it."""
+    card (None on the CPU); fn.eager is fn never graphed (the data-parallel
+    shards of parallel/mesh.py run it: they meet in a collective inside it)."""
     members, device, run_cfg, frontend, use_kernel = _policy(
         cfg, model, use_kernel, precision, top_db_mode, btf)
 
     def body(wav):
         return ensemble_forward(members, run_cfg, frontend, wav)
 
-    return _device_fn(body, device, use_kernel, run_cfg, graph)
+    return _device_fn(body, device, use_kernel, run_cfg)
 
 
-def _device_fn(body, device, use_kernel, run_cfg, graph=True):
-    """fn(wav): ``body`` on the batch moved to ``device``, under inference
-    mode, graphed on the card unless ``graph`` is False; with the
-    attributes make_forward_fn lists."""
-    run = graphed(body, device) if graph else body
+def _on_device(run, device):
+    """fn(wav) -> ``run`` on the batch moved to ``device``, under inference mode."""
 
     @torch.inference_mode()
     def fn(wav):
         return run(torch.as_tensor(wav).to(device))
 
+    return fn
+
+
+def _device_fn(body, device, use_kernel, run_cfg):
+    """``body`` on the batch moved to ``device``, graphed on the card, with
+    the attributes make_forward_fn lists."""
+    run = graphed(body, device)
+    fn = _on_device(run, device)
+    fn.eager = fn if run is body else _on_device(body, device)
     fn.uses_kernel = use_kernel
     fn.top_db_mode = run_cfg.frontend.top_db_mode
     fn.body, fn.device = body, device
@@ -159,11 +165,7 @@ def make_scanned_forward(fwd_fn):
         return torch.stack([body(block[k]) for k in range(block.shape[0])])
 
     run = graphed(scanned_body, device)
-
-    @torch.inference_mode()
-    def scanned(wav_block):
-        return run(torch.as_tensor(wav_block).to(device))
-
+    scanned = _on_device(run, device)
     scanned.graphs = None if run is scanned_body else run
     return scanned
 

@@ -268,6 +268,10 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
         raise ValueError("data_parallel_forward runs an in-process mesh; a process group's "
                          "ranks each run their own forward")
     fns = list(forward_fn) if isinstance(forward_fn, (list, tuple)) else [forward_fn] * mesh.size
+    # the shards meet in a collective inside the forward, whose host-side
+    # rendezvous no CUDA graph can hold: each runs its forward's eager
+    # version (``ops.pipeline``'s ``fn.eager``)
+    runs = [getattr(f, "eager", f) for f in fns]
     if len(fns) != mesh.size:
         raise ValueError(f"{len(fns)} forwards for a mesh of {mesh.size} devices")
     n_axis = mesh.size
@@ -286,7 +290,7 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
                 on_stream = (torch.cuda.stream(streams[i]) if streams[i] is not None
                              else contextlib.nullcontext())
                 with sharded(rows), on_stream:
-                    outs[i] = fns[i](shards[i])
+                    outs[i] = runs[i](shards[i])
             except BaseException as e:  # noqa: BLE001 - re-raised by the caller
                 errors.append(e)
                 group.abort()
@@ -309,7 +313,7 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
                              f"({wav.shape[0]})")
         shards = [s.to(d) for s, d in zip(wav.chunk(n_axis), mesh.devices)]
         if n_axis == 1:
-            return fns[0](shards[0])
+            return runs[0](shards[0])
         return torch.cat([o.to(mesh.devices[0]) for o in run_collective(shards)])
 
     fn.uses_kernel = getattr(fns[0], "uses_kernel", False)

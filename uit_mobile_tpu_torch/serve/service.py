@@ -211,7 +211,7 @@ class TaggingService:
             return data_parallel_forward(
                 [make_forward_fn(self._model_cfg, m, use_kernel=use_kernel,
                                  precision="fast" if use_kernel else "exact",
-                                 top_db_mode=self.cfg.top_db_mode, graph=False)
+                                 top_db_mode=self.cfg.top_db_mode)
                  for m in replicate_tree(self._mesh, model)], self._mesh), None
         fwd = make_forward_fn(self._model_cfg, model, use_kernel=use_kernel,
                               precision="fast" if use_kernel else "exact",

@@ -33,6 +33,7 @@ from .. import models
 from ..augment.mixup import mixup_targets, sample_mixup_lambdas
 from ..parallel.rows import Rows, global_sum, sharded
 from ..parallel.rows import current as current_rows
+from ..utils.device import device_constant
 
 # ------------------------------------------------------------------- losses
 
@@ -49,18 +50,13 @@ def _reduce(x: torch.Tensor, reduction: str) -> torch.Tensor:
 
 def _weight(weight):
     """``weight`` -> None, or fn(device) -> it as float32 on that device,
-    moved once a device: a step on the card copies nothing from the host
-    (a CUDA graph could not)."""
+    moved once a device (``utils.device.device_constant``): a step on the
+    card copies nothing from the host (a CUDA graph could not)."""
     if weight is None:
         return None
-    w, placed = torch.as_tensor(weight, dtype=torch.float32), {}
-
-    def on(device):
-        if device not in placed:
-            placed[device] = w.to(device)
-        return placed[device]
-
-    return on
+    w = np.asarray(weight, dtype=np.float32)
+    key = ("loss_weight", w.shape, w.tobytes())
+    return lambda device: device_constant(key, torch.float32, device, lambda: w)
 
 
 def _bce_elements(probs: torch.Tensor, targets: torch.Tensor, eps: float) -> torch.Tensor:
@@ -780,17 +776,27 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
 def make_multi_step(train_step: Callable) -> Callable:
     """K train steps in a row: ``multi(batches, generator)`` with a leading
     (K, ...) axis on every batch leaf -> metrics stacked over the K steps.
-    Exactly K sequential ``train_step`` calls. For a ``make_train_step``
-    step on the card the K steps are one CUDA graph (one replay, as JAX's
-    ``lax.scan`` is one program), the host writing the K micro-steps'
-    scalars (their learning rates) before it; the metrics are (K,) device
-    tensors. ``multi.body(batches, generator, kinds)`` is the device side
-    the graph holds, ``multi.graphs`` its ``GraphedFn`` (None on the CPU)."""
+    Exactly K sequential ``train_step`` calls, for any train step. For a
+    ``make_train_step`` step on the card the K steps are one CUDA graph (one
+    replay, as JAX's ``lax.scan`` is one program), the host writing the K
+    micro-steps' scalars (their learning rates) before it; the metrics are
+    (K,) device tensors. ``multi.body(batches, generator, kinds)`` is the
+    device side the graph holds, ``multi.graphs`` its ``GraphedFn`` (None on
+    the CPU, and for the steps that stay eager: framewise, MAE, MoE)."""
 
     from ..ops.graphs import graphed
 
     def take(tree, i):
         return {k: take(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+    if not hasattr(train_step, "device_step"):  # a step with no device side of its own
+        def sequential(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
+            K = next(iter(_leaves(batches))).shape[0]
+            ms = [train_step(take(batches, i), generator) for i in range(K)]
+            return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+        sequential.body, sequential.graphs = None, None
+        return sequential
 
     step, optimizer = train_step.device_step, train_step.optimizer
 

@@ -21,3 +21,21 @@ def resolve_device(device="cuda") -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, dtype, device, make) -> torch.Tensor:
+    """``make()`` (an array) as a ``dtype`` tensor on ``device``, moved once
+    per (key, dtype, device): a forward or a step on the card then copies
+    nothing from the host (a CUDA graph could not). ``key`` names the
+    constant and must be hashable. Under a trace (``torch.export``) the
+    tensor is the trace's and never cached."""
+    full = (key, dtype, torch.device(device))
+    t = _CONSTANTS.get(full)
+    if t is None:
+        t = torch.as_tensor(make(), dtype=dtype, device=device)
+        if not torch.compiler.is_compiling():
+            _CONSTANTS[full] = t
+    return t
