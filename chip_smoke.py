@@ -780,16 +780,22 @@ def graph_step_world(name: str):
                                psl_split=n_as, mixup_alpha=0.3, max_grad_norm=1.0,
                                frontend_fn=fe, psl_frontend_fn=psl_fe, **augments)
         gen = torch.Generator(device=CARD).manual_seed(21)
-
-        def state():
-            torch.cuda.synchronize()
-            return ([v.detach().clone() for v in model.state_dict().values()]
-                    + [t.detach().clone() for t in opt.state_leaves()[1:]]
-                    + [torch.tensor([opt.count, gen.get_offset()])])
-
-        return step, make_multi_step(step), state, gen
+        return step, make_multi_step(step), run_state(model, opt, gen), gen
 
     return fresh, batches
+
+
+def run_state(model, opt, gen):
+    """-> state(): a step's whole state on the host's side of a sync: the
+    model's parameters and buffers, the optimizer's leaves, its count and
+    the generator's offset (last)."""
+    def state():
+        torch.cuda.synchronize()
+        return ([v.detach().clone() for v in model.state_dict().values()]
+                + [t.detach().clone() for t in opt.state_leaves()[1:]]
+                + [torch.tensor([opt.count, gen.get_offset()])])
+
+    return state
 
 
 def state_gap(a: list, b: list) -> float:
@@ -799,25 +805,41 @@ def state_gap(a: list, b: list) -> float:
 
 def graph_step_path(name: str, info) -> list:
     """The fused train step of one configuration (PSL teacher, mixup, clip,
-    EMA; the recipe with its augments) on the card over 1 + GRAPH_BLOCKS x K
-    batches: two eager runs, the graphed single step (one eager warm-up,
-    then replays) and the graphed K-step (one single step, then
-    GRAPH_BLOCKS K-steps: a warm-up and two replays) from one state and one
-    generator state. Gate: where the two eager runs agree bitwise, the
-    graphed runs equal them bitwise (parameters, BN buffers, moments, EMA,
-    count and the generator's offset), else within twice the eager spread;
-    each call after the warm-up one replay."""
-    t0 = time.perf_counter()
+    EMA; the recipe with its augments): held_step_path over
+    graph_step_world's batches."""
     fresh, batches = graph_step_world(name)
-    variant = GRAPH_STEPS[name][4]
+    return held_step_path("graphs", name, fresh, batches, GRAPH_STEPS[name][4], info)
+
+
+# mel launches a replay of each graphed path held outside phase_graphs
+REPLAY_LAUNCHES: dict = {}
+
+
+def eager_step(step, batch: dict, gen=None):
+    """One micro-step of a dispatched step, host plan then its device side,
+    never graphed."""
+    (kind,) = step.optimizer.plan(1)
+    return step.device_step(batch, gen, kind, step.optimizer.scalars(1)[0])
+
+
+def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -> list:
+    """A dispatched train step (train/steps.py) on the card over 1 +
+    GRAPH_BLOCKS x K batches (dicts of device tensors): two eager runs, the
+    graphed single step (one eager warm-up, then replays) and the graphed
+    K-step (one single step, then GRAPH_BLOCKS K-steps: a warm-up and two
+    replays) from one state and one generator state; ``fresh()`` -> (step,
+    multi, state(), generator). Gate: where the two eager runs agree
+    bitwise, the graphed runs equal them bitwise (parameters, buffers,
+    optimizer leaves, count and the generator's offset), else within twice
+    the eager spread; each call after the warm-up one replay; ``variant``
+    in every replay (None: no mel kernel in the step)."""
+    t0 = time.perf_counter()
     K, n = GRAPH_K, len(batches)
 
     def eager_run():
         step, _, state, gen = fresh()
-        opt, body = step.optimizer, step.device_step
         for b in batches:
-            (kind,) = opt.plan(1)
-            body(b, gen, kind, opt.scalars(1)[0])
+            eager_step(step, b, gen)
         return state()
 
     e1, e2 = eager_run(), eager_run()
@@ -829,28 +851,28 @@ def graph_step_path(name: str, info) -> list:
         step, multi, state, gen = fresh()
         if how == "single":
             for b in batches:
-                step(b, gen)
+                step.batch_step(b, gen)
             g, calls = step.graphs, n
         else:
-            step(batches[0], gen)
+            step.batch_step(batches[0], gen)
             for i in range(1, n, K):
                 multi({k: torch.stack([b[k] for b in batches[i:i + K]]) for k in batches[0]},
                       gen)
             g, calls = multi.graphs, (n - 1) // K
         got = state()
         gap = state_gap(got, e1)
-        check(g is not None, f"graphs {name} {how}: the step on the card is not graphed")
-        replays = sum(s["replays"] for s in g.stats())
-        check(replays == calls - 1, f"graphs {name} {how}: {replays} replays for {calls} "
-                                    f"calls (one eager warm-up, then one replay a call)")
+        check(g is not None, f"{phase} {name} {how}: the step on the card is not graphed")
+        replays, keys = sum(s["replays"] for s in g.stats()), len(g._eager_calls)
+        check(replays == calls - keys, f"{phase} {name} {how}: {replays} replays for {calls} "
+                                       f"calls of {keys} keys (one eager warm-up a key, then "
+                                       f"one replay a call)")
         b0 = batches[0]
         opt = step.optimizer
         if how == "single":
             def eager_call():
-                (kind,) = opt.plan(1)
-                return step.device_step(b0, gen, kind, opt.scalars(1)[0])
+                return eager_step(step, b0, gen)
 
-            replay_call = lambda: step(b0, gen)  # noqa: E731
+            replay_call = lambda: step.batch_step(b0, gen)  # noqa: E731
         else:
             block = {k: torch.stack([b0[k]] * K) for k in b0}
 
@@ -860,17 +882,21 @@ def graph_step_path(name: str, info) -> list:
                         for i, kind in enumerate(kinds)]
 
             replay_call = lambda: multi(block, gen)  # noqa: E731
-        rec = {"phase": "graphs", "path": f"{name}_{'step' if how == 'single' else f'{K}_steps'}",
-               "B": GRAPH_STEPS[name][0], "steps": n, "calls": calls, "gate": gate,
-               "max_abs_gap_vs_eager": gap, "eager_vs_eager_spread": spread,
+        path = f"{name}_{'step' if how == 'single' else f'{K}_steps'}"
+        rec = {"phase": phase, "path": path, "B": int(b0["wav"].shape[0]), "steps": n,
+               "calls": calls, "graph_keys": keys, "gate": gate, "max_abs_gap_vs_eager": gap,
+               "eager_vs_eager_spread": spread,
                "generator_offset": [int(got[-1][1]), int(e1[-1][1])],
                **dispatch_readings(eager_call, replay_call, g, n_prof=1),
                "card": info["nvidia_smi"],
                "wall_s_since_start": time.perf_counter() - t0}
         emit(rec)
-        check(gap <= limit, f"graphs {name} {how}: replay vs eager gap {gap} over {gate}")
-        check(rec["mel_per_replay_counters"].get(variant, 0) > 0,
-              f"graphs {name} {how}: no {variant} in a replay")
+        check(gap <= limit, f"{phase} {name} {how}: replay vs eager gap {gap} over {gate}")
+        mel = rec["mel_per_replay_counters"]
+        check(mel.get(variant, 0) > 0 if variant else not mel,
+              f"{phase} {name} {how}: mel launches a replay {mel}, expected {variant}")
+        if phase != "graphs":
+            REPLAY_LAUNCHES[f"{phase}_{path}"] = mel
         recs.append(rec)
     return recs
 
@@ -946,6 +972,75 @@ def graph_trainer_path(spread: float, info) -> dict:
           f"graphs trainer: replays {rec['replays']}")
     check(one["launches"] == many["launches"] == {"row_exact": 2 * steps},
           f"graphs trainer: launches {rec['launches']}")
+    return rec
+
+
+def ema_copy(model, opt):
+    """The eager validation model as it was built before (a deep copy with
+    the EMA parameters): what the in-place validation module is held to."""
+    from uit_mobile_tpu_torch.train import find_ema_params
+
+    m, ema = copy.deepcopy(model), find_ema_params(opt)
+    with torch.no_grad():
+        for name, p in m.named_parameters():
+            p.copy_(ema[name])
+    return m.eval()
+
+
+def graph_validation_path(info) -> dict:
+    """The Trainer's validation (train/loop.py) at the recipe with a
+    parameter EMA: three validations of its 64 test clips (two batches of
+    32, one shape) around two train steps, through one ValidationModel and
+    one graphed eval forward. Gates: the module the same object holding the
+    EMA (and the model's BN buffers) at each; each batch's replay bitwise
+    the eager body and the eager eval step on a fresh copy with the EMA;
+    two replays a validation after the first (a warm-up, then a capture)."""
+    import tempfile
+
+    from uit_mobile_tpu_torch.data import to_device
+    from uit_mobile_tpu_torch.train import find_ema_params
+
+    out_dir = Path(tempfile.mkdtemp(prefix="uit_graph_valid_"))
+    trainer = synth_trainer_class()(dict(RECIPE, ema_decay=0.999, outputdir=str(out_dir)),
+                                    device="cuda")
+    trainer.setup()
+    fwd, module = trainer.eval_fwd, trainer.eval_model.module
+    batches = iter(trainer.train_loader)
+    checks, replays = [], []
+    for v in range(3):
+        if v:
+            trainer.train_step(to_device(trainer.to_step_batch(next(batches)), trainer.device),
+                               trainer.generator)
+        before = sum(st["replays"] for st in fwd.graphs.stats())
+        score = trainer._validate(trainer._eval_forward(), v, "mAP")
+        replays.append(sum(st["replays"] for st in fwd.graphs.stats()) - before)
+        eager = ema_copy(trainer.model, trainer.optimizer)
+        ema = find_ema_params(trainer.optimizer)
+        same = []
+        for w, _ in trainer.validation_batches():
+            x = torch.from_numpy(w).cuda()
+            got = fwd(x)
+            same.append((torch.equal(got, fwd.eager(x)),
+                         torch.equal(got, trainer.eval_step(eager, x))))
+        checks.append({"validation": v, "mAP": score, "replays": replays[-1],
+                       "same_module": trainer.eval_model.module is module,
+                       "holds_ema": all(torch.equal(p, ema[n])
+                                        for n, p in module.named_parameters()),
+                       "holds_buffers": all(torch.equal(a, b) for a, b in
+                                            zip(module.buffers(), trainer.model.buffers())),
+                       "replay_vs_eager_bitwise": all(a for a, _ in same),
+                       "replay_vs_fresh_ema_copy_bitwise": all(b for _, b in same)})
+    x = torch.from_numpy(next(trainer.validation_batches())[0]).cuda()
+    rec = {"phase": "graphs", "path": "trainer_validation_ema", "B": int(x.shape[0]),
+           "validations": checks,
+           **dispatch_readings(lambda: fwd.eager(x), lambda: fwd(x), fwd.graphs),
+           "card": info["nvidia_smi"]}
+    emit(rec)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    check(all(c["same_module"] and c["holds_ema"] and c["holds_buffers"]
+              and c["replay_vs_eager_bitwise"] and c["replay_vs_fresh_ema_copy_bitwise"]
+              for c in checks) and replays[1:] == [2, 2],
+          f"graphs trainer validation: {checks}")
     return rec
 
 
@@ -1123,6 +1218,7 @@ def phase_graphs(cfg, cpu_model, gpu_model, info) -> dict:
     graph_service_path(cfg, cpu_model, info)
     graph_evaluator_path(info)
     graph_trainer_path(spread["recipe"], info)
+    paths["trainer_validation_ema"] = graph_validation_path(info)
     return {p: r["mel_per_replay_counters"] for p, r in paths.items()}
 
 
@@ -1888,10 +1984,20 @@ def phase_psl_cache(info) -> tuple:
     score_counts = dict(launches)
     check(score_counts["row_exact"] > 0, f"psl_cache: the teacher never launched row_exact: "
                                          f"{score_counts}")
+    # the graphed teacher (a replay a batch: score_crops pads the last batch
+    # to the full one) against its eager forward, the whole cache
+    teacher_replays = sum(st["replays"] for st in fn.graphs.stats())
+    cache_eager = score_psl_cache(clips, fn.eager, batch_size=256,
+                                  teacher_name="MobileNetV2 (seed 0)")
+    cache_bitwise = all(cache[k].tobytes() == cache_eager[k].tobytes() for k, _ in clips)
     crops_256 = np.stack([c[:SR] for _, c in clips[::2][:16]] * 16)
     frontend = frontend_gate(fn.frontend, torch.from_numpy(crops_256).cuda(), "exact", "bft")
     score_ms = time_ms(lambda: fn(crops_256), warmup=2, iters=10)
     score_prof = profile_steps(lambda: fn(crops_256))
+    x256 = torch.from_numpy(crops_256).cuda()
+    teacher_dispatch = dispatch_readings(lambda: fn.forward.eager(x256),
+                                         lambda: fn.forward(x256), fn.graphs)
+    REPLAY_LAUNCHES["psl_cache_teacher_B256"] = teacher_dispatch["mel_per_replay_counters"]
     sub = clips[:8]
     cpu = score_psl_cache(sub, make_teacher_fn(t_cfg, module_from_numpy(t_cfg, *t_init, "cpu")),
                           batch_size=64, teacher_name="MobileNetV2 (seed 0)")
@@ -1945,6 +2051,9 @@ def phase_psl_cache(info) -> tuple:
     emit({"phase": "psl_cache", "clips": 64, "crops": crops, "teacher_B": 256,
           "scoring_s": wall, "crops_per_s": crops / wall, "scoring_launches": score_counts,
           "teacher_frontend": frontend, "teacher_batch_ms": score_ms,
+          "teacher_replays_while_scoring": teacher_replays,
+          "teacher_batches": -(-crops // 256), "cache_vs_eager_build_bitwise": cache_bitwise,
+          "teacher_dispatch": teacher_dispatch,
           "teacher_batch": score_prof, "cache_std_over_crops": spread,
           "cache_min_grid_step_diff": grid_step, "cache_vs_cpu_max_abs": worst,
           "cpu_checked_clips": len(sub), "offline_step_ms": offline_ms,
@@ -1956,6 +2065,11 @@ def phase_psl_cache(info) -> tuple:
           f"psl_cache: the teacher's scores hardly depend on the crop: std {spread}, "
           f"neighbouring grid crops {grid_step}")
     check(worst <= 1e-3 + 5e-4, f"psl_cache on the card vs the CPU teacher: {worst}")
+    check(cache_bitwise and teacher_replays == -(-crops // 256),
+          f"psl_cache: the graphed cache vs its eager build bitwise {cache_bitwise}, "
+          f"{teacher_replays} replays for {-(-crops // 256)} batches")
+    check(teacher_dispatch["mel_per_replay_counters"] == {"row_exact": 1},
+          f"psl_cache: a teacher replay launched {teacher_dispatch['mel_per_replay_counters']}")
     check(row_gap <= 5e-4, f"offline: cached rows vs the online teacher on their crops: {row_gap}")
     check(gap < 1e-3, f"offline vs online PSL step: {losses}")
     return score_counts, off_counts
@@ -2094,7 +2208,95 @@ def phase_sed(info) -> dict:
           "card": info["nvidia_smi"]})
     check(whole["loss_rel_err"] <= 1e-4 and agree["agrees"],
           f"sed step on the card vs the CPU: {whole}, on the card's mel {agree}")
+    sed_graph_paths(cfg, init, train_ds, eval_ds, info)
     return counts
+
+
+NEW_GRAPH_BLOCKS = 2  # K-steps of a path held outside phase_graphs: a warm-up, one replay
+
+
+def sed_graph_paths(cfg, init, train_ds, eval_ds, info) -> None:
+    """The SED step as CUDA graphs: the recipe's step (its augments,
+    clipping, AdamW with an EMA) and its K-step through held_step_path over
+    1 + NEW_GRAPH_BLOCKS x K batches of 64 windows; then its validation
+    (train/sed.py:make_validator) around one step (one EMA update): one
+    module holding the EMA and the model's buffers at each validation, its
+    forward's replays bitwise the eager body and the eager path as it was
+    (a fresh copy of the model with the EMA), two replays a validation
+    after the first."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.augment import parse_spectransforms, parse_wavtransforms
+    from uit_mobile_tpu_torch.ckpt import module_from_numpy
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.train import (build_optimizer, cosine_with_warmup,
+                                            find_ema_params, make_multi_step, wrap_optimizer)
+    from uit_mobile_tpu_torch.train.sed import make_validator
+    from uit_mobile_tpu_torch.train.steps import make_framewise_train_step
+
+    fe = make_frontend_fn(cfg.frontend, precision="exact")
+    aug = dict(wav_augment=parse_wavtransforms(SED["wavtransforms"]),
+               spec_augment=parse_spectransforms(SED["spectransforms"]))
+
+    def window_batch(i, n=64, ds=train_ds):
+        rows = [ds[(n * i + j) % len(ds)] for j in range(n)]
+        return {"wav": torch.from_numpy(np.stack([r[0] for r in rows])).cuda(),
+                "target": torch.from_numpy(np.stack([r[1] for r in rows])).cuda()}
+
+    batches = [window_batch(i) for i in range(1 + NEW_GRAPH_BLOCKS * GRAPH_K)]
+
+    def build(ema_decay):
+        model = module_from_numpy(cfg, *init, device="cuda")
+        opt = wrap_optimizer(build_optimizer("AdamW", cosine_with_warmup(1e-3, 100, 5),
+                                             weight_decay=5e-8), ema_decay=ema_decay).init(model)
+        return model, opt, make_framewise_train_step(cfg, model, opt, max_grad_norm=1.0,
+                                                     frontend_fn=fe, **aug)
+
+    def fresh():
+        model, opt, step = build(0.999)
+        gen = torch.Generator(device="cuda").manual_seed(26)
+        return step, make_multi_step(step), run_state(model, opt, gen), gen
+
+    held_step_path("sed", "sed", fresh, batches, "row_exact", info)
+    # the validation, before and after one EMA update
+    model, opt, step = build(0.9)
+    validate = make_validator(cfg, model, opt, fe)
+    fwd, module = validate.forward, validate.model.module
+    loader = [{k: v.cpu().numpy() for k, v in window_batch(i, 16, eval_ds).items()}
+              for i in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    checks = []
+    for when in ("before_a_step", "after_one_step"):
+        if checks:
+            step(batches[0], gen)
+        before = sum(st["replays"] for st in fwd.graphs.stats())
+        scores = validate(loader)
+        replays = sum(st["replays"] for st in fwd.graphs.stats()) - before
+        eager, ema = ema_copy(model, opt), find_ema_params(opt)
+        same = []
+        for b in loader:
+            x = torch.from_numpy(b["wav"]).cuda()
+            got = fwd(x)[0]
+            same.append((torch.equal(got, fwd.eager(x)[0]), torch.equal(
+                got, models.apply_framewise(cfg, eager, x, frontend_fn=fe)[0])))
+        checks.append({"when": when, "segment_f1_micro": scores["Segment_Micro_F1"],
+                       "replays": replays, "same_module": validate.model.module is module,
+                       "holds_ema": all(torch.equal(p, ema[n])
+                                        for n, p in module.named_parameters()),
+                       "holds_buffers": all(torch.equal(a, b) for a, b in
+                                            zip(module.buffers(), model.buffers())),
+                       "replay_vs_eager_bitwise": all(a for a, _ in same),
+                       "replay_vs_fresh_ema_copy_bitwise": all(b for _, b in same)})
+    x = torch.from_numpy(loader[0]["wav"]).cuda()
+    rec = {"phase": "sed", "path": "validation_ema", "B": 16, "validations": checks,
+           **dispatch_readings(lambda: fwd.eager(x), lambda: fwd(x), fwd.graphs),
+           "card": info["nvidia_smi"]}
+    emit(rec)
+    REPLAY_LAUNCHES["sed_validation_ema"] = rec["mel_per_replay_counters"]
+    check(all(c["same_module"] and c["holds_ema"] and c["holds_buffers"]
+              and c["replay_vs_eager_bitwise"] and c["replay_vs_fresh_ema_copy_bitwise"]
+              for c in checks) and checks[1]["replays"] == 2
+          and rec["mel_per_replay_counters"] == {"row_exact": 1},
+          f"sed validation: {checks}, mel a replay {rec['mel_per_replay_counters']}")
 
 
 # configs/pretrain_mae.yaml as a dict, cut to 5 steps on in-memory clips
@@ -2161,7 +2363,8 @@ def phase_pretrain(info) -> dict:
         with torch.no_grad():
             losses[dev] = mae.forward(cfg, model, wav.to(dev), noise=noise.to(dev))[0].item()
     rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    from uit_mobile_tpu_torch.train import build_optimizer
+    from uit_mobile_tpu_torch.train import (build_optimizer, cosine_with_warmup,
+                                            make_multi_step, wrap_optimizer)
 
     model = load_numpy(mae.MAE(cfg), *init).to("cuda")
     step = mae.make_mae_step(cfg, model, build_optimizer("AdamW", 1.5e-4).init(model))
@@ -2187,6 +2390,21 @@ def phase_pretrain(info) -> dict:
     shutil.rmtree(out_dir, ignore_errors=True)
     check(rel <= 1e-4 and load_diff == 0.0 and tpe == (6, 128),
           f"pretrain on the card vs the CPU: loss {losses}, load diff {load_diff}, {tpe}")
+    # the MAE step as CUDA graphs: AdamW with an EMA and grad_accum 2 (two
+    # optimizer kinds, a graph each), the mask drawn from the CUDA generator
+    card_batches = [torch.roll(card_wav, i, dims=0) for i in range(1 + NEW_GRAPH_BLOCKS * GRAPH_K)]
+
+    def fresh():
+        model = load_numpy(mae.MAE(cfg), *init).to("cuda")
+        opt = wrap_optimizer(build_optimizer("AdamW", cosine_with_warmup(1.5e-4, 100, 5),
+                                             weight_decay=5e-8),
+                             ema_decay=0.999, grad_accum=2).init(model)
+        step = mae.make_mae_step(cfg, model, opt)
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        return step, make_multi_step(step), run_state(model, opt, gen), gen
+
+    held_step_path("pretrain", "mae_grad_accum_2", fresh, [{"wav": w} for w in card_batches],
+                   None, info)
     return counts
 
 
@@ -2215,6 +2433,7 @@ def phase_export(cfg, cpu_model, info) -> dict:
     from uit_mobile_tpu_torch.cli.average import main as average_main
     from uit_mobile_tpu_torch.cli.export import main as export_main
     from uit_mobile_tpu_torch.ops import launches, make_forward_fn
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
     from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
 
     rng = np.random.default_rng(30)
@@ -2247,6 +2466,23 @@ def phase_export(cfg, cpu_model, info) -> dict:
         run = dict(launches)
         for k, v in run.items():
             counts[k] += v
+        # the program's module as a CUDA graph: capture, then a held replay
+        # bitwise the module called eagerly
+        for _ in range(calls_to_capture(fn) - 1):
+            fn(x)
+        replays = sum(st["replays"] for st in fn.graphs.stats())
+        torch.cuda.synchronize()
+        reset_launches()
+        replayed = fn(x)
+        torch.cuda.synchronize()
+        replay_run = {k: v for k, v in launches.items() if v}
+        replays = sum(st["replays"] for st in fn.graphs.stats()) - replays
+        with torch.inference_mode():
+            module_out = fn.program.module()(x)
+        replay_bitwise = bool(torch.equal(replayed, fn.eager(x))
+                              and torch.equal(replayed, module_out))
+        dispatch = dispatch_readings(lambda: fn.eager(x), lambda: fn(x), fn.graphs)
+        REPLAY_LAUNCHES[f"export_{name}_B{B}"] = dispatch["mel_per_replay_counters"]
         fwd = make_forward_fn(cfg, gpu_model, use_kernel=True, precision=precision,
                               top_db_mode="per_sample")
         card = (got - fwd(x)).abs().max().item()
@@ -2258,8 +2494,14 @@ def phase_export(cfg, cpu_model, info) -> dict:
                "export_s": export_s, "load_s": load_s,
                "file_bytes": path.stat().st_size, "max_abs_diff_vs_forward_on_card": card,
                "max_abs_drift_vs_cpu": cpu, "call_ms": time_ms(lambda: fn(x)),
-               "make_forward_fn_ms": time_ms(lambda: fwd(x)), "card": info["nvidia_smi"]}
+               "make_forward_fn_ms": time_ms(lambda: fwd(x)),
+               "replay_launches": replay_run, "replays_of_held_call": replays,
+               "replay_vs_program_module_bitwise": replay_bitwise, "dispatch": dispatch,
+               "card": info["nvidia_smi"]}
         emit(rec)
+        check(replay_bitwise and replays == 1 and replay_run == {variant: 1},
+              f"export {name}: the replay vs program.module() bitwise {replay_bitwise}, "
+              f"{replays} replays, launches {replay_run}")
         check(meta["use_kernel"] and meta["input_shape"] == [str(B), str(SR)],
               f"export {name}: meta {meta['input_shape']}")
         check(run[variant] == 1 and sum(run.values()) == 1,
@@ -2278,6 +2520,7 @@ def phase_export(cfg, cpu_model, info) -> dict:
         check(svc.artifact_meta["labels"] == {"0": "Speech"} and svc.cfg.max_seconds == 3,
               f"from_artifact: {svc.cfg}")
         got = np.stack(svc.infer_many(clips))
+        served_replays = sum(st["replays"] for st in svc._fwd.graphs.stats())
     finally:
         svc.close()
     padded = np.stack([np.pad(c, (0, 3 * SR - len(c))) for c in clips])
@@ -2287,7 +2530,9 @@ def phase_export(cfg, cpu_model, info) -> dict:
              for secs, sl in ((1, slice(0, 32)), (3, slice(32, None)))}
     emit({"phase": "export", "artifact": "poly_3s", "served_clips": {"1s": 32, "3s": 16},
           "export_s": export_s, "file_bytes": path.stat().st_size,
-          "max_abs_drift_vs_cpu": drift, "card": info["nvidia_smi"]})
+          "max_abs_drift_vs_cpu": drift, "replays": served_replays,
+          "card": info["nvidia_smi"]})
+    check(served_replays >= 3, f"from_artifact: {served_replays} replays for 48 clips at B=16")
     check(got.shape == (len(clips), cfg.outputdim) and max(drift.values()) <= 1e-3,
           f"from_artifact 1 s and 3 s clips: {got.shape}, drift {drift} from the CPU")
     t0 = time.perf_counter()
@@ -2511,7 +2756,9 @@ def phase_moe(info) -> dict:
           and f"{last}.fc2.kernel" in moved,
           f"moe train: moved {len(moved)} tensors")
     step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
-    prof = profile_moe(moe, lambda: step(x, t))
+    # the span reads the host's ranges, which a graph replay has not
+    eager_ms = time_ms(lambda: eager_step(step, {"wav": x, "target": t}), warmup=1, iters=5)
+    prof = profile_moe(moe, lambda: eager_step(step, {"wav": x, "target": t}))
     # one step on the card against the CPU, from the same weights: through
     # the plain mel (the whole step), through the card's mel (the step after
     # the frontend), and through the card's mel and the card's expert ReLU
@@ -2549,7 +2796,8 @@ def phase_moe(info) -> dict:
     masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), fresh)
     rec = {"phase": "moe", "path": "train", "B": MOE_B, "steps": 5, "optimizer": "AdamW",
            "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
-           "clips_per_s": MOE_B * 1e3 / step_ms, "peak_memory_bytes": peak, **prof,
+           "clips_per_s": MOE_B * 1e3 / step_ms, "eager_step_ms": eager_ms,
+           "profiled": "the eager body", "peak_memory_bytes": peak, **prof,
            "frontend": frontend, "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": after,
            "step_vs_cpu_on_card_mel_and_relu_signs": masked,
            "relu_card_vs_cpu_on_card_mel": relu_flips(relu_in["cuda"], relu_in["cpu_card_mel"]),
@@ -2574,6 +2822,21 @@ def phase_moe(info) -> dict:
           and rec["tokens_routed_differently_vs_cpu_on_card_mel_and_relu_signs"] == 0,
           f"moe step on the card vs the CPU: {whole}, on the card's mel {after}, "
           f"and its ReLU signs {masked}")
+    # the MoE step and its K-step as CUDA graphs, held against eager
+    from uit_mobile_tpu_torch.train import make_multi_step
+
+    pool = [moe_batch(seed) for seed in (44, 45, 46)]
+    batches = [{"wav": torch.roll(torch.from_numpy(pool[i % 3][0]), i, dims=0).cuda(),
+                "target": torch.roll(torch.from_numpy(pool[i % 3][1]), i, dims=0).cuda()}
+               for i in range(1 + NEW_GRAPH_BLOCKS * GRAPH_K)]
+
+    def fresh_graphed():
+        m, o = fresh("cuda")
+        s_ = make_moe_train_step(cfg, m, o, frontend_fn=fe)
+        gen = torch.Generator(device="cuda").manual_seed(47)
+        return s_, make_multi_step(s_), run_state(m, o, gen), gen
+
+    held_step_path("moe", "moe", fresh_graphed, batches, "row_exact", info)
     # Adafactor through the Trainer: 3 recipe steps, one step against the CPU
     trainer, out, counts["adafactor"], trec = drive_trainer(ADAFACTOR, info)
     check(counts["adafactor"]["row_exact"] > 0,
@@ -2736,8 +2999,11 @@ def phase_eval(npz: Path, other: Path, info) -> dict:
     with the same weights and clips. -> {mode: launch counts}."""
     import logging
 
+    from uit_mobile_tpu_torch import native
     from uit_mobile_tpu_torch.cli.train import evaluate_run
+    from uit_mobile_tpu_torch.data.hdf5 import collate, pad_batch, uses_native
     from uit_mobile_tpu_torch.evaluate.harness import DEFAULT_SWEEP
+    from uit_mobile_tpu_torch.native import build as native_build
     from uit_mobile_tpu_torch.evaluate.metrics import gsc_accuracy
     from uit_mobile_tpu_torch.ops import launches, make_framewise_fn
     from uit_mobile_tpu_torch.ops import mel as mel_ops
@@ -2763,8 +3029,23 @@ def phase_eval(npz: Path, other: Path, info) -> dict:
             counts[mode] = dict(launches)
             return out
 
-        # `cli.train run`'s evaluation: GSC, then AudioSet
+        # `cli.train run`'s evaluation: GSC, then AudioSet; the AudioSet
+        # batches (B=32 x 10 s) take the native collate (data/hdf5.py)
+        native_before = native.calls["pad_batch"]
         run_card = on_card("run", lambda: evaluate_run(card, EVAL_RUN_CONFIG))
+        native_batches = native.calls["pad_batch"] - native_before
+        samples = [ClipDataset(*sets["audioset"], 537, card.dtype)[i]
+                   for i in range(card.batch_size)]
+        native_batch = collate(samples)["wav"]
+        rec["native_collate"] = {
+            "library": str(native_build.library_path().relative_to(REPO)),
+            "audioset_batches_assembled": native_batches,
+            "batch": list(native_batch.shape), "dtype": str(native_batch.dtype),
+            "vs_pad_batch_bitwise": native_batch.tobytes()
+            == pad_batch([w for w, _, _ in samples])[0].tobytes()}
+        check(native_batches == -(-64 // card.batch_size) and uses_native(
+            [w for w, _, _ in samples]) and rec["native_collate"]["vs_pad_batch_bitwise"],
+              f"eval: the native collate {rec['native_collate']}")
         run_cpu = evaluate_run(cpu, EVAL_RUN_CONFIG)
         for (pg, tg, ng), (pc, tc, nc) in zip(card.epochs, cpu.epochs):
             check(ng == nc and np.array_equal(tg, tc), "card and CPU epochs hold other clips")
@@ -4345,6 +4626,7 @@ def main() -> int:
     model_parallel_counts = timed("model_parallel", phase_model_parallel, info)
     gate_counts = timed("gate", phase_gate, info)
     emit({"phase_wall_s": wall})
+    graph_counts.update(REPLAY_LAUNCHES)  # the replays held in the other phases
 
     def timing(rec):
         return {"shape": f"B={rec['B']} x {rec['seconds']} s, {rec['input']} in",

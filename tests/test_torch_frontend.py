@@ -118,6 +118,7 @@ def test_port_imports_without_jax():
             ("tp", "sp", "pp", "ep", "fsdp", "collectives")} <= set(mods)
     assert {f"uit_mobile_tpu_torch.{m}" for m in
             ("data.prep", "cli.prep", "tools.gate_synthetic")} <= set(mods)
+    assert {"uit_mobile_tpu_torch.native", "uit_mobile_tpu_torch.native.build"} <= set(mods)
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'uit_mobile_tpu'):\n"

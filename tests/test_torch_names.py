@@ -28,8 +28,10 @@ OMITTED = {
     "pallas_log_mel": "the TPU kernel; the port's is ops/mel.py:log_mel over csrc/mel.cu",
     "layer_norm_init": "the port's LayerNorm is a torch module that initializes itself",
     "CACHE_DIR": "the download cache; the port reads checkpoints/ and never downloads",
-    "enable_compilation_cache": "JAX's XLA cache; the port has no torch.compile "
-                                "(utils/compile_cache.py is ROADMAP §A18b)",
+    "enable_compilation_cache": "JAX's persistent XLA cache; the port has no torch.compile, "
+                                "and its persistent build is the kernel and native library "
+                                "cache under uit_mobile_tpu_torch/_build/ (ops/build.py, "
+                                "native/build.py), keyed on a source hash",
 }
 
 
@@ -43,13 +45,23 @@ def _jax_all(init: Path) -> list:
     return []
 
 
-SUBPACKAGES = sorted(p.parent.name for p in (REPO / "uit_mobile_tpu").glob("*/__init__.py")
-                     if _jax_all(p))
+def _jax_public(sub: str) -> list:
+    """A JAX subpackage's public names: its ``__all__``, or where it has none
+    (``native``) the public functions its __init__.py defines."""
+    init = REPO / "uit_mobile_tpu" / sub / "__init__.py"
+    return _jax_all(init) or [n.name for n in ast.parse(init.read_text()).body
+                              if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")]
+
+
+SUBPACKAGES = sorted({p.parent.name for p in (REPO / "uit_mobile_tpu").glob("*/__init__.py")
+                      if _jax_all(p)} | {"native"})
 
 
 def test_subpackages_listed():
-    assert {"augment", "ckpt", "data", "evaluate", "frontend", "models", "ops", "parallel",
-            "serve", "train", "utils"} <= set(SUBPACKAGES)
+    assert {"augment", "ckpt", "data", "evaluate", "frontend", "models", "native", "ops",
+            "parallel", "serve", "train", "utils"} <= set(SUBPACKAGES)
+    assert set(_jax_public("native")) == {"available", "parse_wav16_native", "read_wav_native",
+                                          "pad_batch_native", "multihot_batch_native"}
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
@@ -57,8 +69,7 @@ def test_every_jax_name_exported_or_omitted_by_design(sub):
     port = importlib.import_module(f"uit_mobile_tpu_torch.{sub}")
     names = set(port.__all__)
     assert all(hasattr(port, n) for n in names)
-    missing = [n for n in _jax_all(REPO / "uit_mobile_tpu" / sub / "__init__.py")
-               if n not in names and n not in OMITTED]
+    missing = [n for n in _jax_public(sub) if n not in names and n not in OMITTED]
     assert not missing, f"uit_mobile_tpu_torch.{sub} lacks {missing}"
 
 

@@ -39,6 +39,7 @@ from pathlib import Path
 import torch
 from torch import nn
 
+from ..ops.graphs import graphed
 from ..utils.device import resolve_device
 from .io import config_to_dict
 
@@ -154,10 +155,53 @@ def save_artifact(path, exported: ServingExport, cfg=None, labels=None,
     return path
 
 
+def _constants_on_device(module, device: torch.device) -> int:
+    """Fold the program's copies of host constants to a device of
+    ``device``'s type (the plain frontend's window and filterbank, lifted
+    at export and copied from pageable memory at each call, which a CUDA
+    graph cannot do) into device constants made once here: a ``to(device,
+    dtype)`` of a host constant, or of its fresh copy, whose result no op
+    mutates. -> the copies folded (the module recompiled). The values are
+    those the copies gave."""
+    aten, graph = torch.ops.aten, module.graph
+    folded = 0
+    for node in list(graph.nodes):
+        if node.op != "call_function" or node.target is not aten.to.device:
+            continue
+        src = node.args[0]
+        if src.op == "call_function" and src.target is aten.lift_fresh_copy.default:
+            src = src.args[0]
+        value = getattr(module, src.target, None) if src.op == "get_attr" else None
+        target = torch.device(node.args[1])
+        if (not isinstance(value, torch.Tensor) or value.device.type != "cpu"
+                or target.type != device.type
+                or any(getattr(u.target, "_schema", None) is None or u.target._schema.is_mutable
+                       for u in node.users)):
+            continue
+        name = f"{src.target}_on_{device.type}"
+        module.register_buffer(name, value.to(device=target, dtype=node.args[2]),
+                               persistent=False)
+        with graph.inserting_before(node):
+            node.replace_all_uses_with(graph.get_attr(name))
+        graph.erase_node(node)
+        folded += 1
+    if folded:
+        graph.eliminate_dead_code()
+        module.recompile()
+    return folded
+
+
 def load_artifact(path, device=None):
     """-> (fn, meta): ``fn(wav) -> probs`` on ``device`` (None: the device
     the artifact was exported on; another device moves the program there).
-    ``fn.program`` is the ExportedProgram."""
+    On the card the program's module runs as a CUDA graph per batch shape
+    (``ops/graphs.py``), as the JAX package's exported program is one jitted
+    program: its input checks run on the host at the first, eager call of a
+    shape, and the graph holds its device work alone (the host constants
+    it copies to the card at each call are folded into device constants
+    first). ``fn.program`` is the
+    ExportedProgram, ``fn.eager`` the module called without graphs,
+    ``fn.graphs`` the ``GraphedFn`` (None on the CPU)."""
     from ..ops import mel  # noqa: F401  (registers uit_mobile_tpu_torch::log_mel_rows)
 
     with zipfile.ZipFile(Path(path)) as z:
@@ -176,10 +220,18 @@ def load_artifact(path, device=None):
 
         program = move_to_device_pass(program, dev)
     module = program.module()
+    if dev.type == "cuda":
+        _constants_on_device(module, dev)
+    run = graphed(module, dev)
 
-    def fn(wav):
-        with torch.inference_mode():
-            return module(torch.as_tensor(wav).to(dev))
+    def on_device(call):
+        def fn(wav):
+            with torch.inference_mode():
+                return call(torch.as_tensor(wav).to(dev))
 
+        return fn
+
+    fn = on_device(run)
     fn.program, fn.device = program, dev
+    fn.eager, fn.graphs = on_device(module), None if run is module else run
     return fn, meta

@@ -21,24 +21,32 @@ import sys
 import time
 
 import numpy as np
-import torch
 
 
 def make_teacher_fn(cfg, model, precision: str = "exact"):
     """-> fn((B, L) numpy wav batch) -> (B, C) numpy probabilities: the
     teacher's eval forward on its device through the fused mel kernel
-    (``fn.frontend``)."""
-    from .. import models
+    (``fn.frontend``, the canonical 'bft' layout), built by
+    ``ops.pipeline.make_forward_fn``: a CUDA graph per batch shape on the
+    card (``score_crops`` pads the last batch to the full one), as the JAX
+    package jits its teacher. ``fn.eager`` scores through the same forward, never graphed;
+    ``fn.forward`` is that forward (device tensors in and out), ``fn.graphs``
+    its ``GraphedFn`` (None on the CPU)."""
     from ..ops.mel import make_frontend_fn
+    from ..ops.pipeline import make_forward_fn
 
     frontend = make_frontend_fn(cfg.frontend, precision=precision)
-    device = next(model.parameters()).device
+    fwd = make_forward_fn(cfg, model, frontend_fn=frontend)
 
-    def teacher(batch: np.ndarray) -> np.ndarray:
-        wav = torch.from_numpy(np.ascontiguousarray(batch)).to(device)
-        return models.apply(cfg, model, wav, frontend_fn=frontend).float().cpu().numpy()
+    def scorer(forward):
+        def teacher(batch: np.ndarray) -> np.ndarray:
+            return forward(np.ascontiguousarray(batch)).float().cpu().numpy()
 
-    teacher.frontend = frontend
+        return teacher
+
+    teacher = scorer(fwd)
+    teacher.eager, teacher.forward = scorer(fwd.eager), fwd
+    teacher.frontend, teacher.graphs = frontend, fwd.graphs
     return teacher
 
 

@@ -267,12 +267,31 @@ def pad_batch(waves: Sequence[np.ndarray], padding_value: float = 0.0):
     return out, lengths
 
 
+# the JAX package's rule for its native collate (uit_mobile_tpu/data/hdf5.py):
+# long clips at small and mid batches, where the native threads win
+NATIVE_MAX_BATCH = 256
+NATIVE_MIN_MEAN_SAMPLES = 100_000
+
+
+def uses_native(waves) -> bool:
+    """Whether ``collate`` assembles these clips natively: at most
+    ``NATIVE_MAX_BATCH`` clips of ``NATIVE_MIN_MEAN_SAMPLES`` samples or
+    more on average (the AudioSet evaluation batch)."""
+    mean_len = sum(w.shape[-1] for w in waves) / max(len(waves), 1)
+    return len(waves) <= NATIVE_MAX_BATCH and mean_len >= NATIVE_MIN_MEAN_SAMPLES
+
+
 def collate(samples):
     """[(wav, target, fname)] -> {'wav', 'target', 'lengths', 'filenames'}.
-    The JAX package's native collate engages only for clips of >= 100k
-    samples; it is not ported, numpy pads every batch."""
+    Where ``uses_native``, the native data plane (``native.pad_batch_native``)
+    pads the batch, and a failed build raises; elsewhere numpy does."""
     waves, targets, fnames = zip(*samples)
-    data, lengths = pad_batch(waves)
+    if uses_native(waves):
+        from ..native import pad_batch_native
+
+        data, lengths = pad_batch_native(waves)
+    else:
+        data, lengths = pad_batch(waves)
     return {"wav": data, "target": np.stack(targets), "lengths": lengths,
             "filenames": list(fnames)}
 

@@ -18,7 +18,7 @@ run eagerly.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -44,10 +44,14 @@ def _members(cfg, model) -> list:
     return list(model)
 
 
-def _policy(cfg, model, use_kernel, precision, top_db_mode, btf, framewise=False):
-    """-> (members, device, run config, frontend fn, use_kernel)."""
+def _policy(cfg, model, use_kernel, precision, top_db_mode, btf, framewise=False,
+            frontend_fn=None):
+    """-> (members, device, run config, frontend fn, use_kernel). A caller's
+    ``frontend_fn`` runs with ``cfg`` as it stands."""
     members = _members(cfg, model)
     device = resolve_device(next(members[0].parameters()).device)
+    if frontend_fn is not None:
+        return members, device, cfg, frontend_fn, use_kernel
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     uit_family = isinstance(cfg, UITConfig)
@@ -85,7 +89,7 @@ def ensemble_forward(members: list, run_cfg, frontend, wav: torch.Tensor) -> tor
 
 def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
                     precision: str = "exact", top_db_mode: Optional[str] = None,
-                    btf: Optional[bool] = None):
+                    btf: Optional[bool] = None, frontend_fn: Optional[Callable] = None):
     """Eval forward fn(wav) -> probs on the model's device.
 
     model: one model, or a list of models of one config (an ensemble: the
@@ -97,13 +101,15 @@ def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
     for serving isolation); None keeps the config's mode.
     btf: None = the transposed-kernel routes whenever the kernel runs ('tfb'
     for UiT, 'tfb_to_bft' for other families); False pins the plain 'bft'
-    chain. ``wav`` is a (B, T) float32 or int16 tensor or array.
+    chain. frontend_fn: the caller's frontend (a trainer's validation runs
+    the one its step runs) with ``cfg`` as it stands; the other options are
+    then unused. ``wav`` is a (B, T) float32 or int16 tensor or array.
     fn.uses_kernel and fn.top_db_mode say which frontend runs; fn.body is
     the forward of a device batch and fn.graphs its ``GraphedFn`` on the
     card (None on the CPU); fn.eager is fn never graphed (the data-parallel
     shards of parallel/mesh.py run it: they meet in a collective inside it)."""
     members, device, run_cfg, frontend, use_kernel = _policy(
-        cfg, model, use_kernel, precision, top_db_mode, btf)
+        cfg, model, use_kernel, precision, top_db_mode, btf, frontend_fn=frontend_fn)
 
     def body(wav):
         return ensemble_forward(members, run_cfg, frontend, wav)
@@ -135,13 +141,16 @@ def _device_fn(body, device, use_kernel, run_cfg):
 
 
 def make_framewise_fn(cfg, model, use_kernel: Optional[bool] = None,
-                      precision: str = "exact", top_db_mode: Optional[str] = None):
+                      precision: str = "exact", top_db_mode: Optional[str] = None,
+                      frontend_fn: Optional[Callable] = None):
     """Temporal-tagging forward fn(wav) -> (probs (B, S, C) on the model's
     device, times (S, 2) float64 numpy seconds), on the bft layout; a list
     of models averages the member probabilities over one frontend run (the
-    times depend on the config alone)."""
+    times depend on the config alone). ``frontend_fn`` as in
+    ``make_forward_fn``."""
     members, device, run_cfg, frontend, use_kernel = _policy(
-        cfg, model, use_kernel, precision, top_db_mode, None, framewise=True)
+        cfg, model, use_kernel, precision, top_db_mode, None, framewise=True,
+        frontend_fn=frontend_fn)
 
     def body(wav):
         if len(members) == 1:

@@ -107,22 +107,35 @@ def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable
     where the config enables them. ``grad_norm`` is the global norm of the
     gradients before the update (no clipping, as in the JAX step).
     ``rows``: the batch is this rank's share of a global batch over the
-    'data' group (``parallel.rows``), and the step is the global batch's."""
+    'data' group (``parallel.rows``), and the step is the global batch's.
+
+    Dispatched as ``train/steps.py``'s steps are: the host plans the
+    micro-step, the device side is a CUDA graph per batch shape and
+    optimizer kind on the card (one process), eager on the CPU and under
+    ``rows``. The capacity and the drop-path rates are Python values of the
+    config, and the routing (a stable sort, one-hot slots) reads no device
+    value on the host. ``make_multi_step`` takes the step, its batches
+    ``{'wav', 'target'}``."""
     from ..models import moe
-    from ..train.steps import make_loss, update_from_loss
+    from ..train.steps import dispatch_step, make_loss, update_from_loss, with_device_side
 
     bce_loss = make_loss("BCELoss")  # the reference-parity clamped BCE
 
-    def step(wav: torch.Tensor, target: torch.Tensor,
-             generator: Optional[torch.Generator] = None) -> dict:
+    def device_step(batch, generator, kind, row):
         with sharded(rows):
-            probs, aux, new_state = moe.forward_with_aux(cfg, model, wav, train=True,
+            probs, aux, new_state = moe.forward_with_aux(cfg, model, batch["wav"], train=True,
                                                          generator=generator,
                                                          frontend_fn=frontend_fn)
-            bce = bce_loss(probs, target)
+            bce = bce_loss(probs, batch["target"])
             loss = bce + cfg.router_aux_weight * aux
-            gnorm = update_from_loss(model, optimizer, loss, new_state)
+            gnorm = update_from_loss(model, optimizer, loss, new_state, plan=(kind, row))
         return {"total_loss": loss.detach(), "bce": bce.detach(), "aux": aux.detach(),
                 "grad_norm": gnorm}
 
-    return step
+    batch_step = dispatch_step(device_step, optimizer, rows)
+
+    def step(wav: torch.Tensor, target: torch.Tensor,
+             generator: Optional[torch.Generator] = None) -> dict:
+        return batch_step({"wav": wav, "target": target}, generator)
+
+    return with_device_side(step, batch_step)

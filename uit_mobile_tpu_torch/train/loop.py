@@ -42,7 +42,6 @@ import random as _random
 import time
 import uuid
 from pathlib import Path
-from typing import Optional
 
 import numpy as np
 import torch
@@ -58,6 +57,7 @@ from ..data import (BalancedSampler, DataLoader, MultiDataLoader, WeakHDF5Datase
 from ..evaluate.metrics import compute_metrics
 from ..ops.mel import launches as mel_launches
 from ..ops.mel import make_frontend_fn
+from ..ops.pipeline import make_forward_fn
 from ..parallel import multihost
 from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows
@@ -94,16 +94,35 @@ def _json_safe_config(c: dict) -> dict:
     return out
 
 
-def with_ema(model, ema: Optional[dict]):
-    """The model validation scores: ``model``, or a copy of it with the EMA
-    parameters (name -> tensor)."""
-    if ema is None:
-        return model
-    m = copy.deepcopy(model)
-    with torch.no_grad():
-        for name, p in m.named_parameters():
-            p.copy_(ema[name])
-    return m.eval()
+class ValidationModel:
+    """The module validation scores, built once, as the JAX trainers build
+    their eval forward once: ``model`` itself, or with a parameter EMA one
+    copy of it, whose parameters ``sync()`` sets to the EMA and whose
+    buffers (the BN running statistics) to the model's, in place: a CUDA
+    graph of its forward reads them by address, so the graphs captured at
+    the first validation serve every later one."""
+
+    def __init__(self, model, optimizer):
+        self._model, self._optimizer = model, optimizer
+        self.module = model if optimizer.ema is None else copy.deepcopy(model).eval()
+
+    @torch.no_grad()
+    def sync(self):
+        """-> ``module`` holding the weights validation scores now."""
+        if self.module is not self._model:
+            ema = find_ema_params(self._optimizer)
+            for name, p in self.module.named_parameters():
+                p.copy_(ema[name])
+            for b, src in zip(self.module.buffers(), self._model.buffers()):
+                b.copy_(src)
+        return self.module
+
+
+def validation_forward(forward, rows):
+    """A graphed eval forward (``ops.pipeline``) as a trainer's validation
+    runs it: replays on one process, its eager body under ``rows`` (the
+    multi-process steps stay eager)."""
+    return forward if rows is None else forward.eager
 
 
 class Trainer:
@@ -345,6 +364,13 @@ class Trainer:
         if self.multi_step is not None:
             log.info(f"scanned training: {self.steps_per_dispatch} steps per dispatch")
         self.eval_step = make_eval_step(self.cfg, frontend_fn=self.frontend)
+        # validation: one module and one eval forward for the whole run, a
+        # CUDA graph per padded batch shape on the card (train/loop.py's
+        # valid_bucket_seconds bounds the shapes)
+        self.eval_model = ValidationModel(self.model, self.optimizer)
+        self.eval_fwd = validation_forward(
+            make_forward_fn(self.cfg, self.eval_model.module, frontend_fn=self.frontend),
+            self.rows)
         self.generator = torch.Generator(device=self.device).manual_seed(c.get("seed", 42))
 
     @staticmethod
@@ -443,7 +469,7 @@ class Trainer:
                 if epoch % c.get("valid_every", 1) == 0:
                     # the same scores and decisions on every rank; rank 0 writes
                     ema = find_ema_params(opt)
-                    score = score_sign * self._validate(self._eval_model(ema), epoch, score_name)
+                    score = score_sign * self._validate(self._eval_forward(), epoch, score_name)
                     ckpt_path = self.outputdir / f"best_model_{step_count}_mAP={score:.4f}.npz"
                     saved.append((score, ckpt_path))
                     saved.sort(key=lambda x: -x[0])
@@ -483,8 +509,8 @@ class Trainer:
                                       extra={"averaged_from": [str(p) for _, p in saved],
                                              "run_config": self.run_config})
                 final = module_from_numpy(avg_cfg, avg_p, avg_s, device=self.device)
-                log.info(f"Averaged model {score_name}: "
-                         f"{self._validate(final, 'avg', score_name):.4f}")
+                avg = self._validate(lambda wav: self.eval_step(final, wav), "avg", score_name)
+                log.info(f"Averaged model {score_name}: {avg:.4f}")
         elif saved:
             output_model = saved[0][1]
         else:
@@ -509,23 +535,33 @@ class Trainer:
             raise RuntimeError(f"injected fault after epoch {epoch} "
                                f"(UIT_FAULT_EPOCH={fault_epoch}, rank {self.rank})")
 
-    def _eval_model(self, ema: Optional[dict]):
-        return with_ema(self.model, ema)
+    def _eval_forward(self):
+        """The validation forward on the weights validation scores now (the
+        EMA's, else the model's)."""
+        self.eval_model.sync()
+        return self.eval_fwd
 
-    def _validate(self, model, epoch, metric: str = "mAP") -> float:
-        """Score the test loader; each batch right-pads to the next multiple
-        of ``valid_bucket_seconds`` (default 1 s; None = the batch max).
-        The predictions reach the host once, at the end."""
+    def validation_batches(self):
+        """The test loader's batches -> (wav, target) numpy pairs, each wav
+        right-padded to the next multiple of ``valid_bucket_seconds``
+        (default 1 s; None = the batch max): one eval shape a bucket."""
         bucket_seconds = self.config.get("valid_bucket_seconds", 1.0)
         sr = self.config.get("sample_rate", 16000)
-        preds, targets = [], []
         for batch in self.test_loader:
             wav = batch["wav"]
             if bucket_seconds:
                 step = int(bucket_seconds * sr)
                 wav = np.pad(wav, ((0, 0), (0, -(-wav.shape[-1] // step) * step - wav.shape[-1])))
-            preds.append(self.eval_step(model, torch.from_numpy(wav).to(self.device)))
-            targets.append(batch["target"])
+            yield wav, batch["target"]
+
+    def _validate(self, forward, epoch, metric: str = "mAP") -> float:
+        """Score the test loader with ``forward(wav) -> probs`` over
+        ``validation_batches``; the predictions reach the host once, at the
+        end."""
+        preds, targets = [], []
+        for wav, target in self.validation_batches():
+            preds.append(forward(torch.from_numpy(wav).to(self.device)))
+            targets.append(target)
         y_pred = torch.cat(preds).cpu().numpy()
         y_true = np.concatenate(targets)
         names = [metric] + (["mAP"] if metric != "mAP" else [])

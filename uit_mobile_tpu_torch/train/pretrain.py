@@ -45,7 +45,8 @@ from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows, global_sum, rand_rows, sharded
 from ..utils import get_logger, resolve_device
 from .schedule import cosine_with_warmup
-from .steps import build_optimizer, find_ema_params, update_from_loss, wrap_optimizer
+from .steps import (build_optimizer, dispatch_step, find_ema_params, update_from_loss,
+                    with_device_side, wrap_optimizer)
 
 log = get_logger()
 
@@ -185,17 +186,31 @@ def forward(cfg: MAEConfig, model: MAE, wav: torch.Tensor, *,
 
 def make_mae_step(cfg: MAEConfig, model: MAE, optimizer, rows: Optional[Rows] = None):
     """-> ``step(wav, generator=None, noise=None) -> loss``: forward, backward
-    and the optimizer update (no clipping, as in the JAX step). ``rows``:
-    ``wav`` (and ``noise``) are this rank's share of a global batch
-    (``parallel.rows``); the step is the global batch's on every rank."""
+    and the optimizer update (no clipping, as in the JAX step), dispatched
+    as ``train/steps.py``'s steps are: the host plans the micro-step, the
+    device side is a CUDA graph per batch shape and optimizer kind on the
+    card (one process; the mask draw advances the CUDA ``generator``, which
+    the graph registers), eager on the CPU. ``noise`` (B, L), optional, sets
+    the mask instead of a draw. ``make_multi_step`` takes the step, its
+    batches ``{'wav'}`` or ``{'wav', 'noise'}``, its metric 'total_loss'.
+    ``rows``: ``wav`` (and ``noise``) are this rank's share of a global
+    batch (``parallel.rows``); the step is the global batch's on every
+    rank."""
+
+    def device_step(batch, generator, kind, row):
+        with sharded(rows):
+            loss, new_state, _ = forward(cfg, model, batch["wav"], generator=generator,
+                                         noise=batch.get("noise"))
+            update_from_loss(model, optimizer, loss, new_state, plan=(kind, row))
+        return {"total_loss": loss.detach()}
+
+    batch_step = dispatch_step(device_step, optimizer, rows)
 
     def step(wav, generator=None, noise=None):
-        with sharded(rows):
-            loss, new_state, _ = forward(cfg, model, wav, generator=generator, noise=noise)
-            update_from_loss(model, optimizer, loss, new_state)
-        return loss.detach()
+        batch = {"wav": wav} if noise is None else {"wav": wav, "noise": torch.as_tensor(noise)}
+        return batch_step(batch, generator)["total_loss"]
 
-    return step
+    return with_device_side(step, batch_step)
 
 
 def _pretrain_outdir(c: dict) -> Path:

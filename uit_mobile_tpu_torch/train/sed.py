@@ -36,11 +36,13 @@ from ..ckpt.io import load_training_state, save_checkpoint, save_training_state
 from ..data import DataLoader, StrongFramewiseHDF5Dataset, read_tsv_data
 from ..evaluate.metrics import segment_f1
 from ..ops.mel import make_frontend_fn
+from ..ops.pipeline import make_framewise_fn
 from ..utils import add_file_sink, get_logger, resolve_device, validate_frontend_precision
 from ..parallel import multihost
 from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows
-from .loop import _json_safe_config, _make_outputdir, start_multihost, with_ema
+from .loop import (ValidationModel, _json_safe_config, _make_outputdir, start_multihost,
+                   validation_forward)
 from .schedule import cosine_with_warmup
 from .steps import build_optimizer, find_ema_params, make_framewise_train_step, wrap_optimizer
 
@@ -124,6 +126,36 @@ def _make_dataset(c: dict, cfg, tsv, deterministic: bool, seed: int):
         deterministic=deterministic)
 
 
+def make_validator(cfg, model, optimizer, frontend, rows=None, threshold: float = 0.5):
+    """-> ``validate(loader) -> segment-F1 scores`` of the weights validation
+    scores now (the EMA's, else the model's) over a loader of index-pure
+    windows, built once: one ``ValidationModel`` and one framewise eval
+    forward (``ops.pipeline``, the step's ``frontend``), a CUDA graph per
+    window batch shape on the card, as the JAX trainer jits its eval
+    forward once. ``validate.model`` and ``validate.forward`` are those."""
+    eval_model = ValidationModel(model, optimizer)
+    fwd = validation_forward(make_framewise_fn(cfg, eval_model.module, frontend_fn=frontend),
+                             rows)
+
+    def validate(loader) -> dict:
+        eval_model.sync()
+        probs, targets = [], []
+        for batch in loader:
+            pr, _ = fwd(batch["wav"])
+            if tuple(pr.shape) != batch["target"].shape:
+                raise ValueError(f"segment grid mismatch: model {tuple(pr.shape)} vs targets "
+                                 f"{batch['target'].shape} — chunk_length and target_length "
+                                 f"must describe the same window")
+            probs.append(pr)
+            targets.append(batch["target"])
+        probs = torch.cat(probs).cpu().numpy().reshape(-1, cfg.outputdim)
+        return segment_f1(probs, np.concatenate(targets).reshape(-1, cfg.outputdim),
+                          threshold=threshold)
+
+    validate.model, validate.forward = eval_model, fwd
+    return validate
+
+
 def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
     log.info(f"SED training -> {outputdir}")
     for k, v in sorted(c.items()):
@@ -191,20 +223,8 @@ def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
         rows=rows)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
-    def validate(eval_model) -> dict:
-        probs, targets = [], []
-        for batch in eval_loader:
-            wav = torch.from_numpy(batch["wav"]).to(dev)
-            pr, _ = models.apply_framewise(cfg, eval_model, wav, frontend_fn=frontend)
-            if tuple(pr.shape) != batch["target"].shape:
-                raise ValueError(f"segment grid mismatch: model {tuple(pr.shape)} vs targets "
-                                 f"{batch['target'].shape} — chunk_length and target_length "
-                                 f"must describe the same window")
-            probs.append(pr)
-            targets.append(batch["target"])
-        probs = torch.cat(probs).cpu().numpy().reshape(-1, cfg.outputdim)
-        return segment_f1(probs, np.concatenate(targets).reshape(-1, cfg.outputdim),
-                          threshold=c.get("threshold", 0.5))
+    validate = make_validator(cfg, model, optimizer, frontend, rows,
+                              threshold=c.get("threshold", 0.5))
 
     best, start_epoch = -1.0, 1
     resume = c.get("resume")
@@ -231,7 +251,7 @@ def _train_sed_body(c: dict, outputdir: Path, dev, train_ds, eval_ds) -> Path:
                       "target": torch.from_numpy(batch["target"]).to(dev)}, generator)
             losses.append(m["total_loss"])
         ema = find_ema_params(optimizer)
-        scores = validate(with_ema(model, ema))
+        scores = validate(eval_loader)
         log.info(f"Epoch {epoch}: loss {torch.stack(losses).mean().item():.4f} "
                  f"segF1 micro {scores['Segment_Micro_F1']:.4f} "
                  f"macro {scores['Segment_Macro_F1']:.4f}")

@@ -705,7 +705,7 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
         gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm, plan)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
-    return _dispatched(step, optimizer, rows)
+    return dispatch_step(step, optimizer, rows)
 
 
 def _graphable(optimizer: Optimizer, rows) -> bool:
@@ -715,10 +715,12 @@ def _graphable(optimizer: Optimizer, rows) -> bool:
             and not any(hasattr(p, "to_local") for p in optimizer.params))
 
 
-def _dispatched(step: Callable, optimizer: Optimizer, rows) -> Callable:
+def dispatch_step(step: Callable, optimizer: Optimizer, rows) -> Callable:
     """``train_step(batch, generator)`` over the device side ``step(batch,
     generator, kind, row)``: the host plans one micro-step, then the device
-    side runs, as a CUDA-graph replay where ``_graphable``."""
+    side runs, as a CUDA-graph replay where ``_graphable``. The attributes
+    ``device_step``, ``optimizer``, ``rows`` and ``graphs`` are what
+    ``make_multi_step`` reads."""
     from ..ops.graphs import graphed
 
     def body(batch, generator, kind):
@@ -731,8 +733,17 @@ def _dispatched(step: Callable, optimizer: Optimizer, rows) -> Callable:
         return run(batch, generator, kind)
 
     train_step.device_step, train_step.optimizer, train_step.rows = step, optimizer, rows
-    train_step.graphs = None if run is body else run
+    train_step.graphs, train_step.batch_step = None if run is body else run, train_step
     return train_step
+
+
+def with_device_side(fn: Callable, batch_step: Callable) -> Callable:
+    """``fn``, a dispatched ``batch_step(batch, generator)`` called with
+    other arguments (the MAE and MoE steps' positional tensors), with
+    ``batch_step``'s attributes, so that ``make_multi_step`` takes it."""
+    for name in ("device_step", "optimizer", "rows", "graphs", "batch_step"):
+        setattr(fn, name, getattr(batch_step, name))
+    return fn
 
 
 def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
@@ -747,42 +758,49 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
     strong-label targets (data.StrongFramewiseHDF5Dataset) against
     ``models.uit.forward_train_framewise``'s (B, tg, C) probabilities; the
     loss, backward, pre-clip norm, clipping and optimizer update of
-    ``make_train_step``. No PSL or mixup: neither has per-segment
-    targets. ``rows``: as in ``make_train_step``."""
+    ``make_train_step``, dispatched as it is (a CUDA graph per batch shape
+    and optimizer kind on the card, one process). No PSL or mixup: neither
+    has per-segment targets. ``rows``: as in ``make_train_step``.
+
+    The segment grid check compares shapes alone: it runs on the host at
+    the first, eager call of each batch shape, before the update, and a
+    replay's shapes are those of a call that passed it."""
     from ..models import uit as uit_model
 
     loss_fn = make_loss(loss_name, **(loss_args or {}))
 
-    def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
+    def step(batch, generator, kind, row):
         with sharded(rows):
-            return step(batch, generator)
-
-    def step(batch, generator):
-        wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
-        probs, new_state = uit_model.forward_train_framewise(
-            model_cfg, model, wav, generator=generator, wav_augment=wav_augment,
-            spec_augment=spec_augment, frontend_fn=frontend_fn)
-        if probs.shape != target.shape:
-            raise ValueError(f"segment grid mismatch: model {tuple(probs.shape)} vs targets "
-                             f"{tuple(target.shape)} — chunk_length and target_length must "
-                             f"describe the same window")
-        loss = loss_fn(probs, target)
-        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm)
+            wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
+            probs, new_state = uit_model.forward_train_framewise(
+                model_cfg, model, wav, generator=generator, wav_augment=wav_augment,
+                spec_augment=spec_augment, frontend_fn=frontend_fn)
+            if probs.shape != target.shape:
+                raise ValueError(f"segment grid mismatch: model {tuple(probs.shape)} vs "
+                                 f"targets {tuple(target.shape)} — chunk_length and "
+                                 f"target_length must describe the same window")
+            loss = loss_fn(probs, target)
+            gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm,
+                                     (kind, row))
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
-    return train_step
+    return dispatch_step(step, optimizer, rows)
 
 
 def make_multi_step(train_step: Callable) -> Callable:
     """K train steps in a row: ``multi(batches, generator)`` with a leading
     (K, ...) axis on every batch leaf -> metrics stacked over the K steps.
     Exactly K sequential ``train_step`` calls, for any train step. For a
-    ``make_train_step`` step on the card the K steps are one CUDA graph (one
+    dispatched step (``make_train_step``, ``make_framewise_train_step``,
+    ``make_mae_step``, ``make_moe_train_step``) on the card the K steps are one CUDA graph (one
     replay, as JAX's ``lax.scan`` is one program), the host writing the K
     micro-steps' scalars (their learning rates) before it; the metrics are
-    (K,) device tensors. ``multi.body(batches, generator, kinds)`` is the
+    (K,) device tensors. The SED, MAE and MoE steps carry the same device
+    side, and take their K steps the same way (the MAE and MoE steps' batches
+    a dict of their positional tensors: ``{'wav'}`` or ``{'wav', 'noise'}``,
+    ``{'wav', 'target'}``). ``multi.body(batches, generator, kinds)`` is the
     device side the graph holds, ``multi.graphs`` its ``GraphedFn`` (None on
-    the CPU, and for the steps that stay eager: framewise, MAE, MoE)."""
+    the CPU, and for a step with no device side of its own)."""
 
     from ..ops.graphs import graphed
 
