@@ -4184,8 +4184,9 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
             run = lambda: step(local, tgt, torch.Generator(device=dev).manual_seed(3))  # noqa
-        grads, update = {}, opt.update
-        opt.update = lambda g: (grads.update(zip(opt.names, g)), update(g))[1]
+        grads, device_update = {}, opt.device_update  # every step's update reaches it
+        opt.device_update = lambda g, *plan: (grads.update(zip(opt.names, g)),
+                                              device_update(g, *plan))[1]
         signs: list = []
         restore = relu_signs(record=signs)
         try:
@@ -4196,7 +4197,7 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
             out["launches"] = dict(launches)
         finally:
             restore()
-        opt.update = update
+        opt.device_update = device_update
         out.update(loss=m["total_loss"].item(), grad_norm=m["grad_norm"].item(),
                    params=gather_params(model), grads=gather_params(model, grads), signs=signs,
                    rank_bytes=param_bytes(model))

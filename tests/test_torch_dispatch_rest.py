@@ -432,13 +432,17 @@ def test_artifact_call_is_the_module_and_reads_no_device_value(tmp_path):
         assert torch.equal(got, fn.program.module()(wav))
 
 
-def test_artifact_constant_copies_fold_into_device_constants_bitwise():
-    """A plain batch-polymorphic artifact copies its frontend's window and
-    filterbank, lifted host constants, to the device at each call (from
-    pageable memory, which a capture refuses); the card's load folds the
-    copies into constants made once. The program's output stays bitwise
-    (folded here for the CPU, as load_artifact folds them for the card)."""
+def test_artifact_constant_copies_fold_into_device_constants_bitwise(monkeypatch):
+    """A plain batch-polymorphic artifact whose frontend's window and
+    filterbank were first built under the trace copies them, lifted host
+    constants, to the device at each call (from pageable memory, which a
+    capture refuses); the card's load folds the copies into constants made
+    once. The program's output stays bitwise (folded here for the CPU, as
+    load_artifact folds them for the card)."""
     from uit_mobile_tpu_torch.ckpt.artifact import _constants_on_device, export_serving
+    from uit_mobile_tpu_torch.utils import device as device_mod
+
+    monkeypatch.setattr(device_mod, "_CONSTANTS", {})  # none built before the trace
 
     cfg = models.get_model_config("uit_xxxs", outputdim=7, target_length=102, depth=1)
     model = models.build(cfg, torch.Generator().manual_seed(2), device="cpu")
