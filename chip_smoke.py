@@ -656,18 +656,19 @@ def issue_ms(call, n: int = 10) -> float:
     return statistics.median(times)
 
 
-def dispatch_readings(eager, replay, graphed, n_prof: int = 3) -> dict:
-    """Eager and replay of one path side by side: CUDA-event medians, host
-    ms to issue a call, the device's idle share (torch.profiler), the graph's
-    capture seconds and pool bytes, and its mel launches a replay from the
-    counters and from a trace of one replay."""
+def dispatch_readings(eager, replay, graphed, n_prof: int = 3, iters: int = 10) -> dict:
+    """Eager and replay of one path side by side: CUDA-event medians of
+    ``iters`` calls, host ms to issue a call, the device's idle share
+    (torch.profiler), the graph's capture seconds and pool bytes, and its
+    mel launches a replay from the counters and from a trace of one
+    replay."""
     from uit_mobile_tpu_torch.ops import launches
 
     out = {}
     for name, call in (("eager", eager), ("replay", replay)):
-        ms = time_ms(call, warmup=2, iters=10)
+        ms = time_ms(call, warmup=min(2, iters), iters=iters)
         prof = profile_steps(call, n=n_prof)
-        out.update({f"{name}_ms": ms, f"{name}_issue_ms": issue_ms(call, n=5),
+        out.update({f"{name}_ms": ms, f"{name}_issue_ms": issue_ms(call, n=min(5, iters)),
                     f"{name}_device_busy_ms": prof["device_busy_ms"],
                     f"{name}_idle_share": prof["device_idle_share"],
                     f"{name}_busy_over_untraced": prof.get("busy_over_untraced"),
@@ -887,7 +888,9 @@ def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -
                "calls": calls, "graph_keys": keys, "gate": gate, "max_abs_gap_vs_eager": gap,
                "eager_vs_eager_spread": spread,
                "generator_offset": [int(got[-1][1]), int(e1[-1][1])],
-               **dispatch_readings(eager_call, replay_call, g, n_prof=1),
+               # outside the graphs phase a K-step is timed over 3 calls
+               **dispatch_readings(eager_call, replay_call, g, n_prof=1,
+                                   iters=3 if how == "multi" and phase != "graphs" else 10),
                "card": info["nvidia_smi"],
                "wall_s_since_start": time.perf_counter() - t0}
         emit(rec)
@@ -2825,9 +2828,9 @@ def phase_moe(info) -> dict:
     # the MoE step and its K-step as CUDA graphs, held against eager
     from uit_mobile_tpu_torch.train import make_multi_step
 
-    pool = [moe_batch(seed) for seed in (44, 45, 46)]
-    batches = [{"wav": torch.roll(torch.from_numpy(pool[i % 3][0]), i, dims=0).cuda(),
-                "target": torch.roll(torch.from_numpy(pool[i % 3][1]), i, dims=0).cuda()}
+    pool = [(pcm, target), (pcm1, target1)]  # rolled: every batch another
+    batches = [{"wav": torch.roll(torch.from_numpy(pool[i % 2][0]), i, dims=0).cuda(),
+                "target": torch.roll(torch.from_numpy(pool[i % 2][1]), i, dims=0).cuda()}
                for i in range(1 + NEW_GRAPH_BLOCKS * GRAPH_K)]
 
     def fresh_graphed():
