@@ -122,11 +122,17 @@ After bench:
               when gloo carries FSDP2's collectives for CUDA tensors, else
               one NCCL rank); the Evaluator and TaggingService over two
               replicas of the card, the kernel on every shard; the one-rank
-              step's cost beside the single-process step's. Not a scaling
-              measurement.
+              step's cost beside the single-process step's. Dispatch: the
+              NCCL rank's step and validation replay as one process's
+              (replays = calls - keys, from the Trainer's `graph dispatch`
+              line); the per-sample Evaluator and service replay a graph
+              per replica, bitwise the threaded eager route; the gloo ranks,
+              the FSDP step and the batch-global clamp run eagerly, their
+              reason printed. Not a scaling measurement.
   model_parallel - model parallelism on the one card (phase_model_parallel):
               every route as one NCCL rank (meshes of ones) and as four
-              gloo ranks sharing the card: TP 2x2 with and without sharded
+              gloo ranks sharing the card: the weak step on the ranks' rows
+              (uit_xs B=32), TP 2x2 with and without sharded
               attention, a hybrid FSDP x TP 2x2 weak step, SP seq=4 (float32
               exact, bfloat16, int16 fast) and data 2 x seq 2, PP pipe=4 at
               M=4 and M=8 (and int16 fast), EP data 2 x expert 2 on
@@ -134,7 +140,12 @@ After bench:
               kernel on every rank's rows; forwards within 2e-5 (bfloat16
               5e-3) of the single-process card forward, steps as the
               parallel phase's; launches, forward ms and weight bytes by
-              rank. Not a scaling measurement.
+              rank. At the NCCL rank every route but the hybrid step is a
+              CUDA graph: each forward's replay bitwise its eager call, with
+              eager and replay ms, issue ms, idle shares, capture seconds
+              and mel launches a replay; the data-parallel and MoE steps
+              held as the graphs phase holds a step. Not a scaling
+              measurement.
   gate      - the synthetic accuracy gate at full size on the card
               (uit_mobile_tpu_torch/tools/gate_synthetic.py in its own
               process): uit_xxxs trained through cli.train on the synthetic
@@ -823,7 +834,8 @@ def eager_step(step, batch: dict, gen=None):
     return step.device_step(batch, gen, kind, step.optimizer.scalars(1)[0])
 
 
-def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -> list:
+def held_step_path(phase: str, name: str, fresh, batches: list, variant, info,
+                   hows: tuple = ("single", "multi"), verify=None) -> list:
     """A dispatched train step (train/steps.py) on the card over 1 +
     GRAPH_BLOCKS x K batches (dicts of device tensors): two eager runs, the
     graphed single step (one eager warm-up, then replays) and the graphed
@@ -833,7 +845,11 @@ def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -
     bitwise, the graphed runs equal them bitwise (parameters, buffers,
     optimizer leaves, count and the generator's offset), else within twice
     the eager spread; each call after the warm-up one replay; ``variant``
-    in every replay (None: no mel kernel in the step)."""
+    in every replay (None: no mel kernel in the step). ``hows``: the runs
+    held (a step under a mesh holds its single step alone: no K-step runs
+    there). ``verify(ok, msg)``: check, or a rank's recorder (a rank that
+    raised alone would leave the others waiting in a collective)."""
+    verify = verify or check
     t0 = time.perf_counter()
     K, n = GRAPH_K, len(batches)
 
@@ -848,7 +864,7 @@ def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -
     gate = "bitwise" if spread == 0.0 else f"2 x the eager spread {spread}"
     limit = 2.0 * spread
     recs = []
-    for how in ("single", "multi"):
+    for how in hows:
         step, multi, state, gen = fresh()
         if how == "single":
             for b in batches:
@@ -862,9 +878,9 @@ def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -
             g, calls = multi.graphs, (n - 1) // K
         got = state()
         gap = state_gap(got, e1)
-        check(g is not None, f"{phase} {name} {how}: the step on the card is not graphed")
+        verify(g is not None, f"{phase} {name} {how}: the step on the card is not graphed")
         replays, keys = sum(s["replays"] for s in g.stats()), len(g._eager_calls)
-        check(replays == calls - keys, f"{phase} {name} {how}: {replays} replays for {calls} "
+        verify(replays == calls - keys, f"{phase} {name} {how}: {replays} replays for {calls} "
                                        f"calls of {keys} keys (one eager warm-up a key, then "
                                        f"one replay a call)")
         b0 = batches[0]
@@ -894,9 +910,9 @@ def held_step_path(phase: str, name: str, fresh, batches: list, variant, info) -
                "card": info["nvidia_smi"],
                "wall_s_since_start": time.perf_counter() - t0}
         emit(rec)
-        check(gap <= limit, f"{phase} {name} {how}: replay vs eager gap {gap} over {gate}")
+        verify(gap <= limit, f"{phase} {name} {how}: replay vs eager gap {gap} over {gate}")
         mel = rec["mel_per_replay_counters"]
-        check(mel.get(variant, 0) > 0 if variant else not mel,
+        verify(mel.get(variant, 0) > 0 if variant else not mel,
               f"{phase} {name} {how}: mel launches a replay {mel}, expected {variant}")
         if phase != "graphs":
             REPLAY_LAUNCHES[f"{phase}_{path}"] = mel
@@ -3581,12 +3597,23 @@ def phase_bench(info) -> None:
 # one card: NCCL takes one rank a card, so two ranks share it over gloo)
 CARD = "cuda:0"
 PARALLEL_DEADLINE_S = 300  # a rank's rendezvous timeout, and the deadline of its join
+MP_CARDS_DEADLINE_S = 420  # the four NCCL ranks' join (--mp-cards: every mesh's NCCL set-up)
 # one step of each configuration as two ranks of one global batch: B, the
 # student's mel layout, frontend precision, int16 input, the kernel each
 # rank's student (B/2 rows) and teacher (B/4) launch
 DP_STEPS = {"recipe": (32, "bft", "exact", False, "row_exact"),
             "frontier": (1024, "tfb", "fast", True, "tfb_fast")}
 DP_LR, DP_EPS = 1e-3, 1e-8  # the steps' AdamW (constant lr, optax's eps)
+# why a route runs eagerly (parallel/collectives.py:capturable, train/steps.py:_graphable,
+# parallel/mesh.py:data_parallel_forward)
+EAGER_REASONS = {
+    "gloo": "gloo: its collectives move CUDA tensors through the host, which no CUDA "
+            "graph holds",
+    "fsdp": "FSDP: fully_shard gathers and frees the DTensor parameters from host hooks "
+            "and resizes their storage, which no CUDA graph holds",
+    "threads": "the batch-global clamp or the MoE's routing: the replicas meet on the "
+               "host (rows.ThreadGroup), which no CUDA graph holds",
+}
 
 
 def relu_signs(record: list | None = None, impose: list | None = None):
@@ -3700,7 +3727,8 @@ def dp_step(parts: dict, rows=None, sl: slice = slice(None), psl: bool = True,
 
     out = {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item(),
            "params": {n: host(p) for n, p in model.named_parameters()},
-           "grads": {n: host(g) for n, g in grads.items()}, "launches": counts}
+           "grads": {n: host(g) for n, g in grads.items()}, "launches": counts,
+           "dispatch": "eager" if getattr(step, "graphs", None) is None else "graph"}
     if timed:  # more steps of the same batch, after the recorded one
         out["step_ms"] = time_ms(lambda: step(batch, torch.Generator(device=dev).manual_seed(3)),
                                  warmup=2, iters=10)
@@ -3807,13 +3835,24 @@ def npz_arrays(path: Path) -> dict:
 
 def trainer_log(path: Path) -> dict:
     """A Trainer's train.log -> the step ms of each epoch (1000 / it/s), the
-    mel kernel launches the process logged at its end, and the text."""
+    mel kernel launches and the graph dispatch (calls, keys, replays of the
+    step and the validation) the process logged at its end, and the text."""
     text = path.read_text()
     its = [float(x) for x in re.findall(r"Epoch \d+\s+loss \S+ \(([\d.]+) it/s\)", text)]
     launched = re.findall(r"mel kernel launches: (\{.*\})", text)
-    check(bool(its) and bool(launched), f"{path}: no epoch or launch line")
+    dispatch = re.findall(r"graph dispatch: (\{.*\})", text)
+    check(bool(its) and bool(launched) and bool(dispatch),
+          f"{path}: no epoch, launch or dispatch line")
     return {"epoch_step_ms": [1000.0 / x for x in its], "launches": json.loads(launched[-1]),
-            "log": text}
+            "dispatch": json.loads(dispatch[-1]), "log": text}
+
+
+def replayed(dispatch: dict, names=("step", "validation")) -> bool:
+    """Whether each of ``names`` in a Trainer's dispatch line ran as replays:
+    replays = calls - keys (one eager warm-up a key), and some."""
+    return all(isinstance(dispatch.get(n), dict)
+               and dispatch[n]["replays"] == dispatch[n]["calls"] - dispatch[n]["keys"] > 0
+               for n in names)
 
 
 def run_with_deadline(argv: list, deadline: float) -> tuple:
@@ -3838,21 +3877,37 @@ def run_with_deadline(argv: list, deadline: float) -> tuple:
 
 
 def spawn_ranks(argvs: list, deadline: float) -> list:
-    """Start every rank; join each within ``deadline`` s of the start, and
-    kill them all on a failure or at the deadline. -> their outputs."""
+    """Start every rank, each with ``deadline`` s (its faulthandler dumps its
+    stacks 15 s before); kill them all as soon as one fails, or at the
+    deadline, and report every rank's output then. -> their outputs."""
+    import os
+
     procs = [subprocess.Popen(a, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                              cwd=REPO) for a in argvs]
-    t_end, outs = time.monotonic() + deadline, []
+                              cwd=REPO, env=dict(os.environ, UIT_RANK_DEADLINE_S=str(deadline)))
+             for a in argvs]
+    outs: list = [[] for _ in procs]
+    readers = [threading.Thread(target=lambda p=p, o=o: o.append(p.stdout.read()), daemon=True)
+               for p, o in zip(procs, outs)]
+    for t in readers:
+        t.start()
+    t_end = time.monotonic() + deadline
     try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, t_end - time.monotonic()))[0])
+        while any(p.poll() is None for p in procs) and time.monotonic() < t_end:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # a failed rank: the others would wait for it
+            time.sleep(0.5)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}")
+            p.wait()
+        for t in readers:
+            t.join(timeout=30)
+    outs = ["".join(o) for o in outs]
+    if any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {r} exited {p.returncode}:\n{out[-3000:]}"
+                          for r, (p, out) in enumerate(zip(procs, outs)))
+        check(False, f"a rank failed or the ranks passed their {deadline} s deadline:\n{tails}")
     return outs
 
 
@@ -3884,6 +3939,8 @@ def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> di
                      for r in ranks[1:] for k in got["params"])
     rec = {"phase": "parallel", "path": f"{world}_ranks_{name}", "B": B,
            "rows_a_rank": B // world, "mel_launches_by_rank": [r[name]["launches"] for r in ranks],
+           "dispatch_by_rank": [r[name]["dispatch"] for r in ranks],
+           "eager_reason": EAGER_REASONS["fsdp" if name == "fsdp" else "gloo"],
            "relu_inputs": int(sum(s.numel() for s in signs)), "relu_flips": flips,
            "ranks_params_bitwise": same_ranks,
            "vs_single_given_rank_signs": dp_agreement(got, given),
@@ -3893,6 +3950,8 @@ def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> di
     check(same_ranks and rec["vs_single_given_rank_signs"]["agrees"]
           and rec["vs_single"]["loss_rel_err"] <= 1e-5 and flips <= 1e-5 * rec["relu_inputs"],
           f"{world} ranks vs one process, {name}: {rec}")
+    check(all(d == "eager" for d in rec["dispatch_by_rank"]),
+          f"{world} ranks, {name}: a gloo or FSDP step took a graph: {rec['dispatch_by_rank']}")
     return rec
 
 
@@ -3958,8 +4017,12 @@ def phase_parallel(info) -> dict:
            "single_launches": single["launches"], "rank0_launches": launched["launches"],
            "single_epoch_step_ms": single["epoch_step_ms"],
            "world1_epoch_step_ms": launched["epoch_step_ms"],
+           "world1_over_single_last_epoch": (launched["epoch_step_ms"][-1]
+                                             / single["epoch_step_ms"][-1]),
            "step_ms_from": "the Trainer's log: 1000 / it/s of each epoch (host clock, one "
-                           "sync an epoch, the loader included)",
+                           "sync an epoch, the loader included; the first epoch holds the "
+                           "warm-up and capture)",
+           "single_dispatch": single["dispatch"], "world1_dispatch": launched["dispatch"],
            "card": info["nvidia_smi"]}
     if not bitwise:  # is one process even bitwise with itself?
         code, out = run_with_deadline(
@@ -3972,6 +4035,10 @@ def phase_parallel(info) -> dict:
     check(rec["largest_gap"] <= 1e-3 and launched["launches"]["row_exact"] > 0
           and launched["launches"] == single["launches"],
           f"cli.launch 1 against one process: {rec}")
+    check(bitwise and replayed(launched["dispatch"]) and replayed(single["dispatch"])
+          and launched["dispatch"] == single["dispatch"],
+          f"cli.launch 1: the NCCL rank's step and validation not replays as one process's, "
+          f"or last.npz not bitwise: {rec}")
     counts["cli_train_single"] = single["launches"]
     counts["launch_1_nccl_rank0"] = launched["launches"]
 
@@ -4007,6 +4074,37 @@ def phase_parallel(info) -> dict:
     return counts
 
 
+def dp_replicas(dp, mesh, batch) -> dict:
+    """The dispatch of an in-process data-parallel forward
+    (``parallel.data_parallel_forward``): threaded and eager (the reason),
+    or one graph per replica: each replica's replays so far, then on
+    ``batch`` one replay of every replica a call against the threaded eager
+    route over the same replicas, bitwise, and the two routes side by side
+    (dispatch_readings)."""
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
+    from uit_mobile_tpu_torch.parallel import data_parallel_forward
+
+    if dp.threaded:
+        return {"dispatch": "eager (threads)", "eager_reason": EAGER_REASONS["threads"]}
+    out = {"dispatch": "graph per replica",
+           "replays_by_replica": [f.graphs.summary()["replays"] for f in dp.replicas]}
+    threaded = data_parallel_forward([lambda w, f=f: f.eager(w) for f in dp.replicas], mesh)
+    for _ in range(calls_to_capture(dp.replicas[0])):
+        dp(batch)
+    before = [f.graphs.summary()["replays"] for f in dp.replicas]
+    got = dp(batch)
+    after = [f.graphs.summary()["replays"] for f in dp.replicas]
+    want = threaded(batch)
+    out.update(replay_vs_threaded_bitwise=bool(torch.equal(got, want)),
+               replay_vs_threaded_max_abs=float((got.float() - want.float()).abs().max()),
+               one_replay_a_replica=[a - b for a, b in zip(after, before)] == [1, 1],
+               timed="eager: the threaded route; replay: a replay a replica (mel a call: "
+                     "both replicas'; capture and pool: replica 0's graph)",
+               **dispatch_readings(lambda: threaded(batch), lambda: dp(batch),
+                                   dp.replicas[0].graphs, n_prof=1, iters=5))
+    return out
+
+
 def dp_in_process(work: Path, info) -> dict:
     """(d): the Evaluator and the TaggingService data parallel over a mesh
     of two CARD replicas against their non-DP runs on the same clips and
@@ -4015,7 +4113,9 @@ def dp_in_process(work: Path, info) -> dict:
     forward), exact with the batch-global clamp reduced over the shards
     (against the non-DP exact Evaluator), and the service with either
     clamp against its non-DP run. Launch counts set to 0 before each DP run
-    and read after."""
+    and read after. The per-sample routes (fast Evaluator, service) replay
+    a graph per replica, bitwise the threaded eager route (dp_replicas);
+    the batch-global clamp keeps the threads."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ops import launches, make_forward_fn
     from uit_mobile_tpu_torch.parallel import make_mesh
@@ -4049,14 +4149,16 @@ def dp_in_process(work: Path, info) -> dict:
                            for i in range(0, len(clips), ev.batch_size)])
     rec["eval_fast"] = {"route": [ev._fwd_fn.uses_kernel, ev._fwd_fn.top_db_mode],
                         "max_abs_diff_vs_non_dp_per_sample": float(np.abs(got - want).max()),
-                        "launches": counts["dp_eval_fast"]}
+                        "launches": counts["dp_eval_fast"],
+                        **dp_replicas(ev._fwd_fn, mesh, torch.from_numpy(clips[:ev.batch_size]))}
     ev, got, counts["dp_eval_exact"] = dp_eval()
     plain = Ev(str(npz), device=CARD)
     plain.gsc(eval_data="gsc")
     rec["eval_exact"] = {"route": [ev._fwd_fn.uses_kernel, ev._fwd_fn.top_db_mode],
                          "max_abs_diff_vs_non_dp_exact":
                              float(np.abs(got - plain.epochs[-1][0]).max()),
-                         "launches": counts["dp_eval_exact"]}
+                         "launches": counts["dp_eval_exact"],
+                         **dp_replicas(ev._fwd_fn, mesh, None)}
     pcm = list(np.stack(sets["gsc"][0]))
     for mode in ("per_sample", "torch"):
         conf = dict(batch_size=32, max_seconds=1, dtype="int16", warmup=False,
@@ -4068,13 +4170,23 @@ def dp_in_process(work: Path, info) -> dict:
         with TaggingService(cfg, model, ServiceConfig(**conf, data_parallel=mesh),
                             device=CARD) as svc:
             got = np.stack(svc.infer_many(pcm))
+            counts[f"dp_serve_{mode}"] = dict(launches)
             route = [svc._fwd.uses_kernel, svc._fwd.top_db_mode]
-        counts[f"dp_serve_{mode}"] = dict(launches)
+            replicas = dp_replicas(svc._fwd, mesh, torch.from_numpy(np.stack(pcm[:32]))
+                                   if mode == "per_sample" else None)
         rec[f"serve_{mode}"] = {"route": route,
                                 "max_abs_diff_vs_non_dp": float(np.abs(got - want).max()),
-                                "launches": counts[f"dp_serve_{mode}"]}
+                                "launches": counts[f"dp_serve_{mode}"], **replicas}
     rec["card"] = info["nvidia_smi"]
     emit(rec)
+    per_replica = [rec[k] for k in ("eval_fast", "serve_per_sample")]
+    threaded = [rec[k] for k in ("eval_exact", "serve_torch")]
+    check(all(r["dispatch"] == "graph per replica" and r["replays_by_replica"][0] > 0
+              and len(set(r["replays_by_replica"])) == 1 and r["replay_vs_threaded_bitwise"]
+              and r["one_replay_a_replica"] for r in per_replica)
+          and all(r["dispatch"] == "eager (threads)" for r in threaded),
+          f"in-process data parallelism: per-sample replicas not replaying bitwise the "
+          f"threaded route, or a clamp route not threaded: {rec}")
     check(rec["eval_fast"]["route"] == [True, "per_sample"]
           and rec["eval_exact"]["route"] == [True, "torch"]
           and rec["serve_per_sample"]["route"] == [True, "per_sample"]
@@ -4096,6 +4208,7 @@ MP_B = 32  # the dense routes' clips of 1 s; the EP routes take MOE_B clips of 1
 # name: (route, its mesh over four ranks, options); at one rank each route
 # runs on a mesh of ones (MP_ONE_RANK)
 MP_ROUTES = {
+    "dp_step": ("dp_step", {"data": 4}, {}),  # the weak step on 4 ranks' rows (cli.launch 4)
     "tp": ("tp", {"data": 2, "model": 2}, {}),
     "tp_attn": ("tp", {"data": 2, "model": 2}, {"shard_attention": True}),
     "hybrid_step": ("hybrid_step", {"data": 2, "model": 2}, {}),
@@ -4109,10 +4222,11 @@ MP_ROUTES = {
     "ep": ("ep", {"data": 2, "expert": 2}, {}),
     "ep_step": ("ep_step", {"data": 2, "expert": 2}, {}),
 }
-MP_ONE_RANK = ("tp", "hybrid_step", "sp", "pp", "ep", "ep_step")
+MP_ONE_RANK = ("dp_step", "tp", "hybrid_step", "sp", "pp", "ep", "ep_step")
 # the tensor dims a step's ReLU inputs split over each mesh axis: the dense
 # MLP's (rows, tokens, hidden), the experts' (experts, groups, slots, hidden)
-MP_RELU_DIMS = {"hybrid_step": {"data": 0, "model": -1}, "ep_step": {"expert": 0, "data": 1}}
+MP_RELU_DIMS = {"dp_step": {"data": 0}, "hybrid_step": {"data": 0, "model": -1},
+                "ep_step": {"expert": 0, "data": 1}}
 
 
 def mp_inputs(moe: bool, fast: bool = False):
@@ -4160,7 +4274,7 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
     from uit_mobile_tpu_torch import parallel
     from uit_mobile_tpu_torch.parallel.fsdp import make_fsdp_train_step
     from uit_mobile_tpu_torch.parallel.tp import gather_params
-    from uit_mobile_tpu_torch.train import build_optimizer
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
 
     moe = route.startswith("ep")
     cfg, model = mp_model(moe, opts.get("bf16", False))
@@ -4175,19 +4289,29 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
         local, rows = mesh.shard_rows(wav, data_axis)
         tgt, _ = mesh.shard_rows(target, data_axis)
         opt_spec = build_optimizer("AdamW", DP_LR, weight_decay=5e-8)
-        if route == "hybrid_step":
+        # one generator: a graphed step's key holds the generator object, so
+        # the timed calls below replay the step
+        gen = torch.Generator(device=dev).manual_seed(3)
+        if route == "dp_step":  # Rows over the 'data' group at any size, as a trainer's
+            local, tgt, rows = dp_share(mesh, wav, target, dev)
+            model = model.to(dev)
+            opt = opt_spec.init(model)
+            step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+            run = lambda: step({"wav": local, "target": tgt}, gen)  # noqa: E731
+        elif route == "hybrid_step":
             root, _ = parallel.hybrid_shard_params(mesh, model)
             model = root.model
             opt = opt_spec.init(model)
             step = make_fsdp_train_step(cfg, root, opt, rows=rows, frontend_fn=fe)
-            run = lambda: step({"wav": local, "target": tgt},  # noqa: E731
-                               torch.Generator(device=dev).manual_seed(3))
+            run = lambda: step({"wav": local, "target": tgt}, gen)  # noqa: E731
         else:
             model, _ = parallel.ep_shard_params(mesh, model)
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
-            run = lambda: step(local, tgt, torch.Generator(device=dev).manual_seed(3))  # noqa
-        grads, device_update = {}, opt.device_update  # every step's update reaches it
+            run = lambda: step(local, tgt, gen)  # noqa: E731
+        # the main path's first call is eager (a graphed step's warm-up):
+        # its update reaches the hook
+        grads, device_update = {}, opt.device_update
         opt.device_update = lambda g, *plan: (grads.update(zip(opt.names, g)),
                                               device_update(g, *plan))[1]
         signs: list = []
@@ -4205,6 +4329,10 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
                    params=gather_params(model), grads=gather_params(model, grads), signs=signs,
                    rank_bytes=param_bytes(model))
         out["step_ms"] = time_ms(run, warmup=1, iters=3)
+        if step.graphs is None:
+            out.update(dispatch="eager", eager_reason=eager_reason(route))
+        else:  # held as the single-process steps are
+            out.update(dispatch="graph", held=mp_held_step(route, cfg, mesh, fe, dev))
         return out
     if route == "tp":
         fn = parallel.tensor_parallel_forward(
@@ -4227,14 +4355,110 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
     probs = fn(wav)
     torch.cuda.synchronize()
     out.update(launches=dict(launches), probs=probs.cpu(), on_card=probs.is_cuda,
-               rank_bytes=held, ms=time_ms(lambda: fn(wav), warmup=1, iters=5))
+               rank_bytes=held, **mp_dispatch(fn, wav, route))
+    out["ms"] = time_ms(lambda: fn(wav), warmup=1, iters=5)
     return out
+
+
+def eager_reason(route: str) -> str:
+    """Why a route runs eagerly on this rank (EAGER_REASONS): the hybrid
+    FSDP x TP step for its DTensors on any backend, the others for gloo."""
+    return EAGER_REASONS["fsdp" if route == "hybrid_step" else "gloo"]
+
+
+def mp_dispatch(fn, wav, route: str) -> dict:
+    """A model-parallel forward's dispatch on this rank, after its first
+    (eager) call: eager with its reason, or its graph held: one replay
+    against ``fn.eager`` on the same batch, bitwise, then dispatch_readings
+    (eager and replay ms, issue ms, idle shares, capture s, mel launches a
+    replay). Every rank makes the same calls."""
+    from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
+
+    g = fn.graphs
+    if g is None:
+        return {"dispatch": "eager", "eager_reason": eager_reason(route)}
+    for _ in range(calls_to_capture(fn)):
+        fn(wav)
+    replays = g.summary()["replays"]
+    got = fn(wav)
+    one = g.summary()["replays"] == replays + 1
+    eager = fn.eager(wav)
+    return {"dispatch": "graph", "one_replay_a_call": one,
+            "replay_vs_eager_bitwise": bool(torch.equal(got, eager)),
+            "replay_vs_eager_max_abs": float((got.float() - eager.float()).abs().max()),
+            **dispatch_readings(lambda: fn.eager(wav), lambda: fn(wav), g, n_prof=1, iters=5)}
+
+
+MP_HELD_STEPS = 3  # a step held on the mesh: one eager warm-up, then two replays
+
+
+def dp_share(mesh, wav, target, dev) -> tuple:
+    """This rank's rows of a global batch over the mesh's 'data' axis and
+    their ``Rows`` over its group, at any size (a group of one rank keeps
+    its Rows, as a trainer's does) -> (wav, target, rows)."""
+    from uit_mobile_tpu_torch.parallel.rows import Rows
+
+    n, i = mesh.shape["data"], mesh.coords["data"]
+    local, tgt = wav.chunk(n)[i], target.chunk(n)[i]
+    return local, tgt, Rows([local.shape[0]], dev, group=mesh.group("data"))
+
+
+def mp_held_step(route: str, cfg, mesh, fe, dev) -> list:
+    """A graphed step on the mesh (the data-parallel weak step, or the MoE
+    step) held as held_step_path holds a single-process step (two eager
+    runs, then the graphed step, from one start; bitwise or within twice the
+    eager spread; replays = calls - keys; row_exact in every replay), over
+    MP_HELD_STEPS batches; its single step alone (no K-step runs under a
+    mesh). Every rank runs it; its gates are recorded, not raised."""
+    from uit_mobile_tpu_torch import parallel
+    from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+
+    moe, data_axis = route == "ep_step", "data" if "data" in mesh.shape else None
+    batches = []
+    for i in range(MP_HELD_STEPS):
+        if moe:
+            pcm, target = moe_batch(40 + i)
+        else:
+            pcm = pcm_batch(np.random.default_rng(50 + i), MP_B, SR)
+            target = (np.random.default_rng(60 + i).random((MP_B, 537)) < 0.05)
+        wav = torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev)
+        target = torch.from_numpy(target.astype(np.float32)).to(dev)
+        if moe:
+            local, rows = mesh.shard_rows(wav, data_axis)
+            tgt, _ = mesh.shard_rows(target, data_axis)
+        else:
+            local, tgt, rows = dp_share(mesh, wav, target, dev)
+        batches.append({"wav": local, "target": tgt})
+
+    def fresh():
+        _, model = mp_model(moe, device="cpu" if moe else dev)
+        opt_spec = build_optimizer("AdamW", DP_LR, weight_decay=5e-8)
+        if moe:
+            model, _ = parallel.ep_shard_params(mesh, model)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+        else:
+            opt = opt_spec.init(model)
+            step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        return step, None, run_state(model, opt, gen), gen
+
+    failures: list = []
+    recs = held_step_path("model_parallel", route, fresh, batches, "row_exact",
+                          {"nvidia_smi": None}, hows=("single",),
+                          verify=lambda ok, msg: ok or failures.append(msg))
+    return [dict(r, failures=failures) for r in recs]
 
 
 def mp_rank(argv) -> int:
     """One rank of the model-parallel phase (``chip_smoke.py --mp-rank R W
     PORT DIR BACKEND DEVICE``): every route of MP_ROUTES (four ranks) or of
-    MP_ONE_RANK on meshes of ones (one rank); results to DIR."""
+    MP_ONE_RANK on meshes of ones (one rank); results to DIR. Each route's
+    start is printed, and the stacks are dumped before the deadline."""
+    import faulthandler
+    import gc
+    import os
+
     import torch.distributed as dist
 
     from uit_mobile_tpu_torch.parallel import multihost
@@ -4246,19 +4470,36 @@ def mp_rank(argv) -> int:
     dev = resolve_device(CARD)  # TF32 off, as in the single-process forwards and steps
     multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
                          backend=backend, timeout=PARALLEL_DEADLINE_S)
+    faulthandler.dump_traceback_later(
+        float(os.environ.get("UIT_RANK_DEADLINE_S", PARALLEL_DEADLINE_S)) - 15, exit=False)
     res = {}
+    t0 = time.perf_counter()
     for name, (route, shape, opts) in MP_ROUTES.items():
         if world == 1 and name not in MP_ONE_RANK:
             continue
         if world == 1:
             shape = {axis: 1 for axis in shape}
+        print(f"rank {rank}: {name} at {time.perf_counter() - t0:.1f} s", flush=True)
         res[name] = dict(mp_route(route, shape, opts, dev), mesh=shape)
     torch.save(res, workdir / f"mp_rank{rank}.pt")
-    dist.destroy_process_group()
-    return 0
+    # A CUDA graph that holds NCCL work keeps its communicator, and
+    # destroying the group waits for it: free the routes' graphs first (a
+    # step's functions sit in a reference cycle). The outcome is written
+    # beside the results; a teardown still waiting after 60 s is left to
+    # the process's end.
+    gc.collect()
+    torch.cuda.synchronize()
+    done = threading.Event()
+    threading.Thread(target=lambda: (dist.destroy_process_group(), done.set()),
+                     daemon=True).start()
+    (workdir / f"mp_rank{rank}.teardown").write_text(
+        "destroyed" if done.wait(60) else "destroy_process_group still waiting after 60 s")
+    sys.stdout.flush()
+    os._exit(0)
 
 
-def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None) -> list:
+def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None,
+             deadline: float = PARALLEL_DEADLINE_S) -> list:
     """Run mp_rank on ``world`` processes, rank r on ``devices[r]`` (default:
     all sharing CARD) -> their results."""
     work.mkdir(parents=True, exist_ok=True)
@@ -4266,7 +4507,10 @@ def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None) 
     devices = devices or [CARD] * world
     spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--mp-rank",
                   str(r), str(world), port, str(work), backend, devices[r]]
-                 for r in range(world)], PARALLEL_DEADLINE_S)
+                 for r in range(world)], deadline)
+    emit({"phase": "model_parallel", "path": f"{world}_{backend}_ranks_teardown",
+          "teardown_by_rank": [(work / f"mp_rank{r}.teardown").read_text()
+                               for r in range(world)]})
     return [torch.load(work / f"mp_rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -4362,6 +4606,7 @@ def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend:
            "ranks_params_bitwise": same,
            "vs_single_given_rank_signs": dp_agreement(got, given),
            "vs_single": dp_agreement(got, free),
+           "dispatch_by_rank": [r["dispatch"] for r in ranks],
            "step_ms_by_rank": [r["step_ms"] for r in ranks],
            "weight_bytes_by_rank": [r["rank_bytes"] for r in ranks],
            "whole_model_bytes": got["whole_bytes"], "card": info["nvidia_smi"]}
@@ -4370,6 +4615,43 @@ def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend:
           and rec["vs_single"]["loss_rel_err"] <= 1e-5 and flips <= 1e-5 * rec["relu_inputs"],
           f"{name} at {len(ranks)} ranks vs one process: {rec}")
     return rec
+
+
+# the readings of a graphed route kept by rank (dispatch_readings' keys)
+DISPATCH_KEYS = ("one_replay_a_call", "replay_vs_eager_bitwise", "replay_vs_eager_max_abs",
+                 "eager_ms", "replay_ms", "eager_issue_ms", "replay_issue_ms",
+                 "eager_device_busy_ms", "replay_device_busy_ms", "eager_idle_share",
+                 "replay_idle_share", "replay_kernels", "capture_s", "pool_bytes",
+                 "mel_per_replay_counters", "mel_per_replay_captured", "mel_per_replay_traced")
+
+
+def mp_dispatch_gate(name: str, route: str, per: list, world: int, backend: str, variant: str,
+                     info) -> dict:
+    """A route's dispatch on every rank: on NCCL a graph (but the hybrid
+    FSDP x TP step: eager, its DTensors), each rank's replay bitwise its
+    eager call, one replay a call, ``variant`` once a replay (forwards;
+    the MoE step's held records, printed from rank 0, gate themselves); on
+    gloo eager. -> the fields of the route's record."""
+    want = "graph" if backend == "nccl" and route != "hybrid_step" else "eager"
+    got = [rr["dispatch"] for rr in per]
+    check(got == [want] * len(per), f"{name} at {world} {backend} ranks: dispatch {got}, "
+                                    f"expected {want}")
+    if want == "eager":
+        return {"dispatch": "eager", "eager_reason": per[0]["eager_reason"]}
+    if route.endswith("_step"):
+        for rec in per[0]["held"]:
+            emit(dict(rec, phase="model_parallel", path=f"{world}_ranks_{name}_held",
+                      backend=backend, card=info["nvidia_smi"],
+                      gap_by_rank=[rr["held"][0]["max_abs_gap_vs_eager"] for rr in per]))
+        failures = [f for rr in per for rec in rr["held"] for f in rec["failures"]]
+        check(not failures, f"{name} at {world} {backend} ranks, held: {failures}")
+        return {"dispatch": "graph"}
+    out = {"dispatch": "graph", **{f"{k}_by_rank": [rr[k] for rr in per] for k in DISPATCH_KEYS}}
+    check(all(rr["replay_vs_eager_bitwise"] and rr["one_replay_a_call"]
+              and rr["mel_per_replay_counters"] == {variant: 1} for rr in per),
+          f"{name} at {world} {backend} ranks: a replay not bitwise its eager call, not one "
+          f"replay a call, or not one {variant} a replay: {out}")
+    return out
 
 
 def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, info) -> dict:
@@ -4388,6 +4670,7 @@ def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, 
                   for rr in per),
               f"{name} at {world} ranks: a rank did not launch {variant} once for its "
               f"rows: {[rr['launches'] for rr in per]}")
+        dispatch = mp_dispatch_gate(name, route, per, world, backend, variant, info)
         if route.endswith("_step"):
             mp_step_gate(name, route, per, shape, info, backend)
             continue
@@ -4401,7 +4684,7 @@ def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, 
                "ms_by_rank": [rr["ms"] for rr in per], "single_ms": single_ms,
                "weight_bytes_by_rank": [rr["rank_bytes"] for rr in per],
                "whole_model_bytes": per[0]["whole_bytes"], "spawn_wall_s": spawn_s,
-               "card": info["nvidia_smi"],
+               **dispatch, "card": info["nvidia_smi"],
                "note": "ranks sharing one card over gloo time-slice it: not a scaling number"
                if backend == "gloo" else f"{world} NCCL rank(s), one card each"}
         emit(rec)
@@ -4413,9 +4696,11 @@ def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, 
 def phase_model_parallel(info) -> dict:
     """Model parallelism on the one card (not a scaling measurement), each
     route with the mel kernel as its frontend on every rank:
-    (a) one NCCL rank (a ``--mp-rank`` process): TP 1x1, hybrid 1x1 (one
-        weak step), SP S=1, PP S=1, EP 1x1 (forward and one step);
-    (b) four gloo ranks sharing the card, spawned once: TP 2x2 with and
+    (a) one NCCL rank (a ``--mp-rank`` process): the weak step under Rows
+        of the rank's group, TP 1x1, hybrid 1x1 (one weak step), SP S=1,
+        PP S=1, EP 1x1 (forward and one step);
+    (b) four gloo ranks sharing the card, spawned once: the weak step on
+        the ranks' rows (8 a rank); TP 2x2 with and
         without shard_attention; hybrid FSDP x TP 2x2 (one weak step); SP
         seq=4 (6 tokens a rank) in float32 exact, bfloat16 and int16 fast,
         and data=2 x seq=2; PP pipe=4 (3 blocks a stage) at M=4 and M=8, and
@@ -4424,9 +4709,14 @@ def phase_model_parallel(info) -> dict:
     Forwards are held to the single-process card forward with the same
     frontend: 2e-5 in probabilities, 5e-3 in bfloat16; steps as the
     parallel phase's (dp_versus_single).
-    Each rank's mel launches (counts set to 0 just before its main path),
-    forward ms (CUDA-event median) and the weight bytes it holds are
-    printed. -> {path: mel launch counts}."""
+    Each rank's mel launches (counts set to 0 just before its main path,
+    whose first call is eager: a graph's warm-up), forward ms (CUDA-event
+    median) and the weight bytes it holds are printed. At the NCCL rank
+    every route but the hybrid step is a CUDA graph: each forward's replay
+    bitwise its eager call with dispatch_readings (mp_dispatch), the MoE
+    step held as the single-process steps (mp_held_step); the gloo ranks
+    and the hybrid step run eagerly, their reason printed
+    (mp_dispatch_gate). -> {path: mel launch counts}."""
     import tempfile
 
     # the ranks share the card: give back this process's cached blocks
@@ -4545,9 +4835,11 @@ def mp_cards(argv) -> int:
     """``chip_smoke.py --mp-cards 4``: the model_parallel phase's four-rank
     routes as four NCCL ranks, one card each (the layouts' own setting:
     NCCL collectives and point to point on the cards), held by the same
-    gates against the single process on the first card; the same lines,
-    then the kernels' launches on these routes and the last line. Exits
-    non-zero without four cards."""
+    gates against the single process on the first card, every route but
+    the hybrid step a CUDA graph whose replays hold the collectives and the
+    point-to-point hand-offs (mp_dispatch_gate); the same lines, then the
+    kernels' launches on these routes and the last line. Exits non-zero
+    without four cards."""
     import tempfile
 
     n = int(argv[0]) if argv else 0
@@ -4564,7 +4856,8 @@ def mp_cards(argv) -> int:
     phase_build()
     work = Path(tempfile.mkdtemp(prefix="uit_model_parallel_cards_"))
     t0 = time.perf_counter()
-    ranks = mp_spawn(work, n, "nccl", devices=[f"cuda:{r}" for r in range(n)])
+    ranks = mp_spawn(work, n, "nccl", devices=[f"cuda:{r}" for r in range(n)],
+                     deadline=MP_CARDS_DEADLINE_S)
     spawn_s = time.perf_counter() - t0
     counts = mp_check(n, ranks, "nccl", spawn_s, mp_references(), info)
     shutil.rmtree(work, ignore_errors=True)

@@ -240,7 +240,7 @@ def test_steps_take_the_replay_branch_on_the_card(world, kind, monkeypatch):
 
     wrapped = []
 
-    def fake_graphed(fn, device):
+    def fake_graphed(fn, device, agree=None):
         wrapped.append(lambda *args: fn(*args))
         return wrapped[-1]
 

@@ -34,6 +34,14 @@ ends with the same outputs and parameters. The ranks count their
 collectives by mesh axis (torch.distributed wrapped in each child), and
 the counts of each forward are pinned. The spec trees equal JAX's key for
 key, and the checks that refuse raise.
+
+One case of each forward route with a 'data' axis (TP 2x2 with
+attention, SP 2x2, PP 2x2, EP 2x2) and the TP and EP steps run again with
+the card's dispatch forced on the ranks (``GridMesh.capturable`` and
+``train.steps._graphable`` true, ``graphed`` recording): each hands its
+body to ``graphed`` with the ranks' capture agreement, the body reads no
+device value on the host and builds no ``Rows`` after its first call, and
+its outputs are bitwise the eager route's (so within the JAX gates above).
 """
 
 import json
@@ -95,12 +103,15 @@ STEPS = {
     "hybrid_step": ("hybrid", "tp", {"data": 2, "model": 2}, {}, "w16"),
     "ep_step": ("ep", "ep", {"data": 2, "expert": 2}, {}, "w8"),
 }
+# the cases run again with the card's dispatch forced (card_branch)
+FORCED = ("tp_2x2_attn", "sp_s2", "pp_2x2", "ep_2x2", "tp_step", "ep_step")
 AUG_STEP = dict(mixup_alpha=0.5, max_grad_norm=1.0)
 EP_WEIGHT_DECAY = 1e-4  # optax.adamw's default, JAX's EP test optimizer
 
 RANK_SRC = r'''
 """Every case of the world as one rank: ``python ranks.py RANK WORLD PORT DIR``."""
 import collections
+import contextlib
 import inspect
 import json
 import sys
@@ -108,6 +119,7 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from uit_mobile_tpu_torch import models
 from uit_mobile_tpu_torch.ckpt.convert import module_from_numpy, unflatten_tree
@@ -156,23 +168,82 @@ def model_of(cfg, data, key):
     return module_from_numpy(cfg, p, s, "cpu")
 
 
-def forward(case, cfg, model, mesh, opts, wav):
+class HostReads(TorchDispatchMode):
+    """Counts host reads of a device value (``_local_scalar_dense``)."""
+
+    def __init__(self, log):
+        super().__init__()
+        self.log = log
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            self.log["host_reads"] += 1
+        return func(*args, **(kwargs or {}))
+
+
+@contextlib.contextmanager
+def card_branch():
+    """The card's dispatch forced on these CPU ranks: ``GridMesh.capturable``
+    and ``_graphable`` true, ``graphed`` recording what it is handed (the
+    body then runs under HostReads), Rows builds logged by the call they
+    fall in (0: before the first) -> the log."""
+    from uit_mobile_tpu_torch.ops import graphs
+    from uit_mobile_tpu_torch.parallel import mesh as mesh_mod
+    from uit_mobile_tpu_torch.parallel.rows import Rows
+    from uit_mobile_tpu_torch.train import steps as steps_mod
+
+    log = {"handed": 0, "agreed": 0, "calls": 0, "host_reads": 0, "rows_built_at_call": []}
+
+    def fake_graphed(fn, device, agree=None):
+        log["handed"] += 1
+        log["agreed"] += agree is not None
+
+        def run(*args):
+            log["calls"] += 1
+            with HostReads(log):
+                return fn(*args)
+
+        return run
+
+    init = Rows.__init__
+
+    def counting_init(self, *args, **kwargs):
+        log["rows_built_at_call"].append(log["calls"])
+        init(self, *args, **kwargs)
+
+    saved = graphs.graphed, mesh_mod.GridMesh.capturable, steps_mod._graphable
+    graphs.graphed, Rows.__init__ = fake_graphed, counting_init
+    mesh_mod.GridMesh.capturable = property(lambda self: True)
+    steps_mod._graphable = lambda opt, rows: True
+    try:
+        yield log
+    finally:
+        graphs.graphed, mesh_mod.GridMesh.capturable, steps_mod._graphable = saved
+        Rows.__init__ = init
+
+
+def build_forward(case, cfg, model, mesh, opts):
     route = case["route"]
     if route == "tp":
-        fn = parallel.tensor_parallel_forward(
+        return parallel.tensor_parallel_forward(
             lambda m, w: models.apply(cfg, m, w), mesh, model, **opts)
-    elif route == "sp":
-        fn = parallel.sequence_parallel_forward(cfg, model, mesh, **opts)
-    elif route == "pp":
-        fn = parallel.pipeline_forward(cfg, model, mesh, **opts)
-    else:
-        fn = parallel.expert_parallel_forward(cfg, model, mesh, **opts)
+    if route == "sp":
+        return parallel.sequence_parallel_forward(cfg, model, mesh, **opts)
+    if route == "pp":
+        return parallel.pipeline_forward(cfg, model, mesh, **opts)
+    return parallel.expert_parallel_forward(cfg, model, mesh, **opts)
+
+
+def forward(case, cfg, model, mesh, opts, wav):
+    fn = build_forward(case, cfg, model, mesh, opts)
     COUNTS.clear()
     probs = fn(torch.from_numpy(wav))
     return {"probs": probs.numpy()}
 
 
-def step(case, cfg, model, mesh, opts, wav, target):
+def step(case, cfg, model, mesh, opts, wav, target, again=False):
+    """One step of the case -> (outputs, local shapes); ``again``: a second
+    step after the outputs are taken."""
     route = case["route"]
     local, rows = mesh.shard_rows(torch.from_numpy(wav), "data")
     tgt, _ = mesh.shard_rows(torch.from_numpy(target), "data")
@@ -181,32 +252,51 @@ def step(case, cfg, model, mesh, opts, wav, target):
         model, _ = parallel.ep_shard_params(mesh, model)
         opt, _ = parallel.sharded_opt_init(
             build_optimizer("AdamW", 1e-3, weight_decay=case["weight_decay"]), model)
-        m = parallel.make_moe_train_step(cfg, model, opt, rows=rows)(local, tgt, gen)
+        fn = parallel.make_moe_train_step(cfg, model, opt, rows=rows)
+        run = lambda: fn(local, tgt, gen)  # noqa: E731
         root_model = model
     elif route == "hybrid":
         root, _ = parallel.hybrid_shard_params(mesh, model)
         root_model = root.model
         opt = build_optimizer("AdamW", 1e-3, weight_decay=1e-8).init(root_model)
-        m = make_fsdp_train_step(cfg, root, opt, rows=rows, **case["step_kw"])(
-            {"wav": local, "target": tgt}, gen)
+        fn = make_fsdp_train_step(cfg, root, opt, rows=rows, **case["step_kw"])
+        run = lambda: fn({"wav": local, "target": tgt}, gen)  # noqa: E731
     else:
         model, _ = parallel.shard_params(mesh, model, **opts)
         root_model = model
         opt, _ = parallel.sharded_opt_init(build_optimizer("AdamW", 1e-3, weight_decay=1e-8),
                                           model)
-        m = make_train_step(cfg, model, opt, rows=rows, **case["step_kw"])(
-            {"wav": local, "target": tgt}, gen)
+        fn = make_train_step(cfg, model, opt, rows=rows, **case["step_kw"])
+        run = lambda: fn({"wav": local, "target": tgt}, gen)  # noqa: E731
+    m = run()
     out = {"loss": np.asarray(m["total_loss"].item()),
            "grad_norm": np.asarray(m["grad_norm"].item())}
     params = gather_params(root_model)
     moments = gather_params(root_model, dict(zip(opt.names, opt.moments[0])))
     out.update({f"p.{k}": v.numpy() for k, v in params.items()})
     out.update({f"g.{k}": (v / 0.1).numpy() for k, v in moments.items()})
-    out.update({f"s.{k}": v.numpy() for k, v in root_model.named_buffers()})
+    out.update({f"s.{k}": v.numpy().copy() for k, v in root_model.named_buffers()})
     local_of = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
     shapes = {n: [list(local_of(p).shape), list(local_of(mu).shape)]
               for (n, p), mu in zip(root_model.named_parameters(), opt.moments[0])}
+    if again:
+        run()
     return out, shapes
+
+
+def forced(case, cfg, model, mesh, opts, wav, target):
+    """The case with the card's dispatch forced (card_branch), the mesh's
+    Rows built anew: a forward called twice, a step run twice -> (outputs,
+    the log)."""
+    mesh.rows.clear()
+    with card_branch() as log:
+        if case["kind"] == "forward":
+            fn = build_forward(case, cfg, model, mesh, opts)
+            probs = [fn(torch.from_numpy(wav)).numpy() for _ in range(2)]
+            res = {"probs": probs[0], "probs_again": probs[1]}
+        else:
+            res, _ = step(case, cfg, model, mesh, opts, wav, target, again=True)
+    return res, log
 
 
 if __name__ == "__main__":
@@ -230,6 +320,11 @@ if __name__ == "__main__":
         np.savez(f"{workdir}/{case['name']}.r{rank}.npz", **res)
         report[case["name"]] = {"counts": dict(COUNTS), "coords": mesh.coords,
                                 "shapes": shapes}
+        if case["forced"]:
+            res, log = forced(case, cfg, model_of(cfg, data, case["model"]), mesh, opts,
+                              data[case["wav"]], data.get(case["wav"] + "_target"))
+            np.savez(f"{workdir}/{case['name']}.forced.r{rank}.npz", **res)
+            report[case["name"]]["forced"] = log
     json.dump(report, open(f"{workdir}/report.r{rank}.json", "w"))
     dist.destroy_process_group()
     print(f"DONE {rank}", flush=True)
@@ -352,7 +447,8 @@ def world(tmp_path_factory):
             cases.append({"name": name, "kind": kind, "route": route, "model": key,
                           "model_name": MODELS[key][0], "model_kw": MODELS[key][1],
                           "mesh": shape, "opts": opts, "wav": wav,
-                          "step_kw": _step_kw(name), "weight_decay": EP_WEIGHT_DECAY})
+                          "step_kw": _step_kw(name), "weight_decay": EP_WEIGHT_DECAY,
+                          "forced": name in FORCED})
     (workdir / "cases.json").write_text(json.dumps(cases))
     (workdir / "ranks.py").write_text(RANK_SRC)
     env = dict(os.environ)
@@ -378,6 +474,8 @@ def world(tmp_path_factory):
         assert p.returncode == 0, f"rank {r} failed:\n{out}"
     ranks = {name: [dict(np.load(workdir / f"{name}.r{r}.npz")) for r in range(WORLD)]
              for name in list(FORWARDS) + list(STEPS)}
+    ranks.update({f"{name}.forced": [dict(np.load(workdir / f"{name}.forced.r{r}.npz"))
+                                     for r in range(WORLD)] for name in FORCED})
     reports = [json.loads((workdir / f"report.r{r}.json").read_text()) for r in range(WORLD)]
     return ranks, reports, jax_side, single
 
@@ -481,6 +579,31 @@ def test_step_matches_jax(world, name):
         return
     for k, v in params.items():
         assert (np.abs(got[k] - v) <= _param_bound(grads[f"g.{k[2:]}"])).all(), k
+
+
+@pytest.mark.parametrize("name", FORCED)
+def test_card_branch_is_the_eager_route(world, name):
+    """The case with the card's dispatch forced: on every rank its body went
+    to ``graphed`` with the ranks' capture agreement, read no device value
+    on the host and built no Rows after its first call, and its outputs
+    (both calls of a forward) are bitwise the eager route's, so within the
+    JAX gates of the tests above."""
+    ranks, reports, jax_side, _ = world
+    for r in range(WORLD):
+        log = reports[r][name]["forced"]
+        assert log["handed"] >= 1 and log["agreed"] == log["handed"], log
+        assert log["calls"] == 2 and log["host_reads"] == 0, log
+        assert max(log["rows_built_at_call"], default=0) <= 1, log
+        got, want = ranks[f"{name}.forced"][r], ranks[name][r]
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        if name in FORWARDS:
+            np.testing.assert_array_equal(got["probs_again"], want["probs"])
+    got = ranks[f"{name}.forced"][0]
+    if name in FORWARDS:
+        np.testing.assert_allclose(got["probs"], jax_side[name], atol=2e-5, rtol=0)
+    else:
+        assert abs(float(got["loss"]) - jax_side[name][0]) < 1e-5
 
 
 # ----------------------------------------------------------- single process

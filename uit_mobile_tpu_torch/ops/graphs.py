@@ -27,7 +27,11 @@ others), replayed with one host call.
 - The mel kernel's launch counters (``ops/mel.py:launches``) count kernel
   executions: a capture records its launches apart (nothing runs then),
   and each replay adds them to the counters.
-- A failed capture raises. Nothing falls back to eager at run time.
+- A failed capture raises. Nothing falls back to eager at run time. With
+  ``agree`` (a program of several ranks whose collectives the graph holds:
+  ``parallel.collectives.capture_agreement``) the ranks exchange whether
+  each captured before the first replay, and a capture that failed on any
+  rank raises on every rank.
 
 On a CPU device ``graphed`` returns ``fn`` itself: the eager path the
 caller asked for.
@@ -114,9 +118,11 @@ class GraphedFn:
     docstring). ``graphs`` maps each key to its ``_Graph``; ``stats()``
     summarizes them."""
 
-    def __init__(self, fn: Callable, device: torch.device):
+    def __init__(self, fn: Callable, device: torch.device,
+                 agree: Optional[Callable[[bool], bool]] = None):
         self.fn = fn
         self.device = _indexed(torch.device(device))
+        self.agree = agree
         self.graphs: dict = {}
         self._eager_calls: dict = {}
         self._lock = threading.Lock()
@@ -156,6 +162,7 @@ class GraphedFn:
                 g.inputs.append(x)
         args = pytree.tree_unflatten(g.inputs, spec)
         card, cur = _card(self.device), torch.cuda.current_stream(self.device)
+        failed = None
         with card.side_lock:
             card.side.wait_stream(cur)
             reserved = torch.cuda.memory_reserved(self.device)
@@ -173,9 +180,17 @@ class GraphedFn:
                             pass  # the capture was already invalid; the first error says why
                         raise
                     g.graph.capture_end()
+            except Exception as e:  # noqa: BLE001 - raised below, on every rank with agree
+                failed = e
             finally:
                 _mel.capture.launches = None
             cur.wait_stream(card.side)
+        agreed = self.agree is None or self.agree(failed is None)
+        if failed is not None:
+            raise failed
+        if not agreed:
+            raise RuntimeError("another rank's capture of this key failed (its own error "
+                               "says why); no rank replays it")
         g.capture_s = time.perf_counter() - t0
         g.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
         g.outputs, g.out_spec = pytree.tree_flatten(out)
@@ -201,6 +216,13 @@ class GraphedFn:
                 _mel.launches[k] += v
         return pytree.tree_unflatten(out, g.out_spec)
 
+    def summary(self) -> dict:
+        """Keys seen, graphs captured, calls and replays so far (calls =
+        the eager warm-ups and the replays: a key's capture replays it)."""
+        replays = sum(g.replays for g in self.graphs.values())
+        return {"keys": len(self._eager_calls), "graphs": len(self.graphs),
+                "calls": sum(self._eager_calls.values()) + replays, "replays": replays}
+
     def stats(self) -> list[dict]:
         """Per captured key: capture seconds, pool growth in bytes, mel
         kernel launches a replay, replays so far."""
@@ -216,11 +238,12 @@ def _indexed(device: torch.device) -> torch.device:
     return device
 
 
-def graphed(fn: Callable, device) -> Callable:
+def graphed(fn: Callable, device, agree: Optional[Callable[[bool], bool]] = None) -> Callable:
     """``fn`` as CUDA-graph replays on a CUDA ``device``; ``fn`` itself on the
-    CPU (module docstring)."""
+    CPU (module docstring). ``agree``: the ranks' agreement on each
+    capture, for a program whose graph holds collectives."""
     device = torch.device(device)
-    return GraphedFn(fn, device) if device.type == "cuda" else fn
+    return GraphedFn(fn, device, agree) if device.type == "cuda" else fn
 
 
 def calls_to_capture(fn) -> int:

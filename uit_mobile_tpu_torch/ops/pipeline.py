@@ -106,15 +106,26 @@ def make_forward_fn(cfg, model, use_kernel: Optional[bool] = None,
     then unused. ``wav`` is a (B, T) float32 or int16 tensor or array.
     fn.uses_kernel and fn.top_db_mode say which frontend runs; fn.body is
     the forward of a device batch and fn.graphs its ``GraphedFn`` on the
-    card (None on the CPU); fn.eager is fn never graphed (the data-parallel
-    shards of parallel/mesh.py run it: they meet in a collective inside it)."""
+    card (None on the CPU); fn.eager is fn never graphed; fn.batch_global
+    whether a row of the output depends on other rows of the batch
+    (``_batch_global``): the data-parallel shards of parallel/mesh.py then
+    meet in a collective inside it, and run fn.eager."""
     members, device, run_cfg, frontend, use_kernel = _policy(
         cfg, model, use_kernel, precision, top_db_mode, btf, frontend_fn=frontend_fn)
 
     def body(wav):
         return ensemble_forward(members, run_cfg, frontend, wav)
 
-    return _device_fn(body, device, use_kernel, run_cfg)
+    return _device_fn(body, device, use_kernel, run_cfg, _batch_global(run_cfg, frontend_fn))
+
+
+def _batch_global(run_cfg, frontend_fn) -> bool:
+    """Whether a row of the forward's output depends on other rows of its
+    batch: the batch-global 'torch' top_db clamp, the MoE's routing groups
+    (the global batch's), or a caller's frontend (not known here)."""
+    fe = run_cfg.frontend
+    return (frontend_fn is not None or isinstance(run_cfg, MoEUITConfig)
+            or (fe.top_db is not None and fe.top_db_mode == "torch"))
 
 
 def _on_device(run, device):
@@ -127,14 +138,14 @@ def _on_device(run, device):
     return fn
 
 
-def _device_fn(body, device, use_kernel, run_cfg):
+def _device_fn(body, device, use_kernel, run_cfg, batch_global):
     """``body`` on the batch moved to ``device``, graphed on the card, with
     the attributes make_forward_fn lists."""
     run = graphed(body, device)
     fn = _on_device(run, device)
     fn.eager = fn if run is body else _on_device(body, device)
     fn.uses_kernel = use_kernel
-    fn.top_db_mode = run_cfg.frontend.top_db_mode
+    fn.top_db_mode, fn.batch_global = run_cfg.frontend.top_db_mode, batch_global
     fn.body, fn.device = body, device
     fn.graphs = None if run is body else run
     return fn
@@ -160,7 +171,7 @@ def make_framewise_fn(cfg, model, use_kernel: Optional[bool] = None,
                 for m in members]
         return torch.stack([p for p, _ in outs]).mean(dim=0), outs[0][1]
 
-    return _device_fn(body, device, use_kernel, run_cfg)
+    return _device_fn(body, device, use_kernel, run_cfg, _batch_global(run_cfg, frontend_fn))
 
 
 def make_scanned_forward(fwd_fn):

@@ -19,12 +19,21 @@ each is an autograd function whose backward is the one its layout needs:
 ``exchange`` posts point-to-point sends and receives together
 (``batch_isend_irecv``: NCCL on the card). gloo moves only CPU tensors
 point to point, so on gloo a CUDA tensor goes through the host.
+
+``capturable`` is the one rule of which groups a CUDA graph may hold: a
+program whose collectives all run on NCCL is captured (``ops/graphs.py``),
+any other runs eagerly. ``capture_agreement`` makes a capture that fails on
+one rank raise on every rank.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 import torch.distributed as dist
+
+from .rows import ThreadGroup
 
 
 class _Copy(torch.autograd.Function):
@@ -120,3 +129,31 @@ def exchange(sends: list, recvs: list, group) -> list:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return [buf.to(like.device) for buf, (like, _) in zip(bufs, recvs)]
+
+
+def capturable(group) -> bool:
+    """Whether a CUDA graph may hold the collectives of ``group`` (a process
+    group, None for the default one, or a ``rows.ThreadGroup``): NCCL's
+    run on the card, and a capture records them; gloo moves a CUDA tensor
+    through the host (``exchange``, and gloo's own collectives copy), and a
+    ThreadGroup meets on the host."""
+    if isinstance(group, ThreadGroup):
+        return False
+    return dist.get_backend(group) == "nccl"
+
+
+def capture_agreement(device, group=None) -> Callable[[bool], bool]:
+    """-> ``agree(ok) -> bool``: whether every rank of ``group`` (None: the
+    default group) captured its graph, each rank passing whether its own
+    capture did; one MIN all-reduce of a flag on ``device`` (the card, for
+    NCCL), run eagerly between a capture and its first replay. Every rank
+    reaches a key's capture at the same call (their batches have one shape:
+    ``Rows.check_local``), so they meet here together, and a capture that
+    failed on one rank raises on every rank instead of leaving the others
+    waiting in the graph's collectives."""
+    def agree(ok: bool) -> bool:
+        flag = torch.tensor([int(ok)], dtype=torch.int32, device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        return bool(flag.item())
+
+    return agree

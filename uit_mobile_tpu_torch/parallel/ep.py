@@ -79,18 +79,20 @@ def expert_parallel_forward(cfg, model, mesh: GridMesh, *, data_axis: str = "dat
     """The MoE eval forward with the expert banks sharded over
     ``mesh[expert_axis]`` (``model`` in place) and the batch over
     ``data_axis`` -> ``fn(wav)``: every rank passes the global batch and
-    gets the global probabilities. ``frontend_fn``: the kernel frontend."""
+    gets the global probabilities. ``frontend_fn``: the kernel frontend.
+    On an NCCL mesh on the card, a CUDA graph per batch shape
+    (``GridMesh.dispatch``: ``fn.eager``, ``fn.graphs``)."""
     from ..models import moe
 
     model, _ = ep_shard_params(mesh, model, expert_axis=expert_axis)
 
-    def fn(wav):
+    def body(wav):
         local, rows = mesh.shard_rows(wav, data_axis)
         with torch.inference_mode(), sharded(rows):
             probs = moe.forward(cfg, model, local, frontend_fn=frontend_fn)
         return mesh.gather_rows(probs, data_axis)
 
-    return fn
+    return mesh.dispatch(body)
 
 
 def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable] = None,
@@ -111,8 +113,9 @@ def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable
 
     Dispatched as ``train/steps.py``'s steps are: the host plans the
     micro-step, the device side is a CUDA graph per batch shape and
-    optimizer kind on the card (one process), eager on the CPU and under
-    ``rows``. The capacity and the drop-path rates are Python values of the
+    optimizer kind on the card (one process, or a mesh on NCCL: the
+    combine's and the routing's collectives in the graph), eager on the CPU
+    and on gloo. The capacity and the drop-path rates are Python values of the
     config, and the routing (a stable sort, one-hot slots) reads no device
     value on the host. ``make_multi_step`` takes the step, its batches
     ``{'wav', 'target'}``."""

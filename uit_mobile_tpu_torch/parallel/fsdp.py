@@ -222,4 +222,7 @@ def make_fsdp_train_step(model_cfg, root: FSDPRoot, optimizer, *, rows: Optional
             optimizer.update(grads)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
+    # eager by design: fully_shard gathers and frees the DTensor parameters
+    # from host hooks and resizes their storage, which no CUDA graph holds
+    step.graphs = None
     return step

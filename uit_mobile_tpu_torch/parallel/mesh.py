@@ -12,7 +12,10 @@ forward shard by shard.
 A ``GridMesh`` is the process group as a grid of named axes, for the
 model-parallel layouts (tp, sp, pp, ep, the hybrid FSDP x TP): each axis
 has its own process group, and a forward takes the global batch on every
-rank (``shard_rows``) and returns the global output (``gather_rows``).
+rank (``shard_rows``) and returns the global output (``gather_rows``). On
+the card with every axis on NCCL each forward is a CUDA graph per key
+(``GridMesh.dispatch``), as the JAX package jits each; on gloo it runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from . import multihost
+from .collectives import capturable, capture_agreement
 from .rows import Rows, ThreadGroup, sharded
 
 
@@ -64,15 +68,46 @@ class GridMesh:
     the row-major position r of ``shape`` (the last axis innermost, as
     JAX reshapes its device list). ``coords``: this rank's index on each
     axis; ``groups``: per axis, the process group of the ranks that differ
-    from this one on that axis only; ``device``: this rank's device."""
+    from this one on that axis only; ``device``: this rank's device.
+    ``shard_rows`` builds each share's ``Rows`` once (``rows``)."""
     shape: dict
     coords: dict
     groups: dict
     device: torch.device
+    rows: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values())))
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph may hold this mesh's programs: on the card,
+        with every axis's group on NCCL (``collectives.capturable``)."""
+        return (torch.device(self.device).type == "cuda"
+                and all(capturable(g) for g in self.groups.values()))
+
+    def dispatch(self, body: Callable) -> Callable:
+        """A forward ``fn(wav)`` of ``body(wav)``, which takes the global
+        batch on this rank's device: one CUDA graph per key where the mesh
+        is ``capturable`` (every rank captures a key at the same call, and
+        a capture that fails on one raises on all), else ``body`` eagerly.
+        ``fn.eager`` is fn never graphed, ``fn.graphs`` the ``GraphedFn``
+        (None when eager)."""
+        from ..ops.graphs import graphed
+
+        run = (graphed(body, self.device, agree=capture_agreement(self.device))
+               if self.capturable else body)
+
+        def on_device(call):
+            def fn(wav):
+                return call(torch.as_tensor(wav).to(self.device))
+
+            return fn
+
+        fn = on_device(run)
+        fn.eager, fn.graphs = (fn, None) if run is body else (on_device(body), run)
+        return fn
 
     def group(self, axis: str):
         return self.groups[axis]
@@ -94,7 +129,12 @@ class GridMesh:
         if x.shape[0] % n:
             raise ValueError(f"the '{axis}' axis ({n}) must divide the batch ({x.shape[0]})")
         local = x.chunk(n)[self.coords[axis]].to(self.device)
-        return local, Rows([local.shape[0]], self.device, group=self.groups[axis])
+        # built once a share: Rows copies its row ids from the host, which
+        # no capture may do
+        key = (axis, local.shape[0])
+        if key not in self.rows:
+            self.rows[key] = Rows([local.shape[0]], self.device, group=self.groups[axis])
+        return local, self.rows[key]
 
     def gather_rows(self, x: torch.Tensor, axis: Optional[str]) -> torch.Tensor:
         """Every rank's rows of ``x`` over ``axis``, concatenated in order (no
@@ -258,23 +298,35 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
     callers pad (serve/, evaluate/). The shards' outputs are concatenated
     on the first device.
 
-    The shards run as the ranks of one collective (one thread each,
-    ``rows.ThreadGroup``), so the batch-global ``top_db_mode='torch'``
-    clamp takes the max over every shard, on the kernel's route as on the
-    plain frontend's. JAX runs a Pallas forward per shard under shard_map
-    and so refuses that clamp there; the port has no such limit."""
+    Two routes, by what the forwards say of themselves (``ops.pipeline``'s
+    ``fn.batch_global``):
+
+    - no row of a forward's output depends on another row of its batch
+      (``batch_global`` False: the per-sample clamp, no MoE routing): each
+      replica calls its own forward, a CUDA-graph replay on the card, in
+      turn from the calling thread (replays are asynchronous: no thread
+      is needed);
+    - otherwise (the batch-global ``top_db_mode='torch'`` clamp, the MoE's
+      routing groups, a forward that says nothing) the shards run as the
+      ranks of one collective, one thread each over a ``rows.ThreadGroup``,
+      each its forward's eager version (``fn.eager``): their rendezvous is on
+      the host, where no CUDA graph can hold it. So the clamp takes the max
+      over every shard, on the kernel's route as on the plain frontend's.
+      JAX runs a Pallas forward per shard under shard_map and so refuses
+      that clamp there; the port has no such limit.
+
+    ``fn.threaded`` says which route runs, ``fn.replicas`` are the
+    forwards the replicas call."""
     mesh = mesh or make_mesh()
     if mesh.spans_processes:
         raise ValueError("data_parallel_forward runs an in-process mesh; a process group's "
                          "ranks each run their own forward")
     fns = list(forward_fn) if isinstance(forward_fn, (list, tuple)) else [forward_fn] * mesh.size
-    # the shards meet in a collective inside the forward, whose host-side
-    # rendezvous no CUDA graph can hold: each runs its forward's eager
-    # version (``ops.pipeline``'s ``fn.eager``)
-    runs = [getattr(f, "eager", f) for f in fns]
     if len(fns) != mesh.size:
         raise ValueError(f"{len(fns)} forwards for a mesh of {mesh.size} devices")
     n_axis = mesh.size
+    threaded = n_axis > 1 and any(getattr(f, "batch_global", True) for f in fns)
+    runs = [getattr(f, "eager", f) for f in fns] if threaded else fns
 
     def run_collective(shards):
         group = ThreadGroup(n_axis)
@@ -314,8 +366,11 @@ def data_parallel_forward(forward_fn, mesh: Optional[Mesh] = None,
         shards = [s.to(d) for s, d in zip(wav.chunk(n_axis), mesh.devices)]
         if n_axis == 1:
             return runs[0](shards[0])
-        return torch.cat([o.to(mesh.devices[0]) for o in run_collective(shards)])
+        outs = (run_collective(shards) if threaded
+                else [run(s) for run, s in zip(runs, shards)])
+        return torch.cat([o.to(mesh.devices[0]) for o in outs])
 
     fn.uses_kernel = getattr(fns[0], "uses_kernel", False)
     fn.top_db_mode = getattr(fns[0], "top_db_mode", None)
+    fn.threaded, fn.replicas = threaded, runs
     return fn

@@ -74,7 +74,9 @@ def pipeline_forward(cfg, model, mesh: GridMesh, *, n_microbatches: Optional[int
     mesh): every rank passes the global batch and gets the global
     probabilities. ``n_microbatches`` defaults to the stage count; the batch
     must divide by it, and each microbatch's rows by the data axis. Clips
-    of at most target_length."""
+    of at most target_length. On an NCCL mesh on the card, a CUDA graph per
+    batch shape (``GridMesh.dispatch``: the S + M - 1 ticks' hand-offs one
+    replay; ``fn.eager``, ``fn.graphs``)."""
     from ..models import uit
     from ..models.common import layer_norm
 
@@ -137,4 +139,4 @@ def pipeline_forward(cfg, model, mesh: GridMesh, *, n_microbatches: Optional[int
             probs = uit.forward_head(cfg, stage, x)
         return mesh.gather_rows(probs, data_axis)
 
-    return fwd
+    return mesh.dispatch(fwd)

@@ -111,7 +111,9 @@ def sequence_parallel_forward(cfg, model, mesh: GridMesh, *, seq_axis: str = "se
     every rank passes the global batch and gets the global probabilities.
     Needs pooling='mean' (a cls token is sequence-global), a non-causal
     model, the 'bft' layout and N % S == 0; clips of at most target_length
-    (longer clips are batch on the data-parallel layouts)."""
+    (longer clips are batch on the data-parallel layouts). On an NCCL mesh
+    on the card, a CUDA graph per batch shape (``GridMesh.dispatch``: the
+    ring's sends and receives in the graph; ``fn.eager``, ``fn.graphs``)."""
     from ..models import uit
     from ..models.common import layer_norm
 
@@ -155,4 +157,4 @@ def sequence_parallel_forward(cfg, model, mesh: GridMesh, *, seq_axis: str = "se
             probs = uit.forward_head(cfg, model, (pooled / (n_loc * S))[:, None, :])
         return mesh.gather_rows(probs, data_axis)
 
-    return fwd
+    return mesh.dispatch(fwd)

@@ -231,13 +231,15 @@ def tensor_parallel_forward(apply_fn: Callable, mesh: GridMesh, model: nn.Module
     ``fn(wav)``: every rank passes the global batch, runs its 'data' rows
     (the batch-global top_db clamp reduced over 'data') and returns the
     global probabilities. Give ``apply_fn`` the kernel frontend
-    (``ops.mel.make_frontend_fn``): each rank launches it on its rows."""
+    (``ops.mel.make_frontend_fn``): each rank launches it on its rows. On
+    an NCCL mesh on the card, a CUDA graph per batch shape
+    (``GridMesh.dispatch``: ``fn.eager``, ``fn.graphs``)."""
     model, _ = shard_params(mesh, model, model_axis=model_axis, shard_attention=shard_attention)
 
-    def fn(wav):
+    def body(wav):
         local, rows = mesh.shard_rows(wav, data_axis)
         with sharded(rows):
             probs = apply_fn(model, local)
         return mesh.gather_rows(probs, data_axis)
 
-    return fn
+    return mesh.dispatch(body)

@@ -28,7 +28,10 @@ with a rank-offset data seed and the step computes the global batch's
 update on every rank (``parallel.rows``); every rank validates the same
 data and takes the same decisions; rank 0 alone writes checkpoints,
 ``last.npz`` and ``averaged.npz``, and every other rank logs to
-``train.rank<r>.log``.
+``train.rank<r>.log``. Over NCCL the step and the validation replay their
+graphs as in one process (every rank's batches have one shape, so the ranks
+capture together); over gloo both run eagerly. The log's last lines name
+the mel launches and the graph dispatch (calls, keys, replays) of the run.
 """
 
 from __future__ import annotations
@@ -59,6 +62,7 @@ from ..ops.mel import launches as mel_launches
 from ..ops.mel import make_frontend_fn
 from ..ops.pipeline import make_forward_fn
 from ..parallel import multihost
+from ..parallel.collectives import capturable
 from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows
 from ..utils import add_file_sink, get_logger, resolve_device, validate_frontend_precision
@@ -120,9 +124,17 @@ class ValidationModel:
 
 def validation_forward(forward, rows):
     """A graphed eval forward (``ops.pipeline``) as a trainer's validation
-    runs it: replays on one process, its eager body under ``rows`` (the
-    multi-process steps stay eager)."""
-    return forward if rows is None else forward.eager
+    runs it: replays in one process and under NCCL ``rows`` (each rank
+    scores every clip outside ``sharded``: the graph holds no collective),
+    its eager body under gloo ``rows``, whose steps are eager too."""
+    return forward if rows is None or capturable(rows.group) else forward.eager
+
+
+def dispatch_summary(fns: dict) -> dict:
+    """{name: ``GraphedFn.summary()`` of the function's graphs, or 'eager'},
+    leaving out the functions that are None."""
+    return {name: "eager" if getattr(fn, "graphs", None) is None else fn.graphs.summary()
+            for name, fn in fns.items() if fn is not None}
 
 
 class Trainer:
@@ -518,8 +530,10 @@ class Trainer:
             if self.is_main:
                 save_checkpoint(output_model, model, cfg, named_params=find_ema_params(opt),
                                 extra={"step": step_count, "run_config": self.run_config})
-        # which kernels this process's run went through
+        # which kernels this process's run went through, and how it dispatched
         log.info(f"mel kernel launches: {json.dumps(mel_launches)}")
+        log.info("graph dispatch: " + json.dumps(dispatch_summary(
+            {"step": self.train_step, "k_step": self.multi_step, "validation": self.eval_fwd})))
         log.info(f"Results can be found at {self.outputdir}")
         log.info(f"Final model is at {output_model}")
         return output_model

@@ -189,8 +189,8 @@ def make_mae_step(cfg: MAEConfig, model: MAE, optimizer, rows: Optional[Rows] = 
     and the optimizer update (no clipping, as in the JAX step), dispatched
     as ``train/steps.py``'s steps are: the host plans the micro-step, the
     device side is a CUDA graph per batch shape and optimizer kind on the
-    card (one process; the mask draw advances the CUDA ``generator``, which
-    the graph registers), eager on the CPU. ``noise`` (B, L), optional, sets
+    card (one process, or NCCL ``rows``; the mask draw advances the CUDA
+    ``generator``, which the graph registers), eager on the CPU and on gloo. ``noise`` (B, L), optional, sets
     the mask instead of a draw. ``make_multi_step`` takes the step, its
     batches ``{'wav'}`` or ``{'wav', 'noise'}``, its metric 'total_loss'.
     ``rows``: ``wav`` (and ``noise``) are this rank's share of a global

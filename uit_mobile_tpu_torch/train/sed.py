@@ -131,8 +131,9 @@ def make_validator(cfg, model, optimizer, frontend, rows=None, threshold: float 
     scores now (the EMA's, else the model's) over a loader of index-pure
     windows, built once: one ``ValidationModel`` and one framewise eval
     forward (``ops.pipeline``, the step's ``frontend``), a CUDA graph per
-    window batch shape on the card, as the JAX trainer jits its eval
-    forward once. ``validate.model`` and ``validate.forward`` are those."""
+    window batch shape on the card (over NCCL ``rows`` too;
+    ``loop.validation_forward``), as the JAX trainer jits its eval forward
+    once. ``validate.model`` and ``validate.forward`` are those."""
     eval_model = ValidationModel(model, optimizer)
     fwd = validation_forward(make_framewise_fn(cfg, eval_model.module, frontend_fn=frontend),
                              rows)

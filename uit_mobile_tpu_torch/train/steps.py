@@ -31,6 +31,8 @@ import torch
 
 from .. import models
 from ..augment.mixup import mixup_targets, sample_mixup_lambdas
+from ..parallel import multihost
+from ..parallel.collectives import capturable, capture_agreement
 from ..parallel.rows import Rows, global_sum, sharded
 from ..parallel.rows import current as current_rows
 from ..utils.device import device_constant
@@ -620,11 +622,12 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
                     rows: Optional[Rows] = None) -> Callable:
     """-> ``train_step(batch, generator) -> {'total_loss', 'grad_norm'}``.
 
-    On the card (a single process: no ``rows``) the step's device side is one
-    CUDA graph per batch shape and optimizer kind (``ops/graphs.py``), as
-    the JAX step is one jitted program; the host plans the optimizer's
-    micro-step (``Optimizer.plan``) before each replay. On the CPU it runs
-    eagerly. ``make_multi_step`` takes K of them as one graph.
+    On the card the step's device side is one CUDA graph per batch shape
+    and optimizer kind (``ops/graphs.py``), as the JAX step is one jitted
+    program, in one process and over NCCL ``rows`` (``_graphable``); the
+    host plans the optimizer's micro-step (``Optimizer.plan``) before each
+    replay. On the CPU it runs eagerly. ``make_multi_step`` takes K of them
+    as one graph.
 
     Without PSL the batch is ``{'wav': (B, T), 'target': (B, C)}``. With
     PSL it is either the same flat form with the AudioSet rows first
@@ -709,10 +712,25 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
 
 
 def _graphable(optimizer: Optimizer, rows) -> bool:
-    """Whether a step runs as CUDA graphs: one process on the card (the
-    multi-process steps meet in collectives and stay eager)."""
-    return (optimizer.device.type == "cuda" and rows is None
-            and not any(hasattr(p, "to_local") for p in optimizer.params))
+    """Whether a step runs as CUDA graphs: on the card, where every
+    collective it can meet runs on NCCL (``collectives.capturable``: those
+    of ``rows``' group; without rows, in a process group, the default
+    group's, whose backend a model-parallel placement's axis groups share),
+    and no parameter is a DTensor (FSDP's ``fully_shard`` gathers and frees
+    them from host hooks, which no graph holds)."""
+    if optimizer.device.type != "cuda" or any(hasattr(p, "to_local") for p in optimizer.params):
+        return False
+    if rows is not None:
+        return capturable(rows.group)
+    return not multihost.is_initialized() or capturable(None)
+
+
+def _agreement(optimizer: Optimizer, rows):
+    """The ranks' agreement on each capture of a step in a process group
+    (``collectives.capture_agreement``), else None."""
+    if rows is None and not multihost.is_initialized():
+        return None
+    return capture_agreement(optimizer.device)
 
 
 def dispatch_step(step: Callable, optimizer: Optimizer, rows) -> Callable:
@@ -726,7 +744,8 @@ def dispatch_step(step: Callable, optimizer: Optimizer, rows) -> Callable:
     def body(batch, generator, kind):
         return step(batch, generator, kind, optimizer.scalars(1)[0])
 
-    run = graphed(body, optimizer.device) if _graphable(optimizer, rows) else body
+    run = (graphed(body, optimizer.device, agree=_agreement(optimizer, rows))
+           if _graphable(optimizer, rows) else body)
 
     def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
         (kind,) = optimizer.plan(1)
@@ -759,8 +778,8 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
     ``models.uit.forward_train_framewise``'s (B, tg, C) probabilities; the
     loss, backward, pre-clip norm, clipping and optimizer update of
     ``make_train_step``, dispatched as it is (a CUDA graph per batch shape
-    and optimizer kind on the card, one process). No PSL or mixup: neither
-    has per-segment targets. ``rows``: as in ``make_train_step``.
+    and optimizer kind on the card, where ``_graphable``). No PSL or mixup:
+    neither has per-segment targets. ``rows``: as in ``make_train_step``.
 
     The segment grid check compares shapes alone: it runs on the host at
     the first, eager call of each batch shape, before the update, and a
@@ -823,7 +842,8 @@ def make_multi_step(train_step: Callable) -> Callable:
         ms = [step(take(batches, i), generator, kind, rows[i]) for i, kind in enumerate(kinds)]
         return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
-    run = body if train_step.graphs is None else graphed(body, optimizer.device)
+    run = (body if train_step.graphs is None
+           else graphed(body, optimizer.device, agree=_agreement(optimizer, train_step.rows)))
 
     def multi(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
         K = next(iter(_leaves(batches))).shape[0]
