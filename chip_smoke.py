@@ -145,7 +145,9 @@ After bench:
               eager and replay ms, issue ms, idle shares, capture seconds
               and mel launches a replay; the data-parallel and MoE steps
               held as the graphs phase holds a step. Not a scaling
-              measurement.
+              measurement. With --mp-cards 4 the four-rank routes run as
+              four NCCL ranks, one card each, and then the recipe through
+              `cli.launch 4` (launch_vs_single).
   gate      - the synthetic accuracy gate at full size on the card
               (uit_mobile_tpu_torch/tools/gate_synthetic.py in its own
               process): uit_xxxs trained through cli.train on the synthetic
@@ -3955,6 +3957,105 @@ def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> di
     return rec
 
 
+def launch_vs_single(work: Path, n: int, info) -> dict:
+    """The recipe for three short epochs on a synthetic world of files (an
+    .npz store: the card's machine has no h5py) through ``cli.launch n``
+    (the real cli.train as n NCCL ranks, rank r on card r) and through
+    ``cli.train`` in one process on the first card, on the same files and
+    seed. At one rank its share is the whole batch and its data seed the
+    process's: last.npz bitwise, the step and validation replays equal to
+    one process's. At n ranks each rank loads its share with its own data
+    seed, so last.npz is held for its arrays, shapes and finiteness, and
+    the ranks for lock-step: the step and the validation replays on every
+    rank, the same dispatch line, epoch losses and validation scores on
+    every rank, rank 0's launches equal to one process's, every rank gone
+    before the deadline. -> the record."""
+    from uit_mobile_tpu_torch.data.synthworld import build_world
+
+    config = dict(RECIPE, epochs=3, epoch_length=8, valid_every=1, num_workers=1,
+                  **build_world(work / "world", seed=42, n_train=64, n_eval=32, store="npz"))
+    cfg_path = work / "recipe.yaml"
+    cfg_path.write_text(json.dumps(config))  # JSON is YAML
+    runs = {}
+    for name, argv in (("single", ["uit_mobile_tpu_torch.cli.train", "train"]),
+                       ("launched", ["uit_mobile_tpu_torch.cli.launch", str(n), "train"])):
+        t0 = time.perf_counter()
+        code, out = run_with_deadline(
+            [sys.executable, "-m", *argv, str(cfg_path), "--device", "cuda",
+             "--outputdir", str(work / name)], PARALLEL_DEADLINE_S)
+        check(code == 0, f"{' '.join(argv)} exited {code}:\n{out[-4000:]}")
+        runs[name] = dict(trainer_log(work / name / "train.log"),
+                          wall_s=time.perf_counter() - t0)
+    single, launched = runs["single"], runs["launched"]
+    check(f"multi-host: process 0/{n}" in launched["log"]
+          and f"data-parallel over {n} devices" in launched["log"]
+          and "multi-host" not in single["log"],
+          f"cli.launch {n} did not run {n} ranks of a process group with their mesh")
+    want, got = (npz_arrays(work / d / "last.npz") for d in ("single", "launched"))
+    same_arrays = got.keys() == want.keys() and all(got[k].shape == want[k].shape
+                                                    for k in want)
+    gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
+    bitwise = same_arrays and all(np.array_equal(got[k], want[k]) for k in want)
+    path = f"launch_{n}_nccl"
+    rec = {"phase": "parallel" if n == 1 else "model_parallel", "path": path,
+           "bitwise_last_npz": bitwise,
+           "largest_gap": max(gaps.values()), "largest_gap_array": max(gaps, key=gaps.get),
+           "single_wall_s": single["wall_s"], "launch_wall_s": launched["wall_s"],
+           "single_launches": single["launches"], "rank0_launches": launched["launches"],
+           "single_epoch_step_ms": single["epoch_step_ms"],
+           f"world{n}_epoch_step_ms": launched["epoch_step_ms"],
+           f"world{n}_over_single_last_epoch": (launched["epoch_step_ms"][-1]
+                                                / single["epoch_step_ms"][-1]),
+           "step_ms_from": "the Trainer's log: 1000 / it/s of each epoch (host clock, one "
+                           "sync an epoch, the loader included; the first epoch holds the "
+                           "warm-up and capture)",
+           "single_dispatch": single["dispatch"], f"world{n}_dispatch": launched["dispatch"],
+           "card": info["nvidia_smi"]}
+    if n == 1:
+        if not bitwise:  # is one process even bitwise with itself?
+            code, out = run_with_deadline(
+                [sys.executable, "-m", "uit_mobile_tpu_torch.cli.train", "train",
+                 str(cfg_path), "--device", "cuda", "--outputdir", str(work / "again")],
+                PARALLEL_DEADLINE_S)
+            check(code == 0, f"cli.train again exited {code}:\n{out[-4000:]}")
+            rerun = npz_arrays(work / "again" / "last.npz")
+            rec["single_rerun_bitwise"] = all(np.array_equal(rerun[k], want[k]) for k in want)
+        emit(rec)
+        check(rec["largest_gap"] <= 1e-3 and launched["launches"]["row_exact"] > 0
+              and launched["launches"] == single["launches"],
+              f"cli.launch 1 against one process: {rec}")
+        check(bitwise and replayed(launched["dispatch"]) and replayed(single["dispatch"])
+              and launched["dispatch"] == single["dispatch"],
+              f"cli.launch 1: the NCCL rank's step and validation not replays as one "
+              f"process's, or last.npz not bitwise: {rec}")
+        return rec
+    logs = [launched["log"]] + [(work / "launched" / f"train.rank{r}.log").read_text()
+                                for r in range(1, n)]
+
+    def lines(text, pattern):
+        return [m.group(1) for m in re.finditer(pattern, text)]
+
+    losses = [lines(t, r"(Epoch \d+\s+loss \S+)") for t in logs]
+    scores = [lines(t, r"Validation Results - Epoch : (\S+ .*)") for t in logs]
+    dispatch = [json.loads(lines(t, r"graph dispatch: (\{.*\})")[-1]) for t in logs]
+    rec.update(epoch_losses_by_rank=losses, validation_by_rank=[v[:3] for v in scores],
+               dispatch_by_rank=dispatch,
+               last_npz_finite=bool(all(np.isfinite(v).all() for v in got.values()
+                                        if v.dtype.kind == "f")),
+               last_npz_note=f"not bitwise by design: each of the {n} ranks loads its share "
+                             f"with its own data seed")
+    emit(rec)
+    check(same_arrays and rec["last_npz_finite"] and len(losses[0]) == config["epochs"]
+          and all(v == losses[0] for v in losses) and len(scores[0]) >= config["epochs"]
+          and all(v[:config["epochs"]] == scores[0][:config["epochs"]] for v in scores)
+          and all(replayed(d) and d == dispatch[0] for d in dispatch)
+          and dispatch[0] == single["dispatch"]
+          and launched["launches"] == single["launches"],
+          f"cli.launch {n}: the NCCL ranks not in lock-step, not replaying as one process, "
+          f"or last.npz not the single process's arrays: {rec}")
+    return rec
+
+
 def phase_parallel(info) -> dict:
     """Data parallelism on the one card (not a scaling measurement):
     (a) the recipe for three short epochs through ``cli.launch 1`` (the
@@ -3985,62 +4086,10 @@ def phase_parallel(info) -> dict:
     work = Path(tempfile.mkdtemp(prefix="uit_parallel_"))
 
     # (a) one rank on NCCL through cli.launch, against one process through
-    # cli.train: the recipe on a synthetic world of files (an .npz store: the
-    # card's machine has no h5py)
-    from uit_mobile_tpu_torch.data.synthworld import build_world
-
-    config = dict(RECIPE, epochs=3, epoch_length=8, valid_every=1, num_workers=1,
-                  **build_world(work / "world", seed=42, n_train=64, n_eval=32, store="npz"))
-    cfg_path = work / "recipe.yaml"
-    cfg_path.write_text(json.dumps(config))  # JSON is YAML
-    runs = {}
-    for name, argv in (("single", ["uit_mobile_tpu_torch.cli.train", "train"]),
-                       ("launched", ["uit_mobile_tpu_torch.cli.launch", "1", "train"])):
-        t0 = time.perf_counter()
-        code, out = run_with_deadline(
-            [sys.executable, "-m", *argv, str(cfg_path), "--device", "cuda",
-             "--outputdir", str(work / name)], PARALLEL_DEADLINE_S)
-        check(code == 0, f"{' '.join(argv)} exited {code}:\n{out[-4000:]}")
-        runs[name] = dict(trainer_log(work / name / "train.log"),
-                          wall_s=time.perf_counter() - t0)
-    single, launched = runs["single"], runs["launched"]
-    check("multi-host: process 0/1" in launched["log"]
-          and "data-parallel over 1 devices" in launched["log"]
-          and "multi-host" not in single["log"],
-          "cli.launch 1 did not run one rank of a process group with its mesh")
-    want, got = (npz_arrays(work / d / "last.npz") for d in ("single", "launched"))
-    gaps = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max()) for k in want}
-    bitwise = got.keys() == want.keys() and all(np.array_equal(got[k], want[k]) for k in want)
-    rec = {"phase": "parallel", "path": "launch_1_nccl", "bitwise_last_npz": bitwise,
-           "largest_gap": max(gaps.values()), "largest_gap_array": max(gaps, key=gaps.get),
-           "single_wall_s": single["wall_s"], "launch_wall_s": launched["wall_s"],
-           "single_launches": single["launches"], "rank0_launches": launched["launches"],
-           "single_epoch_step_ms": single["epoch_step_ms"],
-           "world1_epoch_step_ms": launched["epoch_step_ms"],
-           "world1_over_single_last_epoch": (launched["epoch_step_ms"][-1]
-                                             / single["epoch_step_ms"][-1]),
-           "step_ms_from": "the Trainer's log: 1000 / it/s of each epoch (host clock, one "
-                           "sync an epoch, the loader included; the first epoch holds the "
-                           "warm-up and capture)",
-           "single_dispatch": single["dispatch"], "world1_dispatch": launched["dispatch"],
-           "card": info["nvidia_smi"]}
-    if not bitwise:  # is one process even bitwise with itself?
-        code, out = run_with_deadline(
-            [sys.executable, "-m", "uit_mobile_tpu_torch.cli.train", "train", str(cfg_path),
-             "--device", "cuda", "--outputdir", str(work / "again")], PARALLEL_DEADLINE_S)
-        check(code == 0, f"cli.train again exited {code}:\n{out[-4000:]}")
-        rerun = npz_arrays(work / "again" / "last.npz")
-        rec["single_rerun_bitwise"] = all(np.array_equal(rerun[k], want[k]) for k in want)
-    emit(rec)
-    check(rec["largest_gap"] <= 1e-3 and launched["launches"]["row_exact"] > 0
-          and launched["launches"] == single["launches"],
-          f"cli.launch 1 against one process: {rec}")
-    check(bitwise and replayed(launched["dispatch"]) and replayed(single["dispatch"])
-          and launched["dispatch"] == single["dispatch"],
-          f"cli.launch 1: the NCCL rank's step and validation not replays as one process's, "
-          f"or last.npz not bitwise: {rec}")
-    counts["cli_train_single"] = single["launches"]
-    counts["launch_1_nccl_rank0"] = launched["launches"]
+    # cli.train
+    rec = launch_vs_single(work, 1, info)
+    counts["cli_train_single"] = rec["single_launches"]
+    counts["launch_1_nccl_rank0"] = rec["rank0_launches"]
 
     # (b, c) two ranks sharing the card over gloo
     t0 = time.perf_counter()
@@ -4089,7 +4138,7 @@ def dp_replicas(dp, mesh, batch) -> dict:
     out = {"dispatch": "graph per replica",
            "replays_by_replica": [f.graphs.summary()["replays"] for f in dp.replicas]}
     threaded = data_parallel_forward([lambda w, f=f: f.eager(w) for f in dp.replicas], mesh)
-    for _ in range(calls_to_capture(dp.replicas[0])):
+    for _ in range(calls_to_capture(dp)):
         dp(batch)
     before = [f.graphs.summary()["replays"] for f in dp.replicas]
     got = dp(batch)
@@ -4105,6 +4154,12 @@ def dp_replicas(dp, mesh, batch) -> dict:
     return out
 
 
+def graphs_by_replica(dp) -> list | None:
+    """The graphs each replica of a data-parallel forward holds (None for the
+    threaded route, whose replicas run eagerly)."""
+    return None if dp.threaded else [f.graphs.summary()["graphs"] for f in dp.replicas]
+
+
 def dp_in_process(work: Path, info) -> dict:
     """(d): the Evaluator and the TaggingService data parallel over a mesh
     of two CARD replicas against their non-DP runs on the same clips and
@@ -4115,7 +4170,9 @@ def dp_in_process(work: Path, info) -> dict:
     clamp against its non-DP run. Launch counts set to 0 before each DP run
     and read after. The per-sample routes (fast Evaluator, service) replay
     a graph per replica, bitwise the threaded eager route (dp_replicas);
-    the batch-global clamp keeps the threads."""
+    the batch-global clamp keeps the threads. The DP services start warmed,
+    and the per-sample one's replicas hold every bucket's graph before its
+    first request and capture none while serving."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ops import launches, make_forward_fn
     from uit_mobile_tpu_torch.parallel import make_mesh
@@ -4167,16 +4224,22 @@ def dp_in_process(work: Path, info) -> dict:
             want = np.stack(svc.infer_many(pcm))
         torch.cuda.synchronize()
         reset_launches()
-        with TaggingService(cfg, model, ServiceConfig(**conf, data_parallel=mesh),
+        # warmed, as a deployment starts it: every bucket's graph is held by
+        # every replica before the first request
+        with TaggingService(cfg, model, ServiceConfig(**dict(conf, warmup=True),
+                                                      data_parallel=mesh),
                             device=CARD) as svc:
+            held = graphs_by_replica(svc._fwd)
             got = np.stack(svc.infer_many(pcm))
             counts[f"dp_serve_{mode}"] = dict(launches)
             route = [svc._fwd.uses_kernel, svc._fwd.top_db_mode]
+            warm = {"buckets": len(svc._buckets), "graphs_after_warmup_by_replica": held,
+                    "graphs_after_serving_by_replica": graphs_by_replica(svc._fwd)}
             replicas = dp_replicas(svc._fwd, mesh, torch.from_numpy(np.stack(pcm[:32]))
                                    if mode == "per_sample" else None)
         rec[f"serve_{mode}"] = {"route": route,
                                 "max_abs_diff_vs_non_dp": float(np.abs(got - want).max()),
-                                "launches": counts[f"dp_serve_{mode}"], **replicas}
+                                "launches": counts[f"dp_serve_{mode}"], **warm, **replicas}
     rec["card"] = info["nvidia_smi"]
     emit(rec)
     per_replica = [rec[k] for k in ("eval_fast", "serve_per_sample")]
@@ -4187,6 +4250,11 @@ def dp_in_process(work: Path, info) -> dict:
           and all(r["dispatch"] == "eager (threads)" for r in threaded),
           f"in-process data parallelism: per-sample replicas not replaying bitwise the "
           f"threaded route, or a clamp route not threaded: {rec}")
+    served = rec["serve_per_sample"]
+    check(served["graphs_after_warmup_by_replica"] == [served["buckets"]] * mesh.size
+          == served["graphs_after_serving_by_replica"],
+          f"the warmed per-sample DP service: a replica's bucket graph not captured in the "
+          f"warm-up, or captured while serving: {served}")
     check(rec["eval_fast"]["route"] == [True, "per_sample"]
           and rec["eval_exact"]["route"] == [True, "torch"]
           and rec["serve_per_sample"]["route"] == [True, "per_sample"]
@@ -4485,8 +4553,9 @@ def mp_rank(argv) -> int:
     # A CUDA graph that holds NCCL work keeps its communicator, and
     # destroying the group waits for it: free the routes' graphs first (a
     # step's functions sit in a reference cycle). The outcome is written
-    # beside the results; a teardown still waiting after 60 s is left to
-    # the process's end.
+    # beside the results (mp_spawn fails the phase unless every rank's says
+    # destroyed); a teardown still waiting after 60 s is left to the
+    # process's end.
     gc.collect()
     torch.cuda.synchronize()
     done = threading.Event()
@@ -4508,9 +4577,11 @@ def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None,
     spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--mp-rank",
                   str(r), str(world), port, str(work), backend, devices[r]]
                  for r in range(world)], deadline)
+    teardown = [(work / f"mp_rank{r}.teardown").read_text() for r in range(world)]
     emit({"phase": "model_parallel", "path": f"{world}_{backend}_ranks_teardown",
-          "teardown_by_rank": [(work / f"mp_rank{r}.teardown").read_text()
-                               for r in range(world)]})
+          "teardown_by_rank": teardown})
+    check(teardown == ["destroyed"] * world,
+          f"{world} {backend} ranks: a rank's destroy_process_group did not return: {teardown}")
     return [torch.load(work / f"mp_rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -4837,9 +4908,11 @@ def mp_cards(argv) -> int:
     NCCL collectives and point to point on the cards), held by the same
     gates against the single process on the first card, every route but
     the hybrid step a CUDA graph whose replays hold the collectives and the
-    point-to-point hand-offs (mp_dispatch_gate); the same lines, then the
-    kernels' launches on these routes and the last line. Exits non-zero
-    without four cards."""
+    point-to-point hand-offs (mp_dispatch_gate); then the recipe's Trainer
+    through ``cli.launch 4`` (launch_vs_single: three epochs with
+    validation and checkpoints, every rank's step and validation replays,
+    the ranks in lock-step); the same lines, then the kernels' launches on
+    these routes and the last line. Exits non-zero without four cards."""
     import tempfile
 
     n = int(argv[0]) if argv else 0
@@ -4860,6 +4933,7 @@ def mp_cards(argv) -> int:
                      deadline=MP_CARDS_DEADLINE_S)
     spawn_s = time.perf_counter() - t0
     counts = mp_check(n, ranks, "nccl", spawn_s, mp_references(), info)
+    counts[f"launch_{n}_nccl_rank0"] = launch_vs_single(work, n, info)["rank0_launches"]
     shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "model_parallel", "cards": n, "wall_s": time.perf_counter() - t0,
           "mel_launches": counts})

@@ -45,7 +45,6 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from uit_mobile_tpu_torch import models
 from uit_mobile_tpu_torch.ops import graphs
-from uit_mobile_tpu_torch.ops import pipeline as pipeline_mod
 from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
 from uit_mobile_tpu_torch.ops.pipeline import make_forward_fn
 from uit_mobile_tpu_torch import parallel
@@ -180,7 +179,6 @@ def card_branch(monkeypatch):
         init(self, *args, **kwargs)
 
     monkeypatch.setattr(graphs, "graphed", fake_graphed)
-    monkeypatch.setattr(pipeline_mod, "graphed", fake_graphed)
     monkeypatch.setattr(Rows, "__init__", counting_init)
     monkeypatch.setattr(GridMesh, "capturable", property(lambda self: True))
     monkeypatch.setattr(steps_mod, "_graphable", lambda opt, rows: True)
@@ -411,3 +409,21 @@ def test_dp_keeps_threads_where_rows_meet(case):
     assert dp.threaded is True
     wav = _wav(10, b=8)
     torch.testing.assert_close(dp(wav), fwd(wav), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("mode, want", [("per_sample", graphs.WARMUP + 1), ("torch", 1)])
+def test_warmed_dp_service_holds_every_bucket_graph(card_branch, mode, want):
+    """``calls_to_capture`` of a data-parallel forward is its replicas'
+    (each replays its own graph): a warmed service over two replicas calls
+    every replica's graphed forward until each bucket's graph is held,
+    before its worker starts; the threaded clamp route warms once, eagerly."""
+    from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
+
+    cfg, model = _dp_model()
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    conf = ServiceConfig(batch_size=8, max_seconds=2, top_db_mode=mode, data_parallel=mesh)
+    svc = TaggingService(cfg, model, conf, device="cpu", _start_worker=False)
+    assert svc._fwd.threaded is (mode == "torch")
+    assert graphs.calls_to_capture(svc._fwd) == want
+    graphed_calls = 0 if mode == "torch" else want * len(svc._buckets) * mesh.size
+    assert card_branch["calls"] == graphed_calls and card_branch["host_reads"] == 0

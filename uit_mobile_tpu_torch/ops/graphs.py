@@ -246,10 +246,38 @@ def graphed(fn: Callable, device, agree: Optional[Callable[[bool], bool]] = None
     return GraphedFn(fn, device, agree) if device.type == "cuda" else fn
 
 
+def graphed_forward(body: Callable, device, agree: Optional[Callable[[bool], bool]] = None,
+                    capture: bool = True) -> Callable:
+    """A forward ``fn(wav)``: ``body`` on the batch moved to ``device``, under
+    inference mode, through ``graphed`` (``agree`` as there); with
+    ``capture`` False ``body`` runs eagerly (a program whose collectives no
+    graph may hold). ``fn.eager`` is fn never graphed (fn itself when
+    eager), ``fn.graphs`` the ``GraphedFn`` (None when eager):
+    ``calls_to_capture``, the dispatch summaries and the data-parallel
+    replicas read these two."""
+    run = graphed(body, device, agree) if capture else body
+
+    def on_device(call):
+        @torch.inference_mode()
+        def fn(wav):
+            return call(torch.as_tensor(wav).to(device))
+
+        return fn
+
+    fn = on_device(run)
+    fn.eager, fn.graphs = (fn, None) if run is body else (on_device(body), run)
+    return fn
+
+
 def calls_to_capture(fn) -> int:
     """How many calls of a new key ``fn`` takes to hold its graph (the
-    warm-up calls and the one that captures): ``fn`` may be a ``GraphedFn``
-    or a function with one as its ``graphs`` attribute (``ops.pipeline``'s
-    forwards, the train steps); 1 for an eager function."""
+    warm-up calls and the one that captures): ``fn`` may be a ``GraphedFn``,
+    a function with one as its ``graphs`` attribute (``graphed_forward``'s
+    forwards, the train steps) or one whose ``replicas`` each call theirs
+    (``parallel.mesh.data_parallel_forward``: the most any replica takes);
+    1 for an eager function."""
+    replicas = getattr(fn, "replicas", None)
+    if replicas is not None:
+        return max(calls_to_capture(r) for r in replicas)
     g: Optional[GraphedFn] = fn if isinstance(fn, GraphedFn) else getattr(fn, "graphs", None)
     return 1 if g is None else WARMUP + 1

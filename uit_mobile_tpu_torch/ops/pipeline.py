@@ -26,7 +26,7 @@ from .. import models
 from ..models.moe import MoEUITConfig
 from ..models.uit import UITConfig
 from ..utils.device import resolve_device
-from .graphs import graphed
+from .graphs import graphed_forward
 from .mel import make_frontend_fn
 
 
@@ -128,26 +128,13 @@ def _batch_global(run_cfg, frontend_fn) -> bool:
             or (fe.top_db is not None and fe.top_db_mode == "torch"))
 
 
-def _on_device(run, device):
-    """fn(wav) -> ``run`` on the batch moved to ``device``, under inference mode."""
-
-    @torch.inference_mode()
-    def fn(wav):
-        return run(torch.as_tensor(wav).to(device))
-
-    return fn
-
-
 def _device_fn(body, device, use_kernel, run_cfg, batch_global):
-    """``body`` on the batch moved to ``device``, graphed on the card, with
-    the attributes make_forward_fn lists."""
-    run = graphed(body, device)
-    fn = _on_device(run, device)
-    fn.eager = fn if run is body else _on_device(body, device)
+    """``body`` on the batch moved to ``device``, graphed on the card
+    (``graphed_forward``), with the attributes make_forward_fn lists."""
+    fn = graphed_forward(body, device)
     fn.uses_kernel = use_kernel
     fn.top_db_mode, fn.batch_global = run_cfg.frontend.top_db_mode, batch_global
     fn.body, fn.device = body, device
-    fn.graphs = None if run is body else run
     return fn
 
 
@@ -184,10 +171,7 @@ def make_scanned_forward(fwd_fn):
     def scanned_body(block):
         return torch.stack([body(block[k]) for k in range(block.shape[0])])
 
-    run = graphed(scanned_body, device)
-    scanned = _on_device(run, device)
-    scanned.graphs = None if run is scanned_body else run
-    return scanned
+    return graphed_forward(scanned_body, device)
 
 
 def make_block_builder(k: int):

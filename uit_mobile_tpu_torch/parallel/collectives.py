@@ -142,18 +142,19 @@ def capturable(group) -> bool:
     return dist.get_backend(group) == "nccl"
 
 
-def capture_agreement(device, group=None) -> Callable[[bool], bool]:
-    """-> ``agree(ok) -> bool``: whether every rank of ``group`` (None: the
-    default group) captured its graph, each rank passing whether its own
-    capture did; one MIN all-reduce of a flag on ``device`` (the card, for
-    NCCL), run eagerly between a capture and its first replay. Every rank
-    reaches a key's capture at the same call (their batches have one shape:
-    ``Rows.check_local``), so they meet here together, and a capture that
-    failed on one rank raises on every rank instead of leaving the others
-    waiting in the graph's collectives."""
+def capture_agreement(device) -> Callable[[bool], bool]:
+    """-> ``agree(ok) -> bool``: whether every rank of the world captured
+    its graph, each rank passing whether its own capture did; one MIN
+    all-reduce of a flag on ``device`` (the card, for NCCL) over the
+    default group, run eagerly between a capture and its first replay. It
+    spans the whole world because every rank captures a key at the same
+    call (their batches have one shape: ``Rows.check_local``), so they
+    meet here together, and a capture that failed on one rank raises on
+    every rank instead of leaving the others waiting in the graph's
+    collectives."""
     def agree(ok: bool) -> bool:
         flag = torch.tensor([int(ok)], dtype=torch.int32, device=device)
-        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN)
         return bool(flag.item())
 
     return agree

@@ -89,25 +89,16 @@ class GridMesh:
 
     def dispatch(self, body: Callable) -> Callable:
         """A forward ``fn(wav)`` of ``body(wav)``, which takes the global
-        batch on this rank's device: one CUDA graph per key where the mesh
-        is ``capturable`` (every rank captures a key at the same call, and
-        a capture that fails on one raises on all), else ``body`` eagerly.
-        ``fn.eager`` is fn never graphed, ``fn.graphs`` the ``GraphedFn``
-        (None when eager)."""
-        from ..ops.graphs import graphed
+        batch on this rank's device, under inference mode: one CUDA graph
+        per key where the mesh is ``capturable`` (every rank captures a key
+        at the same call, and a capture that fails on one raises on all),
+        else ``body`` eagerly (``ops.graphs.graphed_forward``: ``fn.eager``,
+        ``fn.graphs``)."""
+        from ..ops.graphs import graphed_forward
 
-        run = (graphed(body, self.device, agree=capture_agreement(self.device))
-               if self.capturable else body)
-
-        def on_device(call):
-            def fn(wav):
-                return call(torch.as_tensor(wav).to(self.device))
-
-            return fn
-
-        fn = on_device(run)
-        fn.eager, fn.graphs = (fn, None) if run is body else (on_device(body), run)
-        return fn
+        capture = self.capturable
+        return graphed_forward(body, self.device, capture=capture,
+                               agree=capture_agreement(self.device) if capture else None)
 
     def group(self, axis: str):
         return self.groups[axis]
