@@ -118,33 +118,38 @@ After bench:
               epoch step times from the Trainer's log); two ranks sharing the card over
               gloo (recipe B=32 and frontier B=1024 steps against the
               single-process global step, given the ranks' ReLU signs and
-              without; mel launches by rank); the FSDP step (two gloo ranks
-              when gloo carries FSDP2's collectives for CUDA tensors, else
-              one NCCL rank); the Evaluator and TaggingService over two
-              replicas of the card, the kernel on every shard; the one-rank
-              step's cost beside the single-process step's. Dispatch: the
-              NCCL rank's step and validation replay as one process's
-              (replays = calls - keys, from the Trainer's `graph dispatch`
-              line); the per-sample Evaluator and service replay a graph
-              per replica, bitwise the threaded eager route; the gloo ranks,
-              the FSDP step and the batch-global clamp run eagerly, their
-              reason printed. Not a scaling measurement.
+              without; mel launches by rank); the FSDP step
+              (``make_train_step`` on a model placed by fsdp_shard_params:
+              its own all-gather and reduce-scatter) on the two gloo ranks
+              and on one NCCL rank, where it is a CUDA graph held as the
+              graphs phase holds a step (replay bitwise eager); the
+              Evaluator and TaggingService over two replicas of the card,
+              the kernel on every shard; the one-rank step's cost beside the
+              single-process step's. Dispatch: the NCCL rank's step and
+              validation replay as one process's (replays = calls - keys,
+              from the Trainer's `graph dispatch` line); the per-sample
+              Evaluator and service replay a graph per replica, bitwise the
+              threaded eager route; the gloo ranks and the batch-global
+              clamp run eagerly, their reason printed. Every rank frees its
+              graphs before it destroys its process group (teardown lines).
+              Not a scaling measurement.
   model_parallel - model parallelism on the one card (phase_model_parallel):
               every route as one NCCL rank (meshes of ones) and as four
               gloo ranks sharing the card: the weak step on the ranks' rows
               (uit_xs B=32), TP 2x2 with and without sharded
-              attention, a hybrid FSDP x TP 2x2 weak step, SP seq=4 (float32
+              attention, a hybrid FSDP x TP 2x2 weak step (and at four
+              ranks the FSDP step over 'data' 4), SP seq=4 (float32
               exact, bfloat16, int16 fast) and data 2 x seq 2, PP pipe=4 at
               M=4 and M=8 (and int16 fast), EP data 2 x expert 2 on
               uit_xs_moe (B=32 x 10 s forward and one AdamW step); the mel
               kernel on every rank's rows; forwards within 2e-5 (bfloat16
               5e-3) of the single-process card forward, steps as the
               parallel phase's; launches, forward ms and weight bytes by
-              rank. At the NCCL rank every route but the hybrid step is a
-              CUDA graph: each forward's replay bitwise its eager call, with
-              eager and replay ms, issue ms, idle shares, capture seconds
-              and mel launches a replay; the data-parallel and MoE steps
-              held as the graphs phase holds a step. Not a scaling
+              rank. At the NCCL rank every route is a CUDA graph: each
+              forward's replay bitwise its eager call, with eager and replay
+              ms, issue ms, idle shares, capture seconds and mel launches a
+              replay; the data-parallel, hybrid and MoE steps held as the
+              graphs phase holds a step, one row_exact a replay. Not a scaling
               measurement. With --mp-cards 4 the four-rank routes run as
               four NCCL ranks, one card each, and then the recipe through
               `cli.launch 4` (launch_vs_single).
@@ -3599,7 +3604,7 @@ def phase_bench(info) -> None:
 # one card: NCCL takes one rank a card, so two ranks share it over gloo)
 CARD = "cuda:0"
 PARALLEL_DEADLINE_S = 300  # a rank's rendezvous timeout, and the deadline of its join
-MP_CARDS_DEADLINE_S = 420  # the four NCCL ranks' join (--mp-cards: every mesh's NCCL set-up)
+MP_CARDS_DEADLINE_S = 600  # the four NCCL ranks' join (--mp-cards: NCCL set-up, held steps)
 # one step of each configuration as two ranks of one global batch: B, the
 # student's mel layout, frontend precision, int16 input, the kernel each
 # rank's student (B/2 rows) and teacher (B/4) launch
@@ -3611,8 +3616,6 @@ DP_LR, DP_EPS = 1e-3, 1e-8  # the steps' AdamW (constant lr, optax's eps)
 EAGER_REASONS = {
     "gloo": "gloo: its collectives move CUDA tensors through the host, which no CUDA "
             "graph holds",
-    "fsdp": "FSDP: fully_shard gathers and frees the DTensor parameters from host hooks "
-            "and resizes their storage, which no CUDA graph holds",
     "threads": "the batch-global clamp or the MoE's routing: the replicas meet on the "
                "host (rows.ThreadGroup), which no CUDA graph holds",
 }
@@ -3668,16 +3671,18 @@ def dp_step(parts: dict, rows=None, sl: slice = slice(None), psl: bool = True,
             timed: bool = False) -> dict:
     """One step of a DP_STEPS configuration on CARD: the whole batch (rows
     None) or this rank's share of it ([its audioset rows, its kws rows]);
-    the PSL step, or without ``psl`` the weak step, on the FSDP-sharded
-    student with ``fsdp``. ``record``/``impose``: relu_signs. -> loss,
-    pre-clip norm, updated params and gradients (host), mel launches, and
-    with ``timed`` the step's CUDA-event median over more steps."""
+    the PSL step, or without ``psl`` the weak step, on the student placed
+    by fsdp_shard_params with ``fsdp`` (every rank calls it: the params and
+    gradients are gathered). ``record``/``impose``: relu_signs. -> loss,
+    pre-clip norm, updated params and gradients (host, whole), mel
+    launches, the dispatch, and with ``timed`` the step's CUDA-event median
+    over more steps."""
     from uit_mobile_tpu_torch.augment import parse_spectransforms, parse_wavtransforms
     from uit_mobile_tpu_torch.ckpt import module_from_numpy
     from uit_mobile_tpu_torch.ops import launches
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
-    from uit_mobile_tpu_torch.parallel import process_mesh
-    from uit_mobile_tpu_torch.parallel.fsdp import fsdp_shard_params, make_fsdp_train_step
+    from uit_mobile_tpu_torch.parallel import fsdp_shard_params, process_mesh, sharded_opt_init
+    from uit_mobile_tpu_torch.parallel.tp import gather_params
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
 
     dev = torch.device(CARD)
@@ -3692,9 +3697,9 @@ def dp_step(parts: dict, rows=None, sl: slice = slice(None), psl: bool = True,
               spec_augment=parse_spectransforms(parts["spectransforms"], layout=layout),
               frontend_fn=make_frontend_fn(cfg.frontend, precision=precision, layout=layout))
     if fsdp:
-        root, _ = fsdp_shard_params(process_mesh(dev), model)
-        opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(root.model)
-        step = make_fsdp_train_step(cfg, root, opt, **kw)
+        model, _ = fsdp_shard_params(process_mesh(dev), model)
+        opt, _ = sharded_opt_init(build_optimizer("AdamW", DP_LR, weight_decay=5e-8), model)
+        step = make_train_step(cfg, model, opt, **kw)
     elif not psl:
         opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(model)
         step = make_train_step(cfg, model, opt, **kw)
@@ -3717,19 +3722,10 @@ def dp_step(parts: dict, rows=None, sl: slice = slice(None), psl: bool = True,
         if restore is not None:
             restore()
 
-    def host(t):  # a copy: the timed steps below move the parameters on
-        if hasattr(t, "to_local"):  # an FSDP shard: gather it with c10d (DTensor's
-            import torch.distributed as dist  # full_tensor crashed on gloo + CUDA)
-
-            local = t.to_local().detach().contiguous()
-            parts = [torch.empty_like(local) for _ in range(dist.get_world_size())]
-            dist.all_gather(parts, local)
-            t = torch.cat(parts, dim=t.placements[0].dim)
-        return t.detach().cpu().clone()
-
+    # copies (the timed steps below move the parameters on), FSDP's shards gathered
     out = {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item(),
-           "params": {n: host(p) for n, p in model.named_parameters()},
-           "grads": {n: host(g) for n, g in grads.items()}, "launches": counts,
+           "params": gather_params(model), "grads": gather_params(model, grads),
+           "launches": counts,
            "dispatch": "eager" if getattr(step, "graphs", None) is None else "graph"}
     if timed:  # more steps of the same batch, after the recorded one
         out["step_ms"] = time_ms(lambda: step(batch, torch.Generator(device=dev).manual_seed(3)),
@@ -3784,13 +3780,15 @@ def global_signs(rank_signs: list, blocks_of_rank) -> list:
 
 def dp_rank(argv) -> int:
     """One rank of the shared-card check (``chip_smoke.py --dp-rank R W PORT
-    DIR BACKEND DEVICE``; DEVICE is the parent's CARD). gloo: the check that gloo carries FSDP2's
-    collectives for CUDA tensors, the recipe and frontier PSL steps on this
-    rank's share, then the FSDP step if the check passed; nccl (one rank):
-    the FSDP step alone. ReLU signs recorded; results to DIR."""
-    import torch.distributed as dist
+    DIR BACKEND DEVICE``; DEVICE is the parent's CARD). gloo: the recipe and
+    frontier PSL steps on this rank's share; then on either backend the
+    FSDP step (the recipe's student, its own all-gather and reduce-scatter),
+    and on NCCL that step held as a graph (mp_held_step on a 'data' mesh of
+    the world). ReLU signs recorded; results and the teardown to DIR."""
+    import os
 
-    from uit_mobile_tpu_torch.parallel import multihost
+    from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
+    from uit_mobile_tpu_torch.parallel import make_grid_mesh, multihost
     from uit_mobile_tpu_torch.parallel.rows import Rows
     from uit_mobile_tpu_torch.utils import resolve_device
 
@@ -3800,34 +3798,52 @@ def dp_rank(argv) -> int:
     dev = resolve_device(CARD)  # TF32 off, as in the single-process steps
     multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
                          backend=backend, timeout=PARALLEL_DEADLINE_S)
-    res = {"gloo_cuda_fsdp_collectives": False}
-    if backend == "gloo":
-        gathered = torch.empty(4 * world, device=dev)
-        dist.all_gather_into_tensor(gathered, torch.arange(4.0, device=dev) + 4 * rank)
-        scattered = torch.empty(2, device=dev)
-        dist.reduce_scatter_tensor(scattered, torch.arange(2.0 * world, device=dev))
-        res["gloo_cuda_fsdp_collectives"] = bool(
-            gathered.tolist() == list(range(4 * world))
-            and scattered.tolist() == [world * 2.0 * rank, world * (2.0 * rank + 1)])
-        for name in DP_STEPS:
-            parts = dp_parts(name)
-            B = len(parts["wav"])
-            signs: list = []
-            res[name] = dp_step(parts, Rows([B // 2 // world] * 2, dev),
-                                multihost.host_local_batch_slice(B), record=signs,
-                                timed=name == "recipe")
-            res[name]["signs"] = signs
-    if backend == "nccl" or res["gloo_cuda_fsdp_collectives"]:
-        parts = dp_parts("recipe")
+    res = {}
+    for name in (list(DP_STEPS) if backend == "gloo" else []) + ["fsdp"]:
+        parts = dp_parts("recipe" if name == "fsdp" else name)
         B = len(parts["wav"])
-        signs = []
-        res["fsdp"] = dp_step(parts, Rows([B // 2 // world] * 2, dev),
-                              multihost.host_local_batch_slice(B), psl=False, fsdp=True,
-                              record=signs)
-        res["fsdp"]["signs"] = signs
+        signs: list = []
+        res[name] = dp_step(parts, Rows([B // 2 // world] * 2, dev),
+                            multihost.host_local_batch_slice(B), psl=name != "fsdp",
+                            fsdp=name == "fsdp", record=signs, timed=name == "recipe")
+        res[name]["signs"] = signs
+    if backend == "nccl":
+        cfg, _ = mp_model(False)
+        res["fsdp_held"] = mp_held_step("fsdp_step", cfg, make_grid_mesh({"data": world}, dev),
+                                        make_frontend_fn(cfg.frontend, precision="exact"), dev)
     torch.save(res, workdir / f"rank{rank}.pt")
-    dist.destroy_process_group()
-    return 0
+    rank_teardown(workdir / f"rank{rank}.teardown")
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def rank_teardown(path: Path) -> None:
+    """Destroy this rank's process group, the outcome written to ``path``
+    (its spawner fails the phase unless every rank's says destroyed). A
+    CUDA graph that holds NCCL work keeps its communicator, and destroying
+    the group waits for it: the rank's graphs are freed first (a step's
+    functions sit in a reference cycle); a teardown still waiting after 60 s
+    is left to the process's end."""
+    import gc
+
+    import torch.distributed as dist
+
+    gc.collect()
+    torch.cuda.synchronize()
+    done = threading.Event()
+    threading.Thread(target=lambda: (dist.destroy_process_group(), done.set()),
+                     daemon=True).start()
+    path.write_text("destroyed" if done.wait(60)
+                    else "destroy_process_group still waiting after 60 s")
+
+
+def spawned_teardown(work: Path, prefix: str, world: int, backend: str, phase: str) -> None:
+    """Every spawned rank's teardown (rank_teardown), printed and gated."""
+    teardown = [(work / f"{prefix}{r}.teardown").read_text() for r in range(world)]
+    emit({"phase": phase, "path": f"{world}_{backend}_ranks_teardown",
+          "teardown_by_rank": teardown})
+    check(teardown == ["destroyed"] * world,
+          f"{world} {backend} ranks: a rank's destroy_process_group did not return: {teardown}")
 
 
 def npz_arrays(path: Path) -> dict:
@@ -3915,20 +3931,24 @@ def spawn_ranks(argvs: list, deadline: float) -> list:
 
 def dp_spawn(work: Path, world: int, backend: str) -> list:
     """Run dp_rank on ``world`` processes sharing CARD -> their results."""
+    work.mkdir(parents=True, exist_ok=True)
     port = str(free_port())
     spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--dp-rank",
                   str(r), str(world), port, str(work), backend, CARD] for r in range(world)],
                 PARALLEL_DEADLINE_S)
+    spawned_teardown(work, "rank", world, backend, "parallel")
     return [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(world)]
 
 
-def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> dict:
+def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info,
+                     backend: str = "gloo") -> dict:
     """The ranks' step ``name`` against the single-process global step on
     CARD, without and then given the ranks' ReLU signs (a sign that lies
     within rounding of 0 may flip between the two summation orders and
     move a whole term of fc1's gradient): the ranks end bitwise alike, the
     loss within 1e-5 either way, the flips under 1e-5 of the ReLU inputs,
-    and dp_agreement given the ranks' signs."""
+    and dp_agreement given the ranks' signs; eager on gloo (its reason), a
+    graph on NCCL."""
     B = len(parts["wav"])
     signs: list = []
     free = dp_step(parts, psl=psl, record=signs, timed=name == "recipe")
@@ -3941,19 +3961,22 @@ def dp_versus_single(name: str, ranks: list, parts: dict, psl: bool, info) -> di
                      for r in ranks[1:] for k in got["params"])
     rec = {"phase": "parallel", "path": f"{world}_ranks_{name}", "B": B,
            "rows_a_rank": B // world, "mel_launches_by_rank": [r[name]["launches"] for r in ranks],
-           "dispatch_by_rank": [r[name]["dispatch"] for r in ranks],
-           "eager_reason": EAGER_REASONS["fsdp" if name == "fsdp" else "gloo"],
+           "backend": backend, "dispatch_by_rank": [r[name]["dispatch"] for r in ranks],
            "relu_inputs": int(sum(s.numel() for s in signs)), "relu_flips": flips,
            "ranks_params_bitwise": same_ranks,
            "vs_single_given_rank_signs": dp_agreement(got, given),
            "vs_single": dp_agreement(got, free), "card": info["nvidia_smi"]}
+    if backend == "gloo":
+        rec["eager_reason"] = EAGER_REASONS["gloo"]
     if "step_ms" in free:
         rec["single_step_ms"] = free["step_ms"]
     check(same_ranks and rec["vs_single_given_rank_signs"]["agrees"]
           and rec["vs_single"]["loss_rel_err"] <= 1e-5 and flips <= 1e-5 * rec["relu_inputs"],
           f"{world} ranks vs one process, {name}: {rec}")
-    check(all(d == "eager" for d in rec["dispatch_by_rank"]),
-          f"{world} ranks, {name}: a gloo or FSDP step took a graph: {rec['dispatch_by_rank']}")
+    want = "eager" if backend == "gloo" else "graph"
+    check(all(d == want for d in rec["dispatch_by_rank"]),
+          f"{world} {backend} ranks, {name}: dispatch {rec['dispatch_by_rank']}, "
+          f"expected {want}")
     return rec
 
 
@@ -4067,9 +4090,11 @@ def phase_parallel(info) -> dict:
         (B=1024, 512 a rank, tfb_fast in both) against the single-process
         global step on the card (dp_agreement), given the ranks' ReLU signs
         and without them (the flips counted);
-    (c) the FSDP step (the recipe's student, no teacher): two ranks over
-        gloo when the ranks' check shows gloo carrying FSDP2's collectives
-        for CUDA tensors, else one rank on NCCL; held as (b);
+    (c) the FSDP step (the recipe's student placed by fsdp_shard_params, no
+        teacher): the two gloo ranks, eagerly, held as (b); then one NCCL
+        rank, a CUDA graph: held as (b), and the step held as the graphs
+        phase holds one (mp_held_step: replay bitwise eager, one row_exact
+        a replay, capture s and pool growth);
     (d) Evaluator and TaggingService data parallel over a mesh of two CARD
         replicas, the kernel on every shard: fast (per-sample clamp) against
         the non-DP per-sample run, exact and the service's 'torch' clamp
@@ -4107,15 +4132,20 @@ def phase_parallel(info) -> dict:
               f"{rec['mel_launches_by_rank']}")
         for r in range(2):
             counts[f"gloo_2_ranks_{name}_rank{r}"] = ranks[r][name]["launches"]
-    gloo_fsdp = all(r["gloo_cuda_fsdp_collectives"] for r in ranks)
-    emit({"phase": "parallel", "path": "fsdp_route",
-          "gloo_carries_fsdp_collectives_on_cuda": gloo_fsdp,
-          "fsdp_world": 2 if gloo_fsdp else 1, "backend": "gloo" if gloo_fsdp else "nccl"})
-    fsdp_ranks = ranks if gloo_fsdp else dp_spawn(work, 1, "nccl")
-    rec = dp_versus_single("fsdp", fsdp_ranks, dp_parts("recipe"), False, info)
-    emit(rec)
-    for r, rr in enumerate(fsdp_ranks):
-        counts[f"fsdp_rank{r}"] = rr["fsdp"]["launches"]
+    # (c) the FSDP step: the gloo ranks above, then one NCCL rank
+    t0 = time.perf_counter()
+    nccl = dp_spawn(work / "nccl", 1, "nccl")
+    for backend, fsdp_ranks in (("gloo", ranks), ("nccl", nccl)):
+        rec = dp_versus_single("fsdp", fsdp_ranks, dp_parts("recipe"), False, info, backend)
+        emit(rec)
+        for r, rr in enumerate(fsdp_ranks):
+            counts[f"{backend}_{len(fsdp_ranks)}_ranks_fsdp_rank{r}"] = rr["fsdp"]["launches"]
+    for held in nccl[0]["fsdp_held"]:
+        emit(dict(held, phase="parallel", path=f"1_nccl_rank_{held['path']}",
+                  spawn_wall_s=time.perf_counter() - t0, card=info["nvidia_smi"]))
+    check(all(not h["failures"] and h["mel_per_replay_counters"] == {"row_exact": 1}
+              for h in nccl[0]["fsdp_held"]),
+          f"the FSDP step at one NCCL rank, held: {nccl[0]['fsdp_held']}")
 
     # (d) in-process data parallelism over two replicas on the card
     counts.update(dp_in_process(work, info))
@@ -4280,6 +4310,7 @@ MP_ROUTES = {
     "tp": ("tp", {"data": 2, "model": 2}, {}),
     "tp_attn": ("tp", {"data": 2, "model": 2}, {"shard_attention": True}),
     "hybrid_step": ("hybrid_step", {"data": 2, "model": 2}, {}),
+    "fsdp_step": ("fsdp_step", {"data": 4}, {}),  # at one NCCL rank: the parallel phase
     "sp": ("sp", {"seq": 4}, {}),
     "sp_bf16": ("sp", {"seq": 4}, {"bf16": True}),
     "sp_fast": ("sp", {"seq": 4}, {"fast": True}),
@@ -4294,6 +4325,7 @@ MP_ONE_RANK = ("dp_step", "tp", "hybrid_step", "sp", "pp", "ep", "ep_step")
 # the tensor dims a step's ReLU inputs split over each mesh axis: the dense
 # MLP's (rows, tokens, hidden), the experts' (experts, groups, slots, hidden)
 MP_RELU_DIMS = {"dp_step": {"data": 0}, "hybrid_step": {"data": 0, "model": -1},
+                "fsdp_step": {"data": 0},
                 "ep_step": {"expert": 0, "data": 1}}
 
 
@@ -4326,8 +4358,19 @@ def mp_variant(opts: dict) -> str:
 
 
 def param_bytes(model) -> int:
-    local = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
-    return sum(local(p).numel() * p.element_size() for p in model.parameters())
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def mp_place(route: str, mesh, model, dev):
+    """The placement of an FSDP step route -> the placed model: hybrid FSDP
+    x TP on the mesh, or FSDP over its 'data' group (one group with the
+    step's rows)."""
+    from uit_mobile_tpu_torch import parallel
+
+    if route == "hybrid_step":
+        return parallel.hybrid_shard_params(mesh, model)[0]
+    return parallel.fsdp_shard_params(
+        parallel.process_mesh(dev, group=mesh.group("data")), model)[0]
 
 
 def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
@@ -4340,7 +4383,6 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
     from uit_mobile_tpu_torch.ops import launches
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
     from uit_mobile_tpu_torch import parallel
-    from uit_mobile_tpu_torch.parallel.fsdp import make_fsdp_train_step
     from uit_mobile_tpu_torch.parallel.tp import gather_params
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
 
@@ -4366,11 +4408,11 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
             opt = opt_spec.init(model)
             step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
             run = lambda: step({"wav": local, "target": tgt}, gen)  # noqa: E731
-        elif route == "hybrid_step":
-            root, _ = parallel.hybrid_shard_params(mesh, model)
-            model = root.model
-            opt = opt_spec.init(model)
-            step = make_fsdp_train_step(cfg, root, opt, rows=rows, frontend_fn=fe)
+        elif route in ("hybrid_step", "fsdp_step"):  # their rows over the 'data' group
+            local, tgt, rows = dp_share(mesh, wav, target, dev)
+            model = mp_place(route, mesh, model, dev)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
             run = lambda: step({"wav": local, "target": tgt}, gen)  # noqa: E731
         else:
             model, _ = parallel.ep_shard_params(mesh, model)
@@ -4398,7 +4440,7 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
                    rank_bytes=param_bytes(model))
         out["step_ms"] = time_ms(run, warmup=1, iters=3)
         if step.graphs is None:
-            out.update(dispatch="eager", eager_reason=eager_reason(route))
+            out.update(dispatch="eager", eager_reason=EAGER_REASONS["gloo"])
         else:  # held as the single-process steps are
             out.update(dispatch="graph", held=mp_held_step(route, cfg, mesh, fe, dev))
         return out
@@ -4428,12 +4470,6 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
     return out
 
 
-def eager_reason(route: str) -> str:
-    """Why a route runs eagerly on this rank (EAGER_REASONS): the hybrid
-    FSDP x TP step for its DTensors on any backend, the others for gloo."""
-    return EAGER_REASONS["fsdp" if route == "hybrid_step" else "gloo"]
-
-
 def mp_dispatch(fn, wav, route: str) -> dict:
     """A model-parallel forward's dispatch on this rank, after its first
     (eager) call: eager with its reason, or its graph held: one replay
@@ -4444,7 +4480,7 @@ def mp_dispatch(fn, wav, route: str) -> dict:
 
     g = fn.graphs
     if g is None:
-        return {"dispatch": "eager", "eager_reason": eager_reason(route)}
+        return {"dispatch": "eager", "eager_reason": EAGER_REASONS["gloo"]}
     for _ in range(calls_to_capture(fn)):
         fn(wav)
     replays = g.summary()["replays"]
@@ -4472,8 +4508,9 @@ def dp_share(mesh, wav, target, dev) -> tuple:
 
 
 def mp_held_step(route: str, cfg, mesh, fe, dev) -> list:
-    """A graphed step on the mesh (the data-parallel weak step, or the MoE
-    step) held as held_step_path holds a single-process step (two eager
+    """A graphed step on the mesh (the data-parallel weak step, the FSDP
+    or hybrid FSDP x TP weak step, or the MoE step) held as held_step_path
+    holds a single-process step (two eager
     runs, then the graphed step, from one start; bitwise or within twice the
     eager spread; replays = calls - keys; row_exact in every replay), over
     MP_HELD_STEPS batches; its single step alone (no K-step runs under a
@@ -4506,7 +4543,9 @@ def mp_held_step(route: str, cfg, mesh, fe, dev) -> list:
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
         else:
-            opt = opt_spec.init(model)
+            if route in ("hybrid_step", "fsdp_step"):
+                model = mp_place(route, mesh, model, dev)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
         gen = torch.Generator(device=dev).manual_seed(3)
         return step, None, run_state(model, opt, gen), gen
@@ -4524,10 +4563,7 @@ def mp_rank(argv) -> int:
     MP_ONE_RANK on meshes of ones (one rank); results to DIR. Each route's
     start is printed, and the stacks are dumped before the deadline."""
     import faulthandler
-    import gc
     import os
-
-    import torch.distributed as dist
 
     from uit_mobile_tpu_torch.parallel import multihost
     from uit_mobile_tpu_torch.utils import resolve_device
@@ -4550,19 +4586,7 @@ def mp_rank(argv) -> int:
         print(f"rank {rank}: {name} at {time.perf_counter() - t0:.1f} s", flush=True)
         res[name] = dict(mp_route(route, shape, opts, dev), mesh=shape)
     torch.save(res, workdir / f"mp_rank{rank}.pt")
-    # A CUDA graph that holds NCCL work keeps its communicator, and
-    # destroying the group waits for it: free the routes' graphs first (a
-    # step's functions sit in a reference cycle). The outcome is written
-    # beside the results (mp_spawn fails the phase unless every rank's says
-    # destroyed); a teardown still waiting after 60 s is left to the
-    # process's end.
-    gc.collect()
-    torch.cuda.synchronize()
-    done = threading.Event()
-    threading.Thread(target=lambda: (dist.destroy_process_group(), done.set()),
-                     daemon=True).start()
-    (workdir / f"mp_rank{rank}.teardown").write_text(
-        "destroyed" if done.wait(60) else "destroy_process_group still waiting after 60 s")
+    rank_teardown(workdir / f"mp_rank{rank}.teardown")
     sys.stdout.flush()
     os._exit(0)
 
@@ -4577,11 +4601,7 @@ def mp_spawn(work: Path, world: int, backend: str, devices: list | None = None,
     spawn_ranks([[sys.executable, "-X", "faulthandler", str(REPO / "chip_smoke.py"), "--mp-rank",
                   str(r), str(world), port, str(work), backend, devices[r]]
                  for r in range(world)], deadline)
-    teardown = [(work / f"mp_rank{r}.teardown").read_text() for r in range(world)]
-    emit({"phase": "model_parallel", "path": f"{world}_{backend}_ranks_teardown",
-          "teardown_by_rank": teardown})
-    check(teardown == ["destroyed"] * world,
-          f"{world} {backend} ranks: a rank's destroy_process_group did not return: {teardown}")
+    spawned_teardown(work, "mp_rank", world, backend, "model_parallel")
     return [torch.load(work / f"mp_rank{r}.pt", weights_only=False) for r in range(world)]
 
 
@@ -4698,12 +4718,12 @@ DISPATCH_KEYS = ("one_replay_a_call", "replay_vs_eager_bitwise", "replay_vs_eage
 
 def mp_dispatch_gate(name: str, route: str, per: list, world: int, backend: str, variant: str,
                      info) -> dict:
-    """A route's dispatch on every rank: on NCCL a graph (but the hybrid
-    FSDP x TP step: eager, its DTensors), each rank's replay bitwise its
-    eager call, one replay a call, ``variant`` once a replay (forwards;
-    the MoE step's held records, printed from rank 0, gate themselves); on
-    gloo eager. -> the fields of the route's record."""
-    want = "graph" if backend == "nccl" and route != "hybrid_step" else "eager"
+    """A route's dispatch on every rank: on NCCL a graph, each rank's replay
+    bitwise its eager call, one replay a call, ``variant`` once a replay
+    (forwards; the steps' held records, printed from rank 0, gate
+    themselves, and hold ``variant`` once a replay on every rank); on gloo
+    eager. -> the fields of the route's record."""
+    want = "graph" if backend == "nccl" else "eager"
     got = [rr["dispatch"] for rr in per]
     check(got == [want] * len(per), f"{name} at {world} {backend} ranks: dispatch {got}, "
                                     f"expected {want}")
@@ -4715,7 +4735,9 @@ def mp_dispatch_gate(name: str, route: str, per: list, world: int, backend: str,
                       backend=backend, card=info["nvidia_smi"],
                       gap_by_rank=[rr["held"][0]["max_abs_gap_vs_eager"] for rr in per]))
         failures = [f for rr in per for rec in rr["held"] for f in rec["failures"]]
-        check(not failures, f"{name} at {world} {backend} ranks, held: {failures}")
+        mel = [rec["mel_per_replay_counters"] for rr in per for rec in rr["held"]]
+        check(not failures and mel == [{variant: 1}] * len(mel),
+              f"{name} at {world} {backend} ranks, held: {failures}; mel a replay {mel}")
         return {"dispatch": "graph"}
     out = {"dispatch": "graph", **{f"{k}_by_rank": [rr[k] for rr in per] for k in DISPATCH_KEYS}}
     check(all(rr["replay_vs_eager_bitwise"] and rr["one_replay_a_call"]
@@ -4772,7 +4794,8 @@ def phase_model_parallel(info) -> dict:
         PP S=1, EP 1x1 (forward and one step);
     (b) four gloo ranks sharing the card, spawned once: the weak step on
         the ranks' rows (8 a rank); TP 2x2 with and
-        without shard_attention; hybrid FSDP x TP 2x2 (one weak step); SP
+        without shard_attention; hybrid FSDP x TP 2x2 and FSDP over 'data'
+        4 (one weak step each: make_train_step on the placed model); SP
         seq=4 (6 tokens a rank) in float32 exact, bfloat16 and int16 fast,
         and data=2 x seq=2; PP pipe=4 (3 blocks a stage) at M=4 and M=8, and
         int16 fast; EP data=2 x expert=2 on uit_xs_moe (4 experts a rank),
@@ -4783,11 +4806,12 @@ def phase_model_parallel(info) -> dict:
     Each rank's mel launches (counts set to 0 just before its main path,
     whose first call is eager: a graph's warm-up), forward ms (CUDA-event
     median) and the weight bytes it holds are printed. At the NCCL rank
-    every route but the hybrid step is a CUDA graph: each forward's replay
-    bitwise its eager call with dispatch_readings (mp_dispatch), the MoE
-    step held as the single-process steps (mp_held_step); the gloo ranks
-    and the hybrid step run eagerly, their reason printed
-    (mp_dispatch_gate). -> {path: mel launch counts}."""
+    every route is a CUDA graph: each forward's replay bitwise its eager
+    call with dispatch_readings (mp_dispatch), the steps held as the
+    single-process steps (mp_held_step), one row_exact a replay; the gloo
+    ranks run eagerly, their reason printed (mp_dispatch_gate). Each rank
+    frees its graphs before it destroys its process group. -> {path: mel
+    launch counts}."""
     import tempfile
 
     # the ranks share the card: give back this process's cached blocks
@@ -4906,9 +4930,10 @@ def mp_cards(argv) -> int:
     """``chip_smoke.py --mp-cards 4``: the model_parallel phase's four-rank
     routes as four NCCL ranks, one card each (the layouts' own setting:
     NCCL collectives and point to point on the cards), held by the same
-    gates against the single process on the first card, every route but
-    the hybrid step a CUDA graph whose replays hold the collectives and the
-    point-to-point hand-offs (mp_dispatch_gate); then the recipe's Trainer
+    gates against the single process on the first card, every route a
+    CUDA graph whose replays hold the collectives and the point-to-point
+    hand-offs (mp_dispatch_gate): the hybrid 2x2 and FSDP x4 steps their
+    own all-gather and reduce-scatter; then the recipe's Trainer
     through ``cli.launch 4`` (launch_vs_single: three epochs with
     validation and checkpoints, every rank's step and validation replays,
     the ranks in lock-step); the same lines, then the kernels' launches on

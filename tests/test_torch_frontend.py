@@ -138,6 +138,10 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize("path", ["uit_mobile_tpu_torch", "chip_smoke.py"])
 def test_no_jax_imports_in_port_sources(path):
+    """No jax and nothing of the JAX package; and no DTensor: FSDP is a
+    placement whose step gathers and reduce-scatters itself, so nothing
+    imports ``torch.distributed.fsdp`` or ``torch.distributed.tensor``,
+    calls ``fully_shard`` or reads a DTensor's ``to_local``."""
     import re
 
     root = REPO / path
@@ -146,3 +150,6 @@ def test_no_jax_imports_in_port_sources(path):
                      re.MULTILINE)
     bad = [str(f.relative_to(REPO)) for f in files if pat.search(f.read_text())]
     assert files and not bad, bad
+    dtensor = re.compile(r"torch\.distributed\.(fsdp|tensor)\b|\bfully_shard\b|\bto_local\b")
+    bad = [str(f.relative_to(REPO)) for f in files if dtensor.search(f.read_text())]
+    assert not bad, bad

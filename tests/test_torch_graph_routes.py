@@ -6,7 +6,7 @@ capture would hold are capturable.
   its backend is NCCL; gloo and an in-process ``ThreadGroup`` are not
   (the backend faked with ``monkeypatch``). ``GridMesh.capturable`` asks it
   of every axis on the card; a train step is graphable on the card under
-  NCCL ``rows`` and not with DTensor parameters (``train/steps.py:
+  NCCL ``rows``, on an FSDP placement's shards too (``train/steps.py:
   _graphable``); a trainer's validation replays under NCCL rows and runs
   its eager body under gloo rows.
 - With the card's branch forced on the CPU (``_graphable`` or
@@ -16,7 +16,11 @@ capture would hold are capturable.
   capture agreement, the body calls no host read of a device value
   (``_local_scalar_dense``: a capture fails on it) and builds no ``Rows``
   after its first call, and its output is bitwise the eager route's (the
-  step: the single-process step, as one rank gives it bit for bit).
+  step: the single-process step, as one rank gives it bit for bit). The
+  FSDP and hybrid FSDP x TP steps (``make_train_step`` or the SED step on
+  a placed model) too, their 'data' shards recorded over the one rank as a larger world
+  records them: each call's body holds the step's one all-gather and one
+  reduce-scatter, and equals the eager device side bitwise.
 - ``capture_agreement`` over two gloo ranks (child processes, joined with
   a deadline): one rank's failed capture is every rank's.
 - ``data_parallel_forward``: per-sample forwards run each replica's own
@@ -90,15 +94,9 @@ def test_grid_mesh_capturable_asks_every_axis(monkeypatch, device, backends, wan
     assert mesh.capturable is want
 
 
-class _Param(torch.Tensor):
-    """A parameter that answers ``to_local``, as FSDP's DTensors do."""
-
-    def to_local(self):
-        return self
-
-
 GRAPHABLE = {  # name: (optimizer device, rows' backend (None: no rows), process group's
-    #                    backend (None: none), a DTensor parameter, graphable)
+    #                    backend (None: none), the optimizer on an FSDP placement's shards,
+    #                    graphable)
     "one_process": ("cuda", None, None, False, True),
     "cpu": ("cpu", None, None, False, False),
     "nccl_rows": ("cuda", "nccl", "nccl", False, True),
@@ -106,16 +104,17 @@ GRAPHABLE = {  # name: (optimizer device, rows' backend (None: no rows), process
     "thread_rows": ("cuda", "threads", None, False, False),
     "nccl_no_rows": ("cuda", None, "nccl", False, True),  # a mesh whose data axis is 1
     "gloo_no_rows": ("cuda", None, "gloo", False, False),
-    "nccl_dtensor": ("cuda", "nccl", "nccl", True, False),
+    "nccl_fsdp": ("cuda", "nccl", "nccl", True, True),
+    "gloo_fsdp": ("cuda", "gloo", "gloo", True, False),
 }
 
 
 @pytest.mark.parametrize("name", list(GRAPHABLE))
 def test_graphable_under_rows(monkeypatch, name):
-    device, rows_backend, pg_backend, dtensor, want = GRAPHABLE[name]
-    p = torch.zeros(2)
-    opt = types.SimpleNamespace(device=torch.device(device),
-                                params=[p.as_subclass(_Param) if dtensor else p])
+    device, rows_backend, pg_backend, fsdp, want = GRAPHABLE[name]
+    # an FSDP placement's optimizer holds plain parameters: each rank's shards
+    params = [torch.zeros(2, 3)[:, :1].contiguous() if fsdp else torch.zeros(2)]
+    opt = types.SimpleNamespace(device=torch.device(device), params=params)
     rows = None
     if rows_backend == "threads":
         rows = types.SimpleNamespace(group=ThreadGroup(2))
@@ -259,6 +258,70 @@ def test_rows_steps_take_the_replay_branch(one_rank, card_branch, kind):
     assert card_branch["calls"] == 4 and card_branch["host_reads"] == 0
     assert card_branch["rows_built_at_call"] == []
     assert all(torch.equal(a, b) for a, b in zip(runs["rows"], runs["single"]))
+
+
+def _record_data_shards(model, fitted, group):
+    """An FSDP placement over a one-rank axis records no shard (an axis of
+    one rank needs no collective): record its 'data' dims as a larger world
+    does, so that the step gathers and reduce-scatters over the one rank."""
+    shards = dict(getattr(model, "shards", {}))
+    for name, spec in fitted.items():
+        if "data" in spec:
+            shards[name] = shards.get(name, ()) + ((spec.index("data"), "data", group),)
+    model.shards, model.fsdp_axis = shards, "data"
+
+
+@pytest.mark.parametrize("placement, kind", [("fsdp", "weak"), ("hybrid", "weak"),
+                                             ("fsdp", "sed")])
+def test_fsdp_steps_take_the_replay_branch(one_rank, card_branch, monkeypatch, placement,
+                                           kind):
+    """The FSDP and hybrid FSDP x TP steps (the weak step with mixup, and the
+    SED step) on one rank, the card's branch forced: the device side goes to
+    ``graphed`` with the ranks' agreement; each of two calls issues one
+    all-gather and one reduce-scatter inside it, reads nothing on the host,
+    builds no Rows, and equals the eager device side of the same step from
+    the same start bitwise."""
+    cfg, fresh, make, batch = _step_world(kind)
+    counts = {"all_gather_into_tensor": 0, "reduce_scatter_tensor": 0}
+    for name in counts:
+        orig = getattr(dist, name)
+        monkeypatch.setattr(dist, name, lambda *a, _n=name, _o=orig, **k: (
+            counts.__setitem__(_n, counts[_n] + 1), _o(*a, **k))[1])
+    runs = {}
+    for how in ("eager", "graphed"):
+        model = fresh()
+        if placement == "fsdp":
+            model, fitted = parallel.fsdp_shard_params(parallel.process_mesh("cpu"), model)
+            group = None
+        else:
+            mesh = parallel.make_grid_mesh({"data": 1, "model": 1}, device="cpu")
+            model, fitted = parallel.hybrid_shard_params(mesh, model)
+            group = mesh.group("data")
+        _record_data_shards(model, fitted, group)
+        opt, _ = parallel.sharded_opt_init(build_optimizer("AdamW", 1e-3), model)
+        rows = Rows([B], "cpu")
+        n_handed = len(card_branch["handed"])
+        step, _ = make(model, opt, rows)
+        body, agree, run = card_branch["handed"][n_handed]
+        assert step.graphs is run and agree is not None
+        card_branch["rows_built_at_call"].clear()
+        gen = torch.Generator().manual_seed(4)
+        calls, host_reads = card_branch["calls"], card_branch["host_reads"]
+        out = []
+        for _ in range(2):
+            if how == "eager":
+                (kind,) = opt.plan(1)
+                out.append(step.device_step(batch, gen, kind, opt.scalars(1)[0]))
+            else:
+                before = dict(counts)
+                out.append(step(batch, gen))
+                assert {k: counts[k] - before[k] for k in counts} == dict.fromkeys(counts, 1)
+        assert card_branch["calls"] - calls == (2 if how == "graphed" else 0)
+        assert card_branch["host_reads"] == host_reads == 0
+        assert card_branch["rows_built_at_call"] == []
+        runs[how] = ([m["total_loss"] for m in out] + [m["grad_norm"] for m in out]
+                     + [p.detach().clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(runs["graphed"], runs["eager"]))
 
 
 def test_capture_agreement_on_one_rank(one_rank):

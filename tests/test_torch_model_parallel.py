@@ -16,9 +16,13 @@ ranks work. Cases (uit_xxxs unless said; B=8 x 1 s unless said):
 - PP (depth 8): pipe 4 at M=4 and M=8, data 2 x pipe 2 at B=16;
 - EP (uit_xs_moe, depth 2, 4 experts): data 2 x expert 2 (a routing group
   of 8 clips spans both data shards) and 1x4;
-- steps, one each: TP 2x2 and hybrid FSDP x TP 2x2 at B=16 (the weak step,
-  AdamW), against JAX's single-device step and the port's single process;
-  TP 2x2 with ``shard_attention``, dropout, attention dropout, drop-path,
+- steps (the weak step, AdamW, B=16): TP 2x2 against JAX's single-device
+  step and the port's single process; hybrid FSDP x TP 2x2, one step and
+  three in a row, and FSDP over 4 ranks, each ``make_train_step`` on the
+  placed model, against JAX's step jitted under its placement
+  (``hybrid_shard_params``, ``fsdp_shard_params``) and the port's single
+  process (a gather one update old shows from the second step on); TP
+  2x2 with ``shard_attention``, dropout, attention dropout, drop-path,
   mixup and clipping (GELU) against the port's single process (draws
   cannot be held against JAX's); EP 2x2 against the port's single process
   and the loss of JAX's replicated step.
@@ -29,14 +33,17 @@ steps: loss 1e-5; against the port's single process the gates of
 tests/test_torch_parallel.py (loss 1e-5 relative, pre-clip norm 1e-4
 relative, gradients within 1e-5 of each tensor's largest, parameters 5e-5
 plus what that gradient gate can move Adam's first step); against JAX's
-step the parameters within the same bound of JAX's gradients. Every rank
-ends with the same outputs and parameters. The ranks count their
+step the parameters within the same bound of JAX's gradients (three
+steps: within 1e-4, JAX's own hybrid gate, and the bound summed over the
+steps against the port's single process). Every rank ends with the same
+outputs and parameters. The ranks count their
 collectives by mesh axis (torch.distributed wrapped in each child), and
 the counts of each forward are pinned. The spec trees equal JAX's key for
 key, and the checks that refuse raise.
 
 One case of each forward route with a 'data' axis (TP 2x2 with
-attention, SP 2x2, PP 2x2, EP 2x2) and the TP and EP steps run again with
+attention, SP 2x2, PP 2x2, EP 2x2) and the TP, hybrid, FSDP and EP steps
+run again with
 the card's dispatch forced on the ranks (``GridMesh.capturable`` and
 ``train.steps._graphable`` true, ``graphed`` recording): each hands its
 body to ``graphed`` with the ranks' capture agreement, the body reads no
@@ -56,6 +63,8 @@ import numpy as np
 import optax
 import pytest
 from jax.sharding import Mesh as JaxMesh
+from jax.sharding import NamedSharding
+from jax.sharding import PartitionSpec as P
 
 from test_torch_parallel import REPO, _flat, _free_port, _param_bound
 from uit_mobile_tpu import models as jax_models
@@ -101,10 +110,13 @@ STEPS = {
     "tp_step": ("tp", "tp", {"data": 2, "model": 2}, {}, "w16"),
     "tp_step_aug": ("tp", "aug", {"data": 2, "model": 2}, {"shard_attention": True}, "w16"),
     "hybrid_step": ("hybrid", "tp", {"data": 2, "model": 2}, {}, "w16"),
+    "hybrid_step_3": ("hybrid", "tp", {"data": 2, "model": 2}, {"steps": 3}, "w16"),
+    "fsdp_step": ("fsdp", "tp", {"data": 4}, {}, "w16"),
     "ep_step": ("ep", "ep", {"data": 2, "expert": 2}, {}, "w8"),
 }
 # the cases run again with the card's dispatch forced (card_branch)
-FORCED = ("tp_2x2_attn", "sp_s2", "pp_2x2", "ep_2x2", "tp_step", "ep_step")
+FORCED = ("tp_2x2_attn", "sp_s2", "pp_2x2", "ep_2x2", "tp_step", "hybrid_step", "fsdp_step",
+          "ep_step")
 AUG_STEP = dict(mixup_alpha=0.5, max_grad_norm=1.0)
 EP_WEIGHT_DECAY = 1e-4  # optax.adamw's default, JAX's EP test optimizer
 
@@ -125,7 +137,6 @@ from uit_mobile_tpu_torch import models
 from uit_mobile_tpu_torch.ckpt.convert import module_from_numpy, unflatten_tree
 from uit_mobile_tpu_torch import parallel
 from uit_mobile_tpu_torch.parallel import multihost
-from uit_mobile_tpu_torch.parallel.fsdp import make_fsdp_train_step
 from uit_mobile_tpu_torch.parallel.tp import gather_params
 from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
 
@@ -242,9 +253,11 @@ def forward(case, cfg, model, mesh, opts, wav):
 
 
 def step(case, cfg, model, mesh, opts, wav, target, again=False):
-    """One step of the case -> (outputs, local shapes); ``again``: a second
-    step after the outputs are taken."""
+    """The case's steps (``opts['steps']``, default one) -> (outputs, local
+    shapes); ``again``: one more step after the outputs are taken."""
     route = case["route"]
+    opts = dict(opts)
+    steps = opts.pop("steps", 1)
     local, rows = mesh.shard_rows(torch.from_numpy(wav), "data")
     tgt, _ = mesh.shard_rows(torch.from_numpy(target), "data")
     gen = torch.Generator().manual_seed(7)
@@ -255,20 +268,20 @@ def step(case, cfg, model, mesh, opts, wav, target, again=False):
         fn = parallel.make_moe_train_step(cfg, model, opt, rows=rows)
         run = lambda: fn(local, tgt, gen)  # noqa: E731
         root_model = model
-    elif route == "hybrid":
-        root, _ = parallel.hybrid_shard_params(mesh, model)
-        root_model = root.model
-        opt = build_optimizer("AdamW", 1e-3, weight_decay=1e-8).init(root_model)
-        fn = make_fsdp_train_step(cfg, root, opt, rows=rows, **case["step_kw"])
-        run = lambda: fn({"wav": local, "target": tgt}, gen)  # noqa: E731
     else:
-        model, _ = parallel.shard_params(mesh, model, **opts)
+        if route == "hybrid":
+            model, _ = parallel.hybrid_shard_params(mesh, model)
+        elif route == "fsdp":
+            model, _ = parallel.fsdp_shard_params(parallel.process_mesh("cpu"), model)
+        else:
+            model, _ = parallel.shard_params(mesh, model, **opts)
         root_model = model
         opt, _ = parallel.sharded_opt_init(build_optimizer("AdamW", 1e-3, weight_decay=1e-8),
                                           model)
         fn = make_train_step(cfg, model, opt, rows=rows, **case["step_kw"])
         run = lambda: fn({"wav": local, "target": tgt}, gen)  # noqa: E731
-    m = run()
+    for _ in range(steps):
+        m = run()
     out = {"loss": np.asarray(m["total_loss"].item()),
            "grad_norm": np.asarray(m["grad_norm"].item())}
     params = gather_params(root_model)
@@ -276,8 +289,7 @@ def step(case, cfg, model, mesh, opts, wav, target, again=False):
     out.update({f"p.{k}": v.numpy() for k, v in params.items()})
     out.update({f"g.{k}": (v / 0.1).numpy() for k, v in moments.items()})
     out.update({f"s.{k}": v.numpy().copy() for k, v in root_model.named_buffers()})
-    local_of = lambda t: t.to_local() if hasattr(t, "to_local") else t  # noqa: E731
-    shapes = {n: [list(local_of(p).shape), list(local_of(mu).shape)]
+    shapes = {n: [list(p.shape), list(mu.shape)]
               for (n, p), mu in zip(root_model.named_parameters(), opt.moments[0])}
     if again:
         run()
@@ -370,8 +382,10 @@ def _jax_forward(name, params):
 
 
 def _jax_step(name, params):
-    """JAX's single-device step -> (loss, flat params, flat gradients)."""
-    route, key, _, _, wav_key = STEPS[name]
+    """JAX's step -> (loss, flat params, flat gradients): the single-device
+    step, or for the FSDP and hybrid cases the step jitted under their
+    placement on a mesh of the case's shape, as many steps as the case."""
+    route, key, shape, opts, wav_key = STEPS[name]
     cfg = _jax_cfg(key)
     p, s = params[key]
     data = _wavs()
@@ -382,9 +396,22 @@ def _jax_step(name, params):
         new_p, _, new_o, m = jax.jit(step)(p, s, opt.init(p), wav, tgt, jax.random.key(11))
     else:
         opt = jax_build_optimizer("AdamW", 1e-3, weight_decay=1e-8)
-        step = jax_make_train_step(cfg, opt)
-        new_p, _, new_o, m = jax.jit(step)(p, s, opt.init(p), {"wav": wav, "target": tgt},
-                                           jax.random.key(7))
+        step, o, batch = jax_make_train_step(cfg, opt), opt.init(p), {"wav": wav, "target": tgt}
+        if route in ("hybrid", "fsdp"):
+            mesh = _jax_mesh(shape)
+            place = (jax_parallel.hybrid_shard_params if route == "hybrid"
+                     else jax_parallel.fsdp_shard_params)
+            p, p_sh = place(mesh, p)
+            o, o_sh = jax_parallel.sharded_opt_init(opt, p)
+            repl, rows = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
+            run = jax.jit(step, in_shardings=(p_sh, repl, o_sh, rows, repl),
+                          out_shardings=(p_sh, repl, o_sh, repl))
+            s, batch = jax.device_put(s, repl), jax.device_put(batch, rows)
+        else:
+            run = jax.jit(step)
+        for _ in range(opts.get("steps", 1)):
+            p, s, o, m = run(p, s, o, batch, jax.random.key(7))
+        new_p, new_o = p, o
     return (float(m["total_loss"]), _flat(new_p, "p."),
             _flat(jax.tree.map(lambda mu: mu / 0.1, new_o[0].mu), "g."))
 
@@ -397,7 +424,7 @@ def _port_single(name, data):
     from uit_mobile_tpu_torch.parallel import make_moe_train_step
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
 
-    route, key, _, _, wav_key = STEPS[name]
+    route, key, _, opts, wav_key = STEPS[name]
     name_, kw = MODELS[key]
     cfg = models.get_model_config(name_, **kw)
     flat = {k[len(key) + 1:]: v for k, v in data.items() if k.startswith(key + ".")}
@@ -413,8 +440,16 @@ def _port_single(name, data):
         m = make_moe_train_step(cfg, model, opt)(wav, tgt, gen)
     else:
         opt = build_optimizer("AdamW", 1e-3, weight_decay=1e-8).init(model)
-        m = make_train_step(cfg, model, opt, **_step_kw(name))({"wav": wav, "target": tgt}, gen)
+        step = make_train_step(cfg, model, opt, **_step_kw(name))
+        grads, update = [], opt.device_update
+        opt.device_update = lambda g, *plan: (grads.append([v.numpy().copy() for v in g]),
+                                              update(g, *plan))[1]
+        for _ in range(opts.get("steps", 1)):
+            m = step({"wav": wav, "target": tgt}, gen)
     out = {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item()}
+    if opts.get("steps", 1) > 1:  # the parameters' bound summed over the steps
+        out.update({f"bound.{n}": sum(_param_bound(g[i]) for g in grads)
+                    for i, n in enumerate(opt.names)})
     out.update({f"p.{n}": p.detach().numpy().copy() for n, p in model.named_parameters()})
     out.update({f"g.{n}": (mu / 0.1).numpy() for n, mu in zip(opt.names, opt.moments[0])})
     out.update({f"s.{n}": b.numpy().copy() for n, b in model.named_buffers()})
@@ -545,7 +580,7 @@ def _gates(got, want, bound_grads):
         elif k.startswith("s."):
             np.testing.assert_allclose(got[k], v, atol=1e-6, rtol=0, err_msg=k)
         elif k.startswith("p."):
-            bound = _param_bound(bound_grads[f"g.{k[2:]}"])
+            bound = want.get(f"bound.{k[2:]}", _param_bound(bound_grads[f"g.{k[2:]}"]))
             assert (np.abs(got[k] - v) <= bound).all(), (k, np.abs(got[k] - v).max())
 
 
@@ -559,7 +594,7 @@ def test_step_equals_the_single_process_step(world, name):
     _gates(got, single[name], single[name])
     # each rank holds its shards, and its moments lie on them
     route, _, shape, _, _ = STEPS[name]
-    axis = {"ep": "expert", "hybrid": "model", "tp": "model"}[route]
+    axis = {"ep": "expert", "hybrid": "model", "tp": "model", "fsdp": "data"}[route]
     shapes = reports[0][name]["shapes"]
     whole = {k[2:]: v.shape for k, v in single[name].items() if k.startswith("p.")}
     key = "blocks.0.moe.fc1.kernel" if route == "ep" else "blocks.0.mlp.fc1.kernel"
@@ -578,7 +613,9 @@ def test_step_matches_jax(world, name):
     if name == "ep_step":  # JAX's EP test holds the loss to the replicated step's
         return
     for k, v in params.items():
-        assert (np.abs(got[k] - v) <= _param_bound(grads[f"g.{k[2:]}"])).all(), k
+        bound = (1e-4 if STEPS[name][3].get("steps", 1) > 1  # JAX's hybrid gate
+                 else _param_bound(grads[f"g.{k[2:]}"]))
+        assert (np.abs(got[k] - v) <= bound).all(), (k, np.abs(got[k] - v).max())
 
 
 @pytest.mark.parametrize("name", FORCED)

@@ -1,28 +1,34 @@
 """Fully-sharded data parallelism, counterpart of
 ``uit_mobile_tpu/parallel/fsdp.py``: parameters and optimizer moments
 sharded over the same axis the batch is (ZeRO-3). Each rank stores 1/N of
-every large tensor; FSDP2 (``torch.distributed.fsdp.fully_shard``)
-all-gathers the weights around the forward and the backward and
-reduce-scatters the gradients to their shards.
+every large tensor.
+
+JAX places the weights by a sharding tree and jits the unchanged train
+step with it; XLA inserts the all-gather of the weights and the
+reduce-scatter of the gradients. The port does the same with a placement
+and one step: the placement (``tp.place_params`` over the 'data' axis)
+keeps each rank's shard as a plain parameter, recorded in
+``model.shards``, and ``train.steps.make_train_step`` on a placed model
+issues the two collectives itself (``DataShards``): one all-gather of
+every shard before the forward, one reduce-scatter of their gradients
+after the backward. Both run on the step's device side, so a CUDA graph
+holds them on NCCL (``train.steps.dispatch_step``).
 
 - ``fsdp_param_specs``: the largest dim of every tensor of at least
   ``min_size`` elements over the data axis (JAX's rule); smaller tensors
-  replicated.
-- ``fsdp_shard_params``: fits those specs to the mesh (a dim the axis does
-  not divide stays replicated, as JAX's ``_fit_spec``), shards the model
-  with ``fully_shard`` and a placement function, and leaves the replicated
-  tensors out of FSDP (each rank holds them whole).
-- ``make_fsdp_train_step``: the weak train step on the sharded model; the
-  port's Optimizer (Adam/AdamW/SGD) updates the shards, so its moments are
-  sharded alike. Under ``parallel.rows`` its result is the single-device
-  step on the global batch.
+  replicated, their gradients averaged by the step's all-reduce.
+- ``fsdp_shard_params``: fits those specs to the process mesh (a dim the
+  axis does not divide stays replicated, as JAX's ``_fit_spec``) and
+  places the model.
+- ``hybrid_param_specs``, ``hybrid_shard_params``: the FSDP x TP
+  composition on a ('data', 'model') ``GridMesh``: Megatron's pairing over
+  'model' (parallel/tp.py), then the 'data' shard of each rank's TP
+  shards. The step gathers over 'data' only: the Megatron layers consume
+  the TP shards as they do under TP alone.
 
-The FSDP x TP composition on a ('data', 'model') ``GridMesh``
-(``hybrid_param_specs``, ``hybrid_shard_params``): Megatron's pairing over
-'model' (parallel/tp.py), then FSDP2 over the 'data' group on each model
-rank's TP shards; ``make_fsdp_train_step`` runs on it unchanged, its
-reductions over the 'data' group. (The models import this package, so
-this module imports the models inside its functions.)
+Build the optimizer on the placed model (``tp.sharded_opt_init``): its
+moments then live on the shards. (The models import this package, so
+this module imports nothing of them.)
 """
 
 from __future__ import annotations
@@ -31,11 +37,11 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .mesh import GridMesh, Mesh
-from .rows import Rows, sharded
-from .tp import _named, shard_params, tp_param_specs
+from .tp import _fit_spec, _named, place_params, shard_params, tp_param_specs
 
 
 def fsdp_param_specs(params, *, axis: str = "data", min_size: int = 1024) -> dict:
@@ -53,59 +59,21 @@ def fsdp_param_specs(params, *, axis: str = "data", min_size: int = 1024) -> dic
     return specs
 
 
-def _fit(spec: tuple, shape, n: int) -> tuple:
-    """Drop a sharded dim the axis does not divide evenly."""
-    return tuple(None if a is not None and shape[i] % n else a for i, a in enumerate(spec))
-
-
-class FSDPRoot(nn.Module):
-    """The FSDP2 unit around a model: ``root(fn, *args)`` runs ``fn(*args)``
-    with the model's parameters gathered (the port's forwards are
-    functions of the module, not its ``forward``), and its backward
-    reduce-scatters their gradients. ``data_group``: the process group
-    FSDP shards over (None: every rank)."""
-
-    def __init__(self, model: nn.Module, data_group=None):
-        super().__init__()
-        self.model = model
-        self.data_group = data_group
-
-    def forward(self, fn: Callable, *args, **kwargs):
-        return fn(*args, **kwargs)
-
-
-def _fully_shard(model: nn.Module, fitted: dict, axis: str, device_mesh, data_group=None):
-    """FSDP2 over ``device_mesh`` on the dims ``fitted`` names for ``axis``;
-    the other parameters stay whole on every rank -> the root."""
-    from torch.distributed.fsdp import fully_shard
-    from torch.distributed.tensor import Shard
-
-    dims = {id(p): fitted[k].index(axis) for k, p in model.named_parameters()
-            if axis in fitted[k]}
-    replicated = {p for k, p in model.named_parameters() if axis not in fitted[k]}
-    root = FSDPRoot(model, data_group)
-    fully_shard(root, mesh=device_mesh, shard_placement_fn=lambda p: Shard(dims[id(p)]),
-                ignored_params=replicated)
-    return root
-
-
 def fsdp_shard_params(mesh: Mesh, model: nn.Module, *, axis: str = "data",
                       min_size: int = 1024):
     """Shard ``model`` in place over the process mesh ``mesh`` per
-    ``fsdp_param_specs`` fitted to it -> (root, fitted specs). Build the
-    optimizer on ``root.model`` afterwards: its moments then live on the
-    shards."""
+    ``fsdp_param_specs`` fitted to it -> (model, fitted specs), as JAX's
+    (sharded params, sharding tree). Build the optimizer on the model
+    afterwards (``tp.sharded_opt_init``)."""
     if not mesh.spans_processes:
         raise ValueError("fsdp_shard_params shards over a process group's mesh "
                          "(parallel.mesh.process_mesh)")
-    from torch.distributed.device_mesh import init_device_mesh
-
-    n = mesh.size
-    shapes = dict(_named(model))
-    fitted = {k: _fit(s, shapes[k], n) for k, s in fsdp_param_specs(
-        model, axis=axis, min_size=min_size).items()}
-    device_mesh = init_device_mesh(mesh.devices[0].type, (n,), mesh_dim_names=(axis,))
-    return _fully_shard(model, fitted, axis, device_mesh), fitted
+    rank = dist.get_rank(mesh.group)
+    grid = GridMesh({axis: mesh.size}, {axis: rank}, {axis: mesh.group}, mesh.devices[0])
+    specs = fsdp_param_specs(model, axis=axis, min_size=min_size)
+    model, fitted = place_params(grid, model, specs)
+    model.fsdp_axis = axis
+    return model, fitted
 
 
 def hybrid_param_specs(params, *, data_axis: str = "data", model_axis: str = "model",
@@ -138,91 +106,111 @@ def hybrid_shard_params(mesh: GridMesh, model: nn.Module, *, data_axis: str = "d
     """Shard ``model`` in place per ``hybrid_param_specs`` fitted to the
     ('data', 'model') ``mesh`` (a dim an axis does not divide stays whole
     there): each rank keeps its Megatron shards over 'model'
-    (``tp.shard_params``), and FSDP2's ``fully_shard`` shards those over the
-    'data' group -> (root, fitted specs). Build the optimizer on
-    ``root.model`` afterwards."""
-    from torch.distributed.device_mesh import DeviceMesh
-
-    from .tp import _fit_spec
-
+    (``tp.shard_params``), then its 'data' shard of each -> (model, fitted
+    specs). Build the optimizer on the model afterwards."""
     specs = hybrid_param_specs(model, data_axis=data_axis, model_axis=model_axis,
                                min_size=min_size, shard_attention=shard_attention)
     fitted = {k: _fit_spec(specs[k], shape, mesh) for k, shape in _named(model)}
     shard_params(mesh, model, model_axis=model_axis, shard_attention=shard_attention)
-    model.shard_specs = fitted
-    group = mesh.group(data_axis)
-    device_mesh = DeviceMesh.from_group(group, mesh.device.type, mesh_dim_names=(data_axis,))
-    return _fully_shard(model, fitted, data_axis, device_mesh, group), fitted
+    # the 'data' dims are free of 'model', so the TP shards keep their whole size there
+    place_params(mesh, model, fitted, axes=(data_axis,))
+    model.shard_specs, model.fsdp_axis = fitted, data_axis
+    return model, fitted
 
 
-def _local(t: torch.Tensor) -> torch.Tensor:
-    return t.to_local() if hasattr(t, "to_local") else t
+class _Call(nn.Module):
+    """``forward(fn, *args, **kwargs)`` = ``fn(*args, **kwargs)``: the module
+    ``functional_call`` swaps the gathered tensors into (the port's
+    forwards are functions of the model, not its ``forward``)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn: Callable, *args, **kwargs):
+        return fn(*args, **kwargs)
 
 
-def make_fsdp_train_step(model_cfg, root: FSDPRoot, optimizer, *, rows: Optional[Rows] = None,
-                         loss_name: str = "BCELoss", loss_args: Optional[dict] = None,
-                         mixup_alpha: Optional[float] = None,
-                         max_grad_norm: Optional[float] = None,
-                         wav_augment: Optional[Callable] = None,
-                         spec_augment: Optional[Callable] = None,
-                         frontend_fn: Optional[Callable] = None) -> Callable:
-    """The weak train step (no PSL) of ``train.steps.make_train_step`` on a
-    model sharded by ``fsdp_shard_params`` or ``hybrid_shard_params``:
-    ``step(batch, generator) -> {'total_loss', 'grad_norm'}``. ``optimizer``
-    is the port's Optimizer built on ``root.model`` after sharding; ``rows``
-    this rank's share over the data group. The sharded gradients arrive
-    averaged over the data group by FSDP's reduce-scatter, the others by an
-    all-reduce over it; the pre-clip norm and the clip are the global
-    gradient's (the squares of FSDP's and TP's shards summed over their
-    groups)."""
-    import torch.distributed as dist
+def _host_staged(group, t: torch.Tensor) -> bool:
+    """gloo moves a CUDA tensor through the host (collectives.exchange)."""
+    return t.device.type != "cpu" and dist.get_backend(group) == "gloo"
 
-    from .. import models
-    from ..augment.mixup import mixup_targets, sample_mixup_lambdas
-    from ..train.steps import _step_wav, global_norm, make_loss, shard_groups
 
-    loss_fn = make_loss(loss_name, **(loss_args or {}))
-    model = root.model
-    group = root.data_group
-    n_data = dist.get_world_size(group)
-    tp_groups = shard_groups(model, optimizer.names)
+class DataShards:
+    """The parameters an FSDP placement split over its 'data' axis, and the
+    step's two collectives over that axis's group, each one coalesced
+    collective on a flat buffer the step allocates:
 
-    def step(batch, generator: Optional[torch.Generator] = None) -> dict:
-        with sharded(rows):
-            wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
-            lamb = None
-            if mixup_alpha:
-                lamb = sample_mixup_lambdas(generator, wav.shape[0], mixup_alpha)
-                target = mixup_targets(target, lamb)
-            probs, new_state = root(models.forward, model_cfg, model, wav, train=True,
-                                    generator=generator, mixup_lamb=lamb,
-                                    wav_augment=wav_augment, spec_augment=spec_augment,
-                                    frontend_fn=frontend_fn)
-            loss = loss_fn(probs, target)
-        loss.backward()
-        grads = []
-        with torch.no_grad():
-            for p in optimizer.params:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                if not hasattr(g, "to_local"):  # whole over 'data': average it here
-                    dist.all_reduce(g, group=group)
-                    g /= n_data
-                grads.append(g)
-            gnorm = global_norm(grads, [((group,) if hasattr(g, "to_local") else ()) + m
-                                        for g, m in zip(grads, tp_groups)])
-            if max_grad_norm is not None:
-                scale = torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0)
-                for g in grads:
-                    _local(g).mul_(scale)
-        models.load_state(model, new_state)
-        # one foreach update over shards and whole (replicated) tensors
-        from torch.distributed.tensor.experimental import implicit_replication
+    - ``gather(params)``: one ``all_gather_into_tensor`` of every shard,
+      each whole tensor rebuilt from the n pieces along its sharded dim
+      (the largest, often not dim 0) as a fresh leaf;
+    - ``call(whole, fn, ...)``: ``fn`` with the model reading those
+      tensors in place of its shards (``torch.func.functional_call``);
+    - ``reduce_scatter(grads)``: their gradients packed rank-major (for
+      rank r every tensor's r-th chunk), one ``reduce_scatter_tensor``, divided
+      by n: under ``rows`` each rank differentiates the rank-identical
+      global loss, so the sum is n x the gradient.
 
-        with implicit_replication():
-            optimizer.update(grads)
-        return {"total_loss": loss.detach(), "grad_norm": gnorm}
+    ``index``: the positions of the sharded parameters in the optimizer's
+    list. Between steps the model holds the shards alone."""
 
-    # eager by design: fully_shard gathers and frees the DTensor parameters
-    # from host hooks and resizes their storage, which no CUDA graph holds
-    step.graphs = None
-    return step
+    def __init__(self, model: nn.Module, names: list, axis: str):
+        shards = getattr(model, "shards", {})
+        self.index, self.dims, self.group = [], [], None
+        for i, name in enumerate(names):
+            for dim, a, group in shards.get(name, ()):
+                if a == axis:
+                    self.index.append(i)
+                    self.dims.append(dim)
+                    self.group = group
+        self.names = [names[i] for i in self.index]
+        params = dict(model.named_parameters())
+        self.shapes = [params[n].shape for n in self.names]  # the shards'
+        self.n = dist.get_world_size(self.group)
+        self._call = _Call(model)
+
+    def gather(self, params: list) -> list:
+        grad = [params[i].requires_grad for i in self.index]
+        local = [params[i].detach() for i in self.index]
+        if len({t.dtype for t in local}) > 1:
+            raise ValueError("FSDP gathers its shards in one buffer: one dtype")
+        flat = torch.cat([t.reshape(-1) for t in local])
+        wire = flat.cpu() if _host_staged(self.group, flat) else flat
+        out = wire.new_empty(self.n * wire.numel())
+        dist.all_gather_into_tensor(out, wire, group=self.group)
+        pieces = out.to(flat.device).view(self.n, -1).split([t.numel() for t in local], dim=1)
+        whole = []
+        for t, dim, piece, g in zip(local, self.dims, pieces, grad):
+            # (n, *shard) -> the n shards concatenated on dim
+            shape = list(t.shape)
+            shape[dim] *= self.n
+            whole.append(piece.reshape(self.n, *t.shape).movedim(0, dim).reshape(shape)
+                         .requires_grad_(g))
+        return whole
+
+    def call(self, whole: list, fn: Callable, *args, **kwargs):
+        return torch.func.functional_call(
+            self._call, {f"model.{n}": t for n, t in zip(self.names, whole)},
+            (fn, *args), kwargs)
+
+    def reduce_scatter(self, grads: list) -> list:
+        packed = torch.cat([g.unflatten(dim, (self.n, -1)).movedim(dim, 0).reshape(self.n, -1)
+                            for g, dim in zip(grads, self.dims)], dim=1).reshape(-1)
+        wire = packed.cpu() if _host_staged(self.group, packed) else packed
+        out = wire.new_empty(wire.numel() // self.n)
+        dist.reduce_scatter_tensor(out, wire, group=self.group)
+        out = out.to(packed.device) / self.n
+        return [v.view(s) for v, s in zip(out.split([s.numel() for s in self.shapes]),
+                                           self.shapes)]
+
+
+def data_shards(model: nn.Module, names: list) -> Optional[DataShards]:
+    """The ``DataShards`` of a model placed by ``fsdp_shard_params`` or
+    ``hybrid_shard_params`` (``names``: the optimizer's parameter names),
+    or None where no parameter is sharded over its 'data' axis (another
+    placement, or an axis of one rank)."""
+    axis = getattr(model, "fsdp_axis", None)
+    if axis is None or not any(a == axis for entries in getattr(model, "shards", {}).values()
+                               for _, a, _ in entries):
+        return None
+    return DataShards(model, names, axis)

@@ -200,21 +200,16 @@ def sharded_opt_init(optimizer, model: nn.Module):
 
 
 def gather_params(model: nn.Module, tensors: Optional[dict] = None) -> dict:
-    """name -> the whole parameter on the CPU, its shards gathered (FSDP's
-    DTensor shards too, with c10d's all_gather: gloo carries it for CUDA
-    tensors); ``tensors`` (name -> a tensor placed like that parameter, an
-    optimizer moment) in place of the parameters. Every rank calls it."""
+    """name -> the whole parameter on the CPU, its shards over every axis
+    gathered (TP's, EP's and FSDP's, with c10d's all_gather: gloo carries it
+    for CUDA tensors); ``tensors`` (name -> a tensor placed like that
+    parameter, an optimizer moment or a gradient) in place of the
+    parameters. Every rank calls it."""
     import torch.distributed as dist
 
     out = {}
     for name, p in (tensors or dict(model.named_parameters())).items():
         t = p.detach()
-        if hasattr(t, "to_local"):  # an FSDP shard over its data mesh
-            local = t.to_local().contiguous()
-            group = t.device_mesh.get_group()
-            parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
-            dist.all_gather(parts, local, group=group)
-            t = torch.cat(parts, dim=t.placements[0].dim)
         for dim, _, group in getattr(model, "shards", {}).get(name, ()):
             parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
             dist.all_gather(parts, t.contiguous(), group=group)

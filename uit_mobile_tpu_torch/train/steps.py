@@ -558,7 +558,6 @@ def global_norm(grads: list[torch.Tensor], groups=None) -> torch.Tensor:
 
     sums: dict = {}  # one float64 sum per tuple of groups, in the parameters' order
     for g, over in zip(grads, groups):
-        g = g.to_local() if hasattr(g, "to_local") else g
         sums[tuple(over)] = sums.get(tuple(over), 0.0) + (g.double() ** 2).sum()
     total = 0.0
     for over, sq in sums.items():
@@ -585,7 +584,8 @@ def _group_mean(grads, rows) -> list[torch.Tensor]:
 
 
 def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
-                     max_grad_norm: Optional[float] = None, plan=None) -> torch.Tensor:
+                     max_grad_norm: Optional[float] = None, plan=None,
+                     gathered=None) -> torch.Tensor:
     """The tail of every train step: the gradients of ``loss`` over the
     optimizer's parameters (those the config leaves unused, the cls token
     under mean pooling, get zero gradients, as JAX gives them), their
@@ -594,11 +594,25 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     the pre-clip norm. Under ``parallel.rows.sharded`` the gradients are
     the global batch's, the same on every rank. ``plan``: (kind, row) of a
     micro-step the host has planned (``Optimizer.plan``): only the device
-    side of the update runs; None runs both."""
-    grads = torch.autograd.grad(loss, optimizer.params, materialize_grads=True)
+    side of the update runs; None runs both. ``gathered``: (DataShards,
+    whole tensors) of an FSDP placement's step (``parallel/fsdp.py``): the
+    gradients of its sharded parameters are taken at the whole tensors the
+    forward read and reduce-scattered to this rank's shards; the others
+    are averaged over the rows' group as ever."""
+    shards, whole = gathered or (None, [])
+    at = shards.index if shards is not None else []  # the sharded parameters' positions
+    inputs = list(optimizer.params)
+    for i, t in zip(at, whole):
+        inputs[i] = t
+    grads = list(torch.autograd.grad(loss, inputs, materialize_grads=True))
+    if at:
+        for i, g in zip(at, shards.reduce_scatter([grads[i] for i in at])):
+            grads[i] = g
     rows = current_rows()
-    if rows is not None:
-        grads = _group_mean(grads, rows)
+    rest = sorted(set(range(len(grads))) - set(at))
+    if rows is not None and rest:
+        for i, g in zip(rest, _group_mean([grads[i] for i in rest], rows)):
+            grads[i] = g
     gnorm = global_norm(grads, shard_groups(model, optimizer.names))
     if max_grad_norm is not None:
         grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
@@ -640,7 +654,12 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
     ``max_grad_norm`` the gradients are scaled by ``min(1, max / (norm +
     1e-6))``. ``rows``: the batch is this rank's share of a global batch
     (``parallel.rows``; PSL: its audioset rows, then its kws rows), and the
-    step computes the global batch's step on every rank."""
+    step computes the global batch's step on every rank. ``model`` may be
+    placed by TP (``parallel.shard_params``), FSDP or hybrid FSDP x TP
+    (``parallel.fsdp_shard_params``, ``hybrid_shard_params``; the teacher
+    stays whole): the FSDP step gathers the shards before the forward and
+    reduce-scatters their gradients after the backward itself, on its
+    device side, so it replays as one graph on NCCL too."""
     if distill_mode not in ("psl", "soft"):
         raise ValueError(f"distill_mode must be 'psl' or 'soft', got {distill_mode!r}")
     if (psl_cfg is None) != (psl_model is None):
@@ -656,6 +675,7 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             "the MoE variant trains through its own step (router aux loss, no train-mode "
             "augment path): build it with parallel.make_moe_train_step")
     loss_fn = make_loss(loss_name, **(loss_args or {}))
+    shards = _data_shards(model, optimizer, rows)
 
     def teacher(wav):
         with torch.no_grad():
@@ -701,24 +721,48 @@ def make_train_step(model_cfg, model, optimizer: Optimizer, *, loss_name: str = 
             mixup_lamb = sample_mixup_lambdas(generator, wav.shape[0], mixup_alpha)
             target = mixup_targets(target, mixup_lamb)
 
-        probs, new_state = models.forward(
-            model_cfg, model, wav, train=True, generator=generator, mixup_lamb=mixup_lamb,
-            wav_augment=wav_augment, spec_augment=spec_augment, frontend_fn=frontend_fn)
+        (probs, new_state), gathered = _placed_forward(
+            shards, optimizer, models.forward, model_cfg, model, wav, train=True,
+            generator=generator, mixup_lamb=mixup_lamb, wav_augment=wav_augment,
+            spec_augment=spec_augment, frontend_fn=frontend_fn)
         loss = loss_fn(probs, target)
-        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm, plan)
+        gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm, plan,
+                                 gathered)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
     return dispatch_step(step, optimizer, rows)
+
+
+def _data_shards(model, optimizer: Optimizer, rows):
+    """The FSDP placement's ``parallel.fsdp.DataShards`` of ``model`` (None:
+    none). Its step runs on this rank's rows of the global batch, as JAX's
+    runs on the batch sharded over the same axis."""
+    from ..parallel.fsdp import data_shards
+
+    shards = data_shards(model, optimizer.names)
+    if shards is not None and rows is None:
+        raise ValueError("an FSDP-placed model's step takes this rank's rows of the global "
+                         "batch: pass rows= (parallel.rows.Rows over the 'data' group)")
+    return shards
+
+
+def _placed_forward(shards, optimizer: Optimizer, fn: Callable, *args, **kwargs):
+    """``fn(*args, **kwargs)`` -> (its result, ``update_from_loss``'s
+    ``gathered``): on an FSDP placement (``shards``) the forward reads the
+    whole tensors of one all-gather of the shards."""
+    if shards is None:
+        return fn(*args, **kwargs), None
+    whole = shards.gather(optimizer.params)
+    return shards.call(whole, fn, *args, **kwargs), (shards, whole)
 
 
 def _graphable(optimizer: Optimizer, rows) -> bool:
     """Whether a step runs as CUDA graphs: on the card, where every
     collective it can meet runs on NCCL (``collectives.capturable``: those
     of ``rows``' group; without rows, in a process group, the default
-    group's, whose backend a model-parallel placement's axis groups share),
-    and no parameter is a DTensor (FSDP's ``fully_shard`` gathers and frees
-    them from host hooks, which no graph holds)."""
-    if optimizer.device.type != "cuda" or any(hasattr(p, "to_local") for p in optimizer.params):
+    group's, whose backend a placement's axis groups share: TP's, EP's and
+    FSDP's all-gather and reduce-scatter)."""
+    if optimizer.device.type != "cuda":
         return False
     if rows is not None:
         return capturable(rows.group)
@@ -787,20 +831,22 @@ def make_framewise_train_step(model_cfg, model, optimizer: Optimizer, *,
     from ..models import uit as uit_model
 
     loss_fn = make_loss(loss_name, **(loss_args or {}))
+    shards = _data_shards(model, optimizer, rows)
 
     def step(batch, generator, kind, row):
         with sharded(rows):
             wav, target = _step_wav(batch["wav"], wav_augment), batch["target"]
-            probs, new_state = uit_model.forward_train_framewise(
-                model_cfg, model, wav, generator=generator, wav_augment=wav_augment,
-                spec_augment=spec_augment, frontend_fn=frontend_fn)
+            (probs, new_state), gathered = _placed_forward(
+                shards, optimizer, uit_model.forward_train_framewise, model_cfg, model, wav,
+                generator=generator, wav_augment=wav_augment, spec_augment=spec_augment,
+                frontend_fn=frontend_fn)
             if probs.shape != target.shape:
                 raise ValueError(f"segment grid mismatch: model {tuple(probs.shape)} vs "
                                  f"targets {tuple(target.shape)} — chunk_length and "
                                  f"target_length must describe the same window")
             loss = loss_fn(probs, target)
             gnorm = update_from_loss(model, optimizer, loss, new_state, max_grad_norm,
-                                     (kind, row))
+                                     (kind, row), gathered)
         return {"total_loss": loss.detach(), "grad_norm": gnorm}
 
     return dispatch_step(step, optimizer, rows)
