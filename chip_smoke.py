@@ -3778,13 +3778,26 @@ def global_signs(rank_signs: list, blocks_of_rank) -> list:
     return out
 
 
+def rank_threads(world: int) -> int:
+    """torch's CPU threads for each of ``world`` ranks sharing this host:
+    its share of the cores. More makes the ranks' CPU ops (the models'
+    seeded draws, built on the CPU) spin against each other: on an 8-core
+    host four ranks of 8 threads took 161 s each to build uit_xs_moe, of 2
+    threads 0.7-1.3 s."""
+    import os
+
+    return max(1, len(os.sched_getaffinity(0)) // world)
+
+
 def dp_rank(argv) -> int:
     """One rank of the shared-card check (``chip_smoke.py --dp-rank R W PORT
     DIR BACKEND DEVICE``; DEVICE is the parent's CARD). gloo: the recipe and
     frontier PSL steps on this rank's share; then on either backend the
     FSDP step (the recipe's student, its own all-gather and reduce-scatter),
-    and on NCCL that step held as a graph (mp_held_step on a 'data' mesh of
-    the world). ReLU signs recorded; results and the teardown to DIR."""
+    on NCCL that step held as a graph (mp_held_step on a 'data' mesh of the
+    world), on gloo the MoE step and the eval forward of an FSDP placement
+    (mp_route; the forward's model then saved, DP_PLACED). ReLU signs
+    recorded; results and the teardown to DIR."""
     import os
 
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
@@ -3798,6 +3811,7 @@ def dp_rank(argv) -> int:
     dev = resolve_device(CARD)  # TF32 off, as in the single-process steps
     multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
                          backend=backend, timeout=PARALLEL_DEADLINE_S)
+    torch.set_num_threads(rank_threads(world))
     res = {}
     for name in (list(DP_STEPS) if backend == "gloo" else []) + ["fsdp"]:
         parts = dp_parts("recipe" if name == "fsdp" else name)
@@ -3811,6 +3825,10 @@ def dp_rank(argv) -> int:
         cfg, _ = mp_model(False)
         res["fsdp_held"] = mp_held_step("fsdp_step", cfg, make_grid_mesh({"data": world}, dev),
                                         make_frontend_fn(cfg.frontend, precision="exact"), dev)
+    else:  # the placed MoE step and eval forward (and its checkpoint) on the ranks' rows
+        res["placed"] = {name: dict(mp_route(MP_ROUTES[name][0], {"data": world}, {}, dev,
+                                             workdir), mesh={"data": world})
+                         for name in DP_PLACED}
     torch.save(res, workdir / f"rank{rank}.pt")
     rank_teardown(workdir / f"rank{rank}.teardown")
     sys.stdout.flush()
@@ -4094,7 +4112,12 @@ def phase_parallel(info) -> dict:
         teacher): the two gloo ranks, eagerly, held as (b); then one NCCL
         rank, a CUDA graph: held as (b), and the step held as the graphs
         phase holds one (mp_held_step: replay bitwise eager, one row_exact
-        a replay, capture s and pool growth);
+        a replay, capture s and pool growth); the two gloo ranks' MoE step
+        (uit_xs_moe B=32 x 10 s, 16 rows a rank) and eval forward (uit_xs
+        B=32 x 1 s) of an FSDP placement held to one process as the
+        model_parallel phase holds its routes (mp_check), and the forward's
+        placed model as save_checkpoint wrote it against the unplaced
+        model's file, bitwise (mp_ckpt_check);
     (d) Evaluator and TaggingService data parallel over a mesh of two CARD
         replicas, the kernel on every shard: fast (per-sample clamp) against
         the non-DP per-sample run, exact and the service's 'torch' clamp
@@ -4146,6 +4169,12 @@ def phase_parallel(info) -> dict:
     check(all(not h["failures"] and h["mel_per_replay_counters"] == {"row_exact": 1}
               for h in nccl[0]["fsdp_held"]),
           f"the FSDP step at one NCCL rank, held: {nccl[0]['fsdp_held']}")
+    # (c) the MoE step and the eval forward of an FSDP placement on the gloo
+    # ranks, held to one process; the forward's placed model saved
+    placed = [r["placed"] for r in ranks]
+    counts.update(mp_check(2, placed, "gloo", spawn_wall, mp_references(("dense",)), info,
+                           phase="parallel"))
+    mp_ckpt_check(work, 2, placed, info, phase="parallel")
 
     # (d) in-process data parallelism over two replicas on the card
     counts.update(dp_in_process(work, info))
@@ -4320,13 +4349,29 @@ MP_ROUTES = {
     "pp_fast": ("pp", {"pipe": 4}, {"n_microbatches": 4, "fast": True}),
     "ep": ("ep", {"data": 2, "expert": 2}, {}),
     "ep_step": ("ep_step", {"data": 2, "expert": 2}, {}),
+    # every program reads an FSDP placement whole: the MoE and MAE steps, the
+    # eval forward and its checkpoint (--mp-cards; the parallel phase's two
+    # gloo ranks run the MoE step and the forward on one card)
+    "fsdp_moe_step": ("fsdp_moe_step", {"data": 4}, {}),
+    "fsdp_mae_step": ("fsdp_mae_step", {"data": 4}, {"mae": True}),
+    "fsdp_forward": ("fsdp_forward", {"data": 4}, {}),
 }
 MP_ONE_RANK = ("dp_step", "tp", "hybrid_step", "sp", "pp", "ep", "ep_step")
+MP_NCCL_ONLY = ("fsdp_moe_step", "fsdp_mae_step", "fsdp_forward")  # not the shared-card gloo world
+DP_PLACED = ("fsdp_moe_step", "fsdp_forward")  # the parallel phase's gloo ranks'
+MAE_B = 64  # configs/pretrain_mae.yaml's batch: clips of 10.12 s (target_length 1012)
 # the tensor dims a step's ReLU inputs split over each mesh axis: the dense
 # MLP's (rows, tokens, hidden), the experts' (experts, groups, slots, hidden)
 MP_RELU_DIMS = {"dp_step": {"data": 0}, "hybrid_step": {"data": 0, "model": -1},
                 "fsdp_step": {"data": 0},
-                "ep_step": {"expert": 0, "data": 1}}
+                "ep_step": {"expert": 0, "data": 1},
+                # a routing group of 8 clips: one group, or two, a rank's rows
+                "fsdp_moe_step": {"data": 1},
+                "fsdp_mae_step": {"data": 0}}
+
+
+def mp_is_moe(route: str) -> bool:
+    return route.startswith("ep") or route == "fsdp_moe_step"
 
 
 def mp_inputs(moe: bool, fast: bool = False):
@@ -4353,8 +4398,39 @@ def mp_model(moe: bool, bf16: bool = False, device="cpu"):
     return cfg, models.build(cfg, torch.Generator().manual_seed(30), device)
 
 
-def mp_variant(opts: dict) -> str:
+def mp_mae(device="cpu"):
+    """(cfg, model) of configs/pretrain_mae.yaml: the MAE of uit_xs at
+    target_length 1012, decoder depth 2, mask ratio 0.75; seeded weights."""
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.train import pretrain as mae
+
+    enc = models.get_model_config("uit_xs", outputdim=527, target_length=1012)
+    cfg = mae.MAEConfig(encoder=enc, mask_ratio=0.75, decoder_depth=2)
+    return cfg, mae.init(cfg, torch.Generator().manual_seed(33)).to(device)
+
+
+def mae_wav(seed: int) -> np.ndarray:
+    """MAE_B seeded float32 waves of the MAE's window (10.12 s)."""
+    return pcm_batch(np.random.default_rng(seed), MAE_B, 1012 * 160 + 160).astype(
+        np.float32) / 32768.0
+
+
+def mp_variant(opts: dict):
+    """The mel kernel a route's rank launches once; None for the MAE (its
+    frontend is the plain rfft one, as in the JAX package)."""
+    if opts.get("mae"):
+        return None
     return "row_fast" if opts.get("fast") else "row_exact"
+
+
+def mel_once(variant) -> dict:
+    """The nonzero mel launch counts of one call of a route: ``variant`` once."""
+    return {variant: 1} if variant else {}
+
+
+def grads_norm(grads: dict) -> float:
+    """The global norm of whole gradients (a step that reports none: the MAE's)."""
+    return float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())))
 
 
 def param_bytes(model) -> int:
@@ -4373,31 +4449,38 @@ def mp_place(route: str, mesh, model, dev):
         parallel.process_mesh(dev, group=mesh.group("data")), model)[0]
 
 
-def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
+def mp_route(route: str, shape: dict, opts: dict, dev, ckpt_dir: Path | None = None) -> dict:
     """One route on this rank's share of the mesh ``shape``: counts set to 0
     just before its main path (one forward, or one step) and read just
     after; then the forward's CUDA-event median. -> its output (forward:
     probs; step: loss, pre-clip norm, gathered params and gradients, the
-    ReLU signs), mel launches, ms, the weights this rank holds."""
+    ReLU signs), mel launches, ms, the weights this rank holds. The FSDP
+    forward's model is then written with ``save_checkpoint`` into
+    ``ckpt_dir`` (every rank together; mp_ckpt_gate reads it)."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ops import launches
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
     from uit_mobile_tpu_torch import parallel
     from uit_mobile_tpu_torch.parallel.tp import gather_params
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+    from uit_mobile_tpu_torch.train import pretrain as mae
 
-    moe = route.startswith("ep")
-    cfg, model = mp_model(moe, opts.get("bf16", False))
+    moe, mae_route = mp_is_moe(route), route == "fsdp_mae_step"
+    cfg, model = mp_mae() if mae_route else mp_model(moe, opts.get("bf16", False))
     whole = param_bytes(model)
-    fe = make_frontend_fn(cfg.frontend, precision="fast" if opts.get("fast") else "exact")
-    wav, target = mp_inputs(moe, opts.get("fast", False))
-    wav, target = torch.from_numpy(wav).to(dev), torch.from_numpy(target).to(dev)
+    fe = make_frontend_fn((cfg.encoder if mae_route else cfg).frontend,
+                          precision="fast" if opts.get("fast") else "exact")
+    if mae_route:
+        wav, target = torch.from_numpy(mae_wav(24)).to(dev), None
+    else:
+        wav, target = mp_inputs(moe, opts.get("fast", False))
+        wav, target = torch.from_numpy(wav).to(dev), torch.from_numpy(target).to(dev)
     mesh = parallel.make_grid_mesh(shape, device=dev)
     data_axis = "data" if "data" in shape else None
     out = {"coords": mesh.coords, "whole_bytes": whole}
     if route.endswith("_step"):
         local, rows = mesh.shard_rows(wav, data_axis)
-        tgt, _ = mesh.shard_rows(target, data_axis)
+        tgt = None if target is None else mesh.shard_rows(target, data_axis)[0]
         opt_spec = build_optimizer("AdamW", DP_LR, weight_decay=5e-8)
         # one generator: a graphed step's key holds the generator object, so
         # the timed calls below replay the step
@@ -4414,6 +4497,16 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = make_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
             run = lambda: step({"wav": local, "target": tgt}, gen)  # noqa: E731
+        elif route in ("fsdp_moe_step", "fsdp_mae_step"):  # placed by FSDP over 'data'
+            local, tgt, rows = dp_share(mesh, wav, target, dev)
+            model = mp_place(route, mesh, model, dev)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            if mae_route:
+                step = mae.make_mae_step(cfg, model, opt, rows=rows)
+                run = lambda: step.batch_step({"wav": local}, gen)  # noqa: E731
+            else:
+                step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+                run = lambda: step(local, tgt, gen)  # noqa: E731
         else:
             model, _ = parallel.ep_shard_params(mesh, model)
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
@@ -4435,8 +4528,10 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
         finally:
             restore()
         opt.device_update = device_update
-        out.update(loss=m["total_loss"].item(), grad_norm=m["grad_norm"].item(),
-                   params=gather_params(model), grads=gather_params(model, grads), signs=signs,
+        grads = gather_params(model, grads)
+        out.update(loss=m["total_loss"].item(),
+                   grad_norm=m["grad_norm"].item() if "grad_norm" in m else grads_norm(grads),
+                   params=gather_params(model), grads=grads, signs=signs,
                    rank_bytes=param_bytes(model))
         out["step_ms"] = time_ms(run, warmup=1, iters=3)
         if step.graphs is None:
@@ -4457,6 +4552,11 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
         fn = parallel.pipeline_forward(cfg, model, mesh, data_axis=data_axis, frontend_fn=fe,
                                        n_microbatches=opts["n_microbatches"])
         held = whole - blocks + blocks // shape["pipe"]
+    elif route == "fsdp_forward":  # the eval forward of an FSDP placement
+        model = mp_place("fsdp_step", mesh, model, dev)
+        fn = parallel.fsdp_forward(lambda m, w: models.apply(cfg, m, w, frontend_fn=fe),
+                                   parallel.process_mesh(dev, group=mesh.group("data")), model)
+        held = param_bytes(model)
     else:
         fn = parallel.expert_parallel_forward(cfg, model, mesh, frontend_fn=fe)
         held = param_bytes(model)
@@ -4467,6 +4567,12 @@ def mp_route(route: str, shape: dict, opts: dict, dev) -> dict:
     out.update(launches=dict(launches), probs=probs.cpu(), on_card=probs.is_cuda,
                rank_bytes=held, **mp_dispatch(fn, wav, route))
     out["ms"] = time_ms(lambda: fn(wav), warmup=1, iters=5)
+    if route == "fsdp_forward" and ckpt_dir is not None:
+        from uit_mobile_tpu_torch.ckpt import save_checkpoint
+
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt_dir / "fsdp_placed.npz", model, cfg)
+        out["ckpt_s"] = time.perf_counter() - t0
     return out
 
 
@@ -4503,7 +4609,7 @@ def dp_share(mesh, wav, target, dev) -> tuple:
     from uit_mobile_tpu_torch.parallel.rows import Rows
 
     n, i = mesh.shape["data"], mesh.coords["data"]
-    local, tgt = wav.chunk(n)[i], target.chunk(n)[i]
+    local, tgt = wav.chunk(n)[i], None if target is None else target.chunk(n)[i]
     return local, tgt, Rows([local.shape[0]], dev, group=mesh.group("data"))
 
 
@@ -4517,29 +4623,45 @@ def mp_held_step(route: str, cfg, mesh, fe, dev) -> list:
     mesh). Every rank runs it; its gates are recorded, not raised."""
     from uit_mobile_tpu_torch import parallel
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+    from uit_mobile_tpu_torch.train import pretrain as mae
 
-    moe, data_axis = route == "ep_step", "data" if "data" in mesh.shape else None
+    moe, data_axis = mp_is_moe(route), "data" if "data" in mesh.shape else None
+    mae_route = route == "fsdp_mae_step"
     batches = []
     for i in range(MP_HELD_STEPS):
-        if moe:
-            pcm, target = moe_batch(40 + i)
+        if mae_route:
+            wav, target = torch.from_numpy(mae_wav(70 + i)).to(dev), None
         else:
-            pcm = pcm_batch(np.random.default_rng(50 + i), MP_B, SR)
-            target = (np.random.default_rng(60 + i).random((MP_B, 537)) < 0.05)
-        wav = torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev)
-        target = torch.from_numpy(target.astype(np.float32)).to(dev)
-        if moe:
+            if moe:
+                pcm, target = moe_batch(40 + i)
+            else:
+                pcm = pcm_batch(np.random.default_rng(50 + i), MP_B, SR)
+                target = (np.random.default_rng(60 + i).random((MP_B, 537)) < 0.05)
+            wav = torch.from_numpy(pcm.astype(np.float32) / 32768.0).to(dev)
+            target = torch.from_numpy(target.astype(np.float32)).to(dev)
+        if route == "ep_step":
             local, rows = mesh.shard_rows(wav, data_axis)
             tgt, _ = mesh.shard_rows(target, data_axis)
         else:
             local, tgt, rows = dp_share(mesh, wav, target, dev)
-        batches.append({"wav": local, "target": tgt})
+        batches.append({"wav": local} if mae_route else {"wav": local, "target": tgt})
 
     def fresh():
-        _, model = mp_model(moe, device="cpu" if moe else dev)
         opt_spec = build_optimizer("AdamW", DP_LR, weight_decay=5e-8)
-        if moe:
+        if mae_route:
+            _, model = mp_mae()
+            model = mp_place(route, mesh, model, dev)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            step = mae.make_mae_step(cfg, model, opt, rows=rows)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            return step, None, run_state(model, opt, gen), gen
+        _, model = mp_model(moe, device="cpu" if moe else dev)
+        if route == "ep_step":
             model, _ = parallel.ep_shard_params(mesh, model)
+            opt, _ = parallel.sharded_opt_init(opt_spec, model)
+            step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
+        elif moe:
+            model = mp_place(route, mesh, model, dev)
             opt, _ = parallel.sharded_opt_init(opt_spec, model)
             step = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe, rows=rows)
         else:
@@ -4551,7 +4673,8 @@ def mp_held_step(route: str, cfg, mesh, fe, dev) -> list:
         return step, None, run_state(model, opt, gen), gen
 
     failures: list = []
-    recs = held_step_path("model_parallel", route, fresh, batches, "row_exact",
+    recs = held_step_path("model_parallel", route, fresh, batches,
+                          None if mae_route else "row_exact",
                           {"nvidia_smi": None}, hows=("single",),
                           verify=lambda ok, msg: ok or failures.append(msg))
     return [dict(r, failures=failures) for r in recs]
@@ -4574,17 +4697,18 @@ def mp_rank(argv) -> int:
     dev = resolve_device(CARD)  # TF32 off, as in the single-process forwards and steps
     multihost.initialize(f"127.0.0.1:{port}", world, rank, strict=True, device=dev,
                          backend=backend, timeout=PARALLEL_DEADLINE_S)
+    torch.set_num_threads(rank_threads(world))
     faulthandler.dump_traceback_later(
         float(os.environ.get("UIT_RANK_DEADLINE_S", PARALLEL_DEADLINE_S)) - 15, exit=False)
     res = {}
     t0 = time.perf_counter()
     for name, (route, shape, opts) in MP_ROUTES.items():
-        if world == 1 and name not in MP_ONE_RANK:
+        if world == 1 and name not in MP_ONE_RANK or name in MP_NCCL_ONLY and backend != "nccl":
             continue
         if world == 1:
             shape = {axis: 1 for axis in shape}
         print(f"rank {rank}: {name} at {time.perf_counter() - t0:.1f} s", flush=True)
-        res[name] = dict(mp_route(route, shape, opts, dev), mesh=shape)
+        res[name] = dict(mp_route(route, shape, opts, dev, workdir), mesh=shape)
     torch.save(res, workdir / f"mp_rank{rank}.pt")
     rank_teardown(workdir / f"mp_rank{rank}.teardown")
     sys.stdout.flush()
@@ -4624,24 +4748,32 @@ def assemble(per_rank: list, shape: dict, dims: dict) -> list:
 
 
 def mp_single_step(route: str, impose: list | None = None) -> dict:
-    """The route's step in one process on CARD (the weak step, or the MoE
-    step), the whole batch and model; ``impose``: the ReLU signs to take
-    (relu_signs) -> loss, pre-clip norm, params, gradients, ReLU signs."""
+    """The route's step in one process on CARD (the weak step, the MoE step
+    or the MAE step), the whole batch and model; ``impose``: the ReLU signs
+    to take (relu_signs) -> loss, pre-clip norm, params, gradients, ReLU
+    signs."""
     from uit_mobile_tpu_torch import parallel
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
     from uit_mobile_tpu_torch.train import build_optimizer, make_train_step
+    from uit_mobile_tpu_torch.train import pretrain as mae
 
-    moe = route == "ep_step"
-    cfg, model = mp_model(moe, device=CARD)
-    fe = make_frontend_fn(cfg.frontend, precision="exact")
-    wav, target = (torch.from_numpy(a).to(CARD) for a in mp_inputs(moe))
+    moe, mae_route = mp_is_moe(route), route == "fsdp_mae_step"
+    if mae_route:
+        cfg, model = mp_mae(CARD)
+        wav, target = torch.from_numpy(mae_wav(24)).to(CARD), None
+    else:
+        cfg, model = mp_model(moe, device=CARD)
+        fe = make_frontend_fn(cfg.frontend, precision="exact")
+        wav, target = (torch.from_numpy(a).to(CARD) for a in mp_inputs(moe))
     opt = build_optimizer("AdamW", DP_LR, weight_decay=5e-8).init(model)
     grads = step_grads(opt)
     gen = torch.Generator(device=CARD).manual_seed(3)
     signs: list = []
     restore = relu_signs(record=None if impose is not None else signs, impose=impose)
     try:
-        if moe:
+        if mae_route:
+            m = mae.make_mae_step(cfg, model, opt).batch_step({"wav": wav}, gen)
+        elif moe:
             m = parallel.make_moe_train_step(cfg, model, opt, frontend_fn=fe)(wav, target, gen)
         else:
             m = make_train_step(cfg, model, opt, frontend_fn=fe)(
@@ -4649,20 +4781,21 @@ def mp_single_step(route: str, impose: list | None = None) -> dict:
         torch.cuda.synchronize()
     finally:
         restore()
-    return {"loss": m["total_loss"].item(), "grad_norm": m["grad_norm"].item(),
+    return {"loss": m["total_loss"].item(),
+            "grad_norm": m["grad_norm"].item() if "grad_norm" in m else grads_norm(grads),
             "params": {n: p.detach().cpu().clone() for n, p in model.named_parameters()},
             "grads": grads, "signs": signs}
 
 
-def mp_references() -> dict:
+def mp_references(keys=("dense", "dense_bf16", "dense_fast", "moe")) -> dict:
     """The single-process forwards on CARD that the routes are held to, one
-    per (model, precision, dtype), the same kernel frontend -> {key: (probs,
-    ms)}."""
+    per (model, precision, dtype) of ``keys``, the same kernel frontend ->
+    {key: (probs, ms)}."""
     from uit_mobile_tpu_torch import models
     from uit_mobile_tpu_torch.ops.mel import make_frontend_fn
 
     refs = {}
-    for key in ("dense", "dense_bf16", "dense_fast", "moe"):
+    for key in keys:
         moe, fast = key == "moe", key == "dense_fast"
         cfg, model = mp_model(moe, bf16=key == "dense_bf16", device=CARD)
         fe = make_frontend_fn(cfg.frontend, precision="fast" if fast else "exact")
@@ -4678,7 +4811,8 @@ def mp_ref_key(route: str, opts: dict) -> str:
     return "dense_bf16" if opts.get("bf16") else "dense_fast" if opts.get("fast") else "dense"
 
 
-def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend: str) -> dict:
+def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend: str,
+                 phase: str = "model_parallel") -> dict:
     """The ranks' step against the single-process step on CARD, as the
     parallel phase's steps: without and given the ranks' ReLU signs (the
     flips counted); the ranks end alike, the loss within 1e-5 either way,
@@ -4691,7 +4825,7 @@ def mp_step_gate(name: str, route: str, ranks: list, shape: dict, info, backend:
     got = ranks[0]
     same = all(torch.equal(got["params"][k], r["params"][k]) for r in ranks[1:]
                for k in got["params"])
-    rec = {"phase": "model_parallel", "path": f"{len(ranks)}_ranks_{name}", "backend": backend,
+    rec = {"phase": phase, "path": f"{len(ranks)}_ranks_{name}", "backend": backend,
            "mesh": shape, "mel_launches_by_rank": [r["launches"] for r in ranks],
            "relu_inputs": int(sum(s.numel() for s in free["signs"])), "relu_flips": flips,
            "ranks_params_bitwise": same,
@@ -4720,9 +4854,9 @@ def mp_dispatch_gate(name: str, route: str, per: list, world: int, backend: str,
                      info) -> dict:
     """A route's dispatch on every rank: on NCCL a graph, each rank's replay
     bitwise its eager call, one replay a call, ``variant`` once a replay
-    (forwards; the steps' held records, printed from rank 0, gate
-    themselves, and hold ``variant`` once a replay on every rank); on gloo
-    eager. -> the fields of the route's record."""
+    (None: no mel kernel; forwards; the steps' held records, printed from
+    rank 0, gate themselves, and hold ``variant`` once a replay on every
+    rank); on gloo eager. -> the fields of the route's record."""
     want = "graph" if backend == "nccl" else "eager"
     got = [rr["dispatch"] for rr in per]
     check(got == [want] * len(per), f"{name} at {world} {backend} ranks: dispatch {got}, "
@@ -4736,18 +4870,19 @@ def mp_dispatch_gate(name: str, route: str, per: list, world: int, backend: str,
                       gap_by_rank=[rr["held"][0]["max_abs_gap_vs_eager"] for rr in per]))
         failures = [f for rr in per for rec in rr["held"] for f in rec["failures"]]
         mel = [rec["mel_per_replay_counters"] for rr in per for rec in rr["held"]]
-        check(not failures and mel == [{variant: 1}] * len(mel),
+        check(not failures and mel == [mel_once(variant)] * len(mel),
               f"{name} at {world} {backend} ranks, held: {failures}; mel a replay {mel}")
         return {"dispatch": "graph"}
     out = {"dispatch": "graph", **{f"{k}_by_rank": [rr[k] for rr in per] for k in DISPATCH_KEYS}}
     check(all(rr["replay_vs_eager_bitwise"] and rr["one_replay_a_call"]
-              and rr["mel_per_replay_counters"] == {variant: 1} for rr in per),
+              and rr["mel_per_replay_counters"] == mel_once(variant) for rr in per),
           f"{name} at {world} {backend} ranks: a replay not bitwise its eager call, not one "
           f"replay a call, or not one {variant} a replay: {out}")
     return out
 
 
-def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, info) -> dict:
+def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, info,
+             phase: str = "model_parallel") -> dict:
     """Every route the ranks ran, held to the single process (forwards: 2e-5
     in probabilities, bfloat16 5e-3; steps: mp_step_gate), each printed on
     a line of its own -> {path: mel launch counts}."""
@@ -4759,18 +4894,18 @@ def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, 
         variant = mp_variant(opts)
         for r, rr in enumerate(per):
             counts[f"{world}_ranks_{name}_rank{r}"] = rr["launches"]
-        check(all(rr["launches"][variant] == 1 and sum(rr["launches"].values()) == 1
+        check(all({k: v for k, v in rr["launches"].items() if v} == mel_once(variant)
                   for rr in per),
               f"{name} at {world} ranks: a rank did not launch {variant} once for its "
               f"rows: {[rr['launches'] for rr in per]}")
         dispatch = mp_dispatch_gate(name, route, per, world, backend, variant, info)
         if route.endswith("_step"):
-            mp_step_gate(name, route, per, shape, info, backend)
+            mp_step_gate(name, route, per, shape, info, backend, phase)
             continue
         want, single_ms = refs[mp_ref_key(route, opts)]
         tol = 5e-3 if opts.get("bf16") else 2e-5
         diffs = [(rr["probs"] - want).abs().max().item() for rr in per]
-        rec = {"phase": "model_parallel", "path": f"{world}_ranks_{name}",
+        rec = {"phase": phase, "path": f"{world}_ranks_{name}",
                "backend": backend, "mesh": shape, "variant": variant,
                "mel_launches_by_rank": [rr["launches"] for rr in per],
                "max_abs_diff_vs_single": max(diffs), "tolerance": tol,
@@ -4784,6 +4919,31 @@ def mp_check(world: int, ranks: list, backend: str, spawn_s: float, refs: dict, 
         check(all(rr["on_card"] for rr in per) and max(diffs) <= tol,
               f"{name} at {world} ranks vs one process: {rec}")
     return counts
+
+
+def mp_ckpt_check(work: Path, world: int, ranks: list, info,
+                  phase: str = "model_parallel") -> dict:
+    """The FSDP forward's placed model as ``save_checkpoint`` wrote it (every
+    rank together, the main rank the file: mp_route) against the file one
+    process writes from the unplaced model with the same values: the same
+    arrays, dtypes and shapes, bitwise. Printed with each rank's save
+    seconds, and held."""
+    from uit_mobile_tpu_torch.ckpt import save_checkpoint
+
+    cfg, model = mp_model(False)
+    save_checkpoint(work / "fsdp_unplaced.npz", model, cfg)
+    got, want = npz_arrays(work / "fsdp_placed.npz"), npz_arrays(work / "fsdp_unplaced.npz")
+    same = got.keys() == want.keys() and all(
+        got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]) for k in want)
+    fc1 = "params/blocks/0/mlp/fc1/kernel"
+    rec = {"phase": phase, "path": f"{world}_ranks_fsdp_checkpoint", "arrays": len(want),
+           "bitwise_unplaced_file": same, fc1: list(got[fc1].shape) if fc1 in got else None,
+           "file_bytes": (work / "fsdp_placed.npz").stat().st_size,
+           "save_s_by_rank": [r["fsdp_forward"]["ckpt_s"] for r in ranks],
+           "card": info["nvidia_smi"]}
+    emit(rec)
+    check(same, f"the placed checkpoint at {world} ranks: {rec}")
+    return rec
 
 
 def phase_model_parallel(info) -> dict:
@@ -4933,7 +5093,11 @@ def mp_cards(argv) -> int:
     gates against the single process on the first card, every route a
     CUDA graph whose replays hold the collectives and the point-to-point
     hand-offs (mp_dispatch_gate): the hybrid 2x2 and FSDP x4 steps their
-    own all-gather and reduce-scatter; then the recipe's Trainer
+    own all-gather and reduce-scatter, and so the FSDP x4 MoE step
+    (uit_xs_moe B=32 x 10 s), MAE step (configs/pretrain_mae.yaml's model,
+    B=64) and eval forward (uit_xs B=32 x 1 s), whose placed model's
+    checkpoint is then held against the unplaced model's file
+    (mp_ckpt_check); then the recipe's Trainer
     through ``cli.launch 4`` (launch_vs_single: three epochs with
     validation and checkpoints, every rank's step and validation replays,
     the ranks in lock-step); the same lines, then the kernels' launches on
@@ -4958,6 +5122,7 @@ def mp_cards(argv) -> int:
                      deadline=MP_CARDS_DEADLINE_S)
     spawn_s = time.perf_counter() - t0
     counts = mp_check(n, ranks, "nccl", spawn_s, mp_references(), info)
+    mp_ckpt_check(work, n, ranks, info)
     counts[f"launch_{n}_nccl_rank0"] = launch_vs_single(work, n, info)["rank0_launches"]
     shutil.rmtree(work, ignore_errors=True)
     emit({"phase": "model_parallel", "cards": n, "wall_s": time.perf_counter() - t0,

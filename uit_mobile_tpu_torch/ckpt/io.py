@@ -7,6 +7,16 @@ model config and free-form ``extra``: the format of
 ``uit_mobile_tpu/ckpt/io.py``, so an npz written by either package loads in
 the other. A training snapshot adds the optimizer state as ``opt/<i>``
 leaves and their count ``n_opt_leaves`` in the meta blob.
+
+A placed model (TP, EP, FSDP or hybrid: ``model.shards``) is written
+whole, as JAX writes a sharded params tree: ``save_checkpoint`` and
+``save_training_state`` are then collectives that every rank of its
+process group calls; they gather the parameters (or the EMA) and the
+optimizer leaves placed like them, the main rank (0) writes, and every
+rank learns whether it did. The file is the one the unplaced model with
+the same values writes. ``load_training_state`` gives each rank its slice.
+The trainers save from their main rank alone, so they save unplaced
+models only: a placed save on one rank alone would wait for the others.
 """
 
 from __future__ import annotations
@@ -22,8 +32,8 @@ import torch
 from ..frontend import FrontendConfig
 from ..models.mobilenetv2 import MobileNetV2Config
 from ..models.uit import UITConfig
-from .convert import (flatten_tree, load_numpy, module_from_numpy, module_to_numpy,
-                      to_port_layout, unflatten_tree)
+from .convert import (flatten_tree, gather_whole, load_numpy, local_slice, module_from_numpy,
+                      module_to_numpy, placement, to_port_layout, unflatten_tree)
 
 _SEP = "/"
 _CONFIGS = {"UITConfig": UITConfig, "MobileNetV2Config": MobileNetV2Config}
@@ -78,6 +88,30 @@ def _write_npz(path, blobs: dict) -> None:
         tmp.unlink(missing_ok=True)
 
 
+def _write_from_main(model, path, blobs: dict) -> None:
+    """``_write_npz`` in one process; for a placed model (every rank calls)
+    on the main rank, its failure raised on every rank."""
+    if not placement(model):
+        _write_npz(path, blobs)
+        return
+    import torch.distributed as dist
+
+    error = None
+    if dist.get_rank() == 0:
+        try:
+            _write_npz(path, blobs)
+        except Exception as e:  # noqa: BLE001 - raised below, after the others hear of it
+            error = e
+    failed = torch.tensor([error is not None], dtype=torch.int32)
+    if dist.get_backend() == "nccl":  # NCCL carries CUDA tensors only
+        failed = failed.to(next(model.parameters()).device)
+    dist.all_reduce(failed, op=dist.ReduceOp.MAX)
+    if error is not None:
+        raise error
+    if failed.item():
+        raise RuntimeError(f"the main rank failed to write {path}")
+
+
 def save_numpy_checkpoint(path, params, state, cfg=None, extra: dict | None = None) -> None:
     """Write JAX-layout (params, state) numpy trees and the config as an npz."""
     _write_npz(path, _blobs(params, state, cfg, extra))
@@ -87,9 +121,10 @@ def save_checkpoint(path, model, cfg=None, extra: dict | None = None,
                     named_params: dict | None = None) -> None:
     """Write ``model`` (and its config) as an npz. ``named_params`` (name ->
     tensor) replaces the module's parameters, as the EMA of the parameters
-    does; the buffers are the module's."""
+    does; the buffers are the module's. A placed model is written whole by
+    every rank together (the module docstring)."""
     params, state = module_to_numpy(model, named_params)
-    save_numpy_checkpoint(path, params, state, cfg, extra)
+    _write_from_main(model, path, _blobs(params, state, cfg, extra))
 
 
 def _read(path):
@@ -154,22 +189,51 @@ def average_checkpoints(paths):
 def save_training_state(path, model, optimizer, cfg=None, extra: dict | None = None) -> None:
     """Full resumable snapshot: params + BN state + the optimizer's state
     leaves (``optimizer.state_leaves()``: moments, counters, EMA,
-    accumulated gradients) + ``extra`` (epoch, step, best-k history)."""
+    accumulated gradients) + ``extra`` (epoch, step, best-k history). A
+    placed model and its optimizer are written whole by every rank
+    together (the module docstring)."""
     params, state = module_to_numpy(model)
-    leaves = [t.detach().cpu().numpy() for t in optimizer.state_leaves()]
+    leaves = [t.numpy() for t in _whole_leaves(model, optimizer)]
     blobs = _blobs(params, state, cfg, extra, n_opt_leaves=len(leaves))
     for i, leaf in enumerate(leaves):
         blobs[f"opt{_SEP}{i}"] = leaf
-    _write_npz(path, blobs)
+    _write_from_main(model, path, blobs)
+
+
+def _by_parameter(optimizer, leaves: list) -> list:
+    """``optimizer.state_leaves()``' order after the counters: one list a
+    parameter in ``optimizer.names``' order for each of the moments, the
+    EMA and the accumulated gradients -> those lists."""
+    n, rest = len(optimizer.names), leaves[1:]
+    if n == 0 or len(rest) % n:
+        raise ValueError(f"{len(rest)} optimizer leaves are not lists of the {n} parameters")
+    return [rest[i:i + n] for i in range(0, len(rest), n)]
+
+
+def _whole_leaves(model, optimizer) -> list:
+    """The optimizer's state leaves on the CPU, those placed like a
+    parameter gathered whole on a placed model (a collective)."""
+    leaves = optimizer.state_leaves()
+    if not placement(model):
+        return [t.detach().cpu() for t in leaves]
+    out = [leaves[0].detach().cpu()]
+    for group in _by_parameter(optimizer, leaves):
+        whole = gather_whole(model, dict(zip(optimizer.names, group)))
+        out.extend(whole[name] for name in optimizer.names)
+    return out
 
 
 @torch.no_grad()
 def load_training_state(path, model, optimizer):
     """Load a ``save_training_state`` snapshot into ``model`` and
-    ``optimizer`` (built the same way) in place -> (cfg, extra)."""
+    ``optimizer`` (built the same way) in place -> (cfg, extra). A placed
+    model and its optimizer take this rank's slice of each whole array."""
     params, state, cfg, extra, opt = _read(path)
     load_numpy(model, params, state)
-    optimizer.load_state_leaves([torch.from_numpy(np.asarray(v)) for v in opt])
+    if placement(model):
+        opt = opt[:1] + [local_slice(model, name, v) for group in _by_parameter(optimizer, opt)
+                         for name, v in zip(optimizer.names, group)]
+    optimizer.load_state_leaves([torch.from_numpy(np.ascontiguousarray(v)) for v in opt])
     return cfg, extra
 
 

@@ -73,9 +73,28 @@ def build(cfg, generator: torch.Generator | None = None, device="cuda"):
     return _family(cfg)[1](cfg, generator).to(dev).eval()
 
 
+def _refuse_data_shards(model) -> None:
+    """A model placed by FSDP (``parallel.fsdp_shard_params`` or
+    ``hybrid_shard_params``: ``model.fsdp_axis``, ``model.shards``) holds
+    only this rank's 'data' shards of its large tensors; its programs read
+    them whole (``model.reads_whole``) through one all-gather. Run on the
+    shards themselves, a forward would fail on a shape, so refuse it."""
+    axis = getattr(model, "fsdp_axis", None)
+    if axis is None or getattr(model, "reads_whole", False):
+        return
+    if any(a == axis for entries in getattr(model, "shards", {}).values() for _, a, _ in entries):
+        raise ValueError(
+            f"this {type(model).__name__} holds only its rank's '{axis}' shards (an FSDP "
+            f"placement): run its eval forward through parallel.fsdp_forward, and its steps "
+            f"with rows=")
+
+
 def forward(cfg, model, wav: torch.Tensor, **kwargs):
     """The forward of any ported config, in the caller's grad mode: eval
-    -> probs, ``train=True`` -> (probs, new_state)."""
+    -> probs, ``train=True`` -> (probs, new_state). A model FSDP placed
+    reads its whole tensors through ``parallel.fsdp_forward`` (or a step),
+    and is refused here otherwise."""
+    _refuse_data_shards(model)
     return _family(cfg)[2](cfg, model, wav, **kwargs)
 
 
@@ -98,6 +117,7 @@ def apply_framewise(cfg, model, wav: torch.Tensor, **kwargs):
     framewise = _family(cfg)[3]
     if framewise is None:
         raise TypeError(f"unknown config type {type(cfg)} for framewise tagging")
+    _refuse_data_shards(model)
     with torch.inference_mode():
         return framewise(cfg, model, wav, **kwargs)
 

@@ -9,7 +9,8 @@ and expert-parallel MoE banks with the MoE train step (``ep``)."""
 from . import multihost
 from .ep import ep_param_specs, ep_shard_params, expert_parallel_forward, make_expert_mesh
 from .ep import make_moe_train_step
-from .fsdp import fsdp_param_specs, fsdp_shard_params, hybrid_param_specs, hybrid_shard_params
+from .fsdp import (fsdp_forward, fsdp_param_specs, fsdp_shard_params, hybrid_param_specs,
+                   hybrid_shard_params)
 from .mesh import (GridMesh, Mesh, batch_sharded, data_parallel_forward, dp_placement,
                    make_grid_mesh, make_mesh, process_mesh, replicate_tree, replicated,
                    shard_batch)
@@ -31,6 +32,7 @@ __all__ = [
     "ep_param_specs",
     "ep_shard_params",
     "expert_parallel_forward",
+    "fsdp_forward",
     "fsdp_param_specs",
     "fsdp_shard_params",
     "hybrid_param_specs",

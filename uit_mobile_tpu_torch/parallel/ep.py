@@ -110,6 +110,10 @@ def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable
     gradients before the update (no clipping, as in the JAX step).
     ``rows``: the batch is this rank's share of a global batch over the
     'data' group (``parallel.rows``), and the step is the global batch's.
+    ``model`` may be placed by EP (``ep_shard_params``) or FSDP
+    (``fsdp_shard_params``, then ``rows=`` is required): the FSDP step
+    gathers the shards before the forward and reduce-scatters their
+    gradients on its device side, as ``train.steps.make_train_step`` does.
 
     Dispatched as ``train/steps.py``'s steps are: the host plans the
     micro-step, the device side is a CUDA graph per batch shape and
@@ -120,18 +124,21 @@ def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable
     value on the host. ``make_multi_step`` takes the step, its batches
     ``{'wav', 'target'}``."""
     from ..models import moe
-    from ..train.steps import dispatch_step, make_loss, update_from_loss, with_device_side
+    from ..train.steps import (_data_shards, _placed_forward, dispatch_step, make_loss,
+                               update_from_loss, with_device_side)
 
     bce_loss = make_loss("BCELoss")  # the reference-parity clamped BCE
+    shards = _data_shards(model, optimizer, rows)
 
     def device_step(batch, generator, kind, row):
         with sharded(rows):
-            probs, aux, new_state = moe.forward_with_aux(cfg, model, batch["wav"], train=True,
-                                                         generator=generator,
-                                                         frontend_fn=frontend_fn)
+            (probs, aux, new_state), gathered = _placed_forward(
+                shards, optimizer, moe.forward_with_aux, cfg, model, batch["wav"], train=True,
+                generator=generator, frontend_fn=frontend_fn)
             bce = bce_loss(probs, batch["target"])
             loss = bce + cfg.router_aux_weight * aux
-            gnorm = update_from_loss(model, optimizer, loss, new_state, plan=(kind, row))
+            gnorm = update_from_loss(model, optimizer, loss, new_state, plan=(kind, row),
+                                     gathered=gathered)
         return {"total_loss": loss.detach(), "bce": bce.detach(), "aux": aux.detach(),
                 "grad_norm": gnorm}
 

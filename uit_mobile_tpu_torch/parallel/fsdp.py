@@ -41,6 +41,7 @@ import torch.distributed as dist
 from torch import nn
 
 from .mesh import GridMesh, Mesh
+from .rows import sharded
 from .tp import _fit_spec, _named, place_params, shard_params, tp_param_specs
 
 
@@ -59,17 +60,22 @@ def fsdp_param_specs(params, *, axis: str = "data", min_size: int = 1024) -> dic
     return specs
 
 
+def _data_grid(mesh: Mesh, axis: str, caller: str) -> GridMesh:
+    """A process mesh as a one-axis ``GridMesh`` over its group."""
+    if not mesh.spans_processes:
+        raise ValueError(f"{caller} runs over a process group's mesh "
+                         "(parallel.mesh.process_mesh)")
+    return GridMesh({axis: mesh.size}, {axis: dist.get_rank(mesh.group)}, {axis: mesh.group},
+                    mesh.devices[0])
+
+
 def fsdp_shard_params(mesh: Mesh, model: nn.Module, *, axis: str = "data",
                       min_size: int = 1024):
     """Shard ``model`` in place over the process mesh ``mesh`` per
     ``fsdp_param_specs`` fitted to it -> (model, fitted specs), as JAX's
     (sharded params, sharding tree). Build the optimizer on the model
     afterwards (``tp.sharded_opt_init``)."""
-    if not mesh.spans_processes:
-        raise ValueError("fsdp_shard_params shards over a process group's mesh "
-                         "(parallel.mesh.process_mesh)")
-    rank = dist.get_rank(mesh.group)
-    grid = GridMesh({axis: mesh.size}, {axis: rank}, {axis: mesh.group}, mesh.devices[0])
+    grid = _data_grid(mesh, axis, "fsdp_shard_params")
     specs = fsdp_param_specs(model, axis=axis, min_size=min_size)
     model, fitted = place_params(grid, model, specs)
     model.fsdp_axis = axis
@@ -143,9 +149,11 @@ class DataShards:
 
     - ``gather(params)``: one ``all_gather_into_tensor`` of every shard,
       each whole tensor rebuilt from the n pieces along its sharded dim
-      (the largest, often not dim 0) as a fresh leaf;
+      (the largest, often not dim 0) as a fresh leaf, which requires grad
+      where its shard does and grad mode is on (not in an eval forward);
     - ``call(whole, fn, ...)``: ``fn`` with the model reading those
-      tensors in place of its shards (``torch.func.functional_call``);
+      tensors in place of its shards (``torch.func.functional_call``;
+      ``model.reads_whole`` is true meanwhile);
     - ``reduce_scatter(grads)``: their gradients packed rank-major (for
       rank r every tensor's r-th chunk), one ``reduce_scatter_tensor``, divided
       by n: under ``rows`` each rank differentiates the rank-identical
@@ -185,13 +193,18 @@ class DataShards:
             shape = list(t.shape)
             shape[dim] *= self.n
             whole.append(piece.reshape(self.n, *t.shape).movedim(0, dim).reshape(shape)
-                         .requires_grad_(g))
+                         .requires_grad_(g and torch.is_grad_enabled()))
         return whole
 
     def call(self, whole: list, fn: Callable, *args, **kwargs):
-        return torch.func.functional_call(
-            self._call, {f"model.{n}": t for n, t in zip(self.names, whole)},
-            (fn, *args), kwargs)
+        model = self._call.model
+        model.reads_whole = True
+        try:
+            return torch.func.functional_call(
+                self._call, {f"model.{n}": t for n, t in zip(self.names, whole)},
+                (fn, *args), kwargs)
+        finally:
+            model.reads_whole = False
 
     def reduce_scatter(self, grads: list) -> list:
         packed = torch.cat([g.unflatten(dim, (self.n, -1)).movedim(dim, 0).reshape(self.n, -1)
@@ -214,3 +227,36 @@ def data_shards(model: nn.Module, names: list) -> Optional[DataShards]:
                                for _, a, _ in entries):
         return None
     return DataShards(model, names, axis)
+
+
+def fsdp_forward(apply_fn: Callable, mesh, model: nn.Module) -> Callable:
+    """An eval forward ``apply_fn(model, wav) -> probs`` over a model placed
+    by ``fsdp_shard_params`` (``mesh``: that process mesh) or
+    ``hybrid_shard_params`` (``mesh``: that ``GridMesh``) -> ``fn(wav)``:
+    every rank passes the global batch, runs its rows of the placement's
+    'data' axis (the batch-global top_db clamp reduced over it) with the
+    model reading the whole tensors of one all-gather of its 'data' shards
+    (``DataShards``; the hybrid's Megatron layers keep their TP shards), and
+    returns the global probabilities. Give ``apply_fn`` the kernel frontend
+    (``ops.mel.make_frontend_fn``): each rank launches it on its rows. On
+    an NCCL mesh on the card, a CUDA graph per batch shape, the all-gather
+    in it (``GridMesh.dispatch``: ``fn.eager``, ``fn.graphs``). JAX jits
+    the unchanged forward under the placement's shardings."""
+    axis = getattr(model, "fsdp_axis", None)
+    if axis is None:
+        raise ValueError("fsdp_forward runs a placed model: place it with fsdp_shard_params "
+                         "or hybrid_shard_params first")
+    grid = mesh if isinstance(mesh, GridMesh) else _data_grid(mesh, axis, "fsdp_forward")
+    shards = data_shards(model, [n for n, _ in model.named_parameters()])
+
+    def body(wav):
+        local, rows = grid.shard_rows(wav, axis)
+        with sharded(rows):
+            if shards is None:  # an axis of one rank: nothing is split
+                probs = apply_fn(model, local)
+            else:
+                whole = shards.gather([p for _, p in model.named_parameters()])
+                probs = shards.call(whole, apply_fn, model, local)
+        return grid.gather_rows(probs, axis)
+
+    return grid.dispatch(body)

@@ -45,8 +45,8 @@ from ..parallel.mesh import dp_placement
 from ..parallel.rows import Rows, global_sum, rand_rows, sharded
 from ..utils import get_logger, resolve_device
 from .schedule import cosine_with_warmup
-from .steps import (build_optimizer, dispatch_step, find_ema_params, update_from_loss,
-                    with_device_side, wrap_optimizer)
+from .steps import (_data_shards, _placed_forward, build_optimizer, dispatch_step,
+                    find_ema_params, update_from_loss, with_device_side, wrap_optimizer)
 
 log = get_logger()
 
@@ -195,13 +195,19 @@ def make_mae_step(cfg: MAEConfig, model: MAE, optimizer, rows: Optional[Rows] = 
     batches ``{'wav'}`` or ``{'wav', 'noise'}``, its metric 'total_loss'.
     ``rows``: ``wav`` (and ``noise``) are this rank's share of a global
     batch (``parallel.rows``); the step is the global batch's on every
-    rank."""
+    rank. ``model`` may be placed by ``parallel.fsdp_shard_params`` (the
+    decoder's large tensors as the encoder's; ``rows=`` required): the
+    step gathers the shards before the forward and reduce-scatters their
+    gradients on its device side, as ``make_train_step`` does."""
+    shards = _data_shards(model, optimizer, rows)
 
     def device_step(batch, generator, kind, row):
         with sharded(rows):
-            loss, new_state, _ = forward(cfg, model, batch["wav"], generator=generator,
-                                         noise=batch.get("noise"))
-            update_from_loss(model, optimizer, loss, new_state, plan=(kind, row))
+            (loss, new_state, _), gathered = _placed_forward(
+                shards, optimizer, forward, cfg, model, batch["wav"], generator=generator,
+                noise=batch.get("noise"))
+            update_from_loss(model, optimizer, loss, new_state, plan=(kind, row),
+                             gathered=gathered)
         return {"total_loss": loss.detach()}
 
     batch_step = dispatch_step(device_step, optimizer, rows)

@@ -909,7 +909,9 @@ def _leaves(tree):
 
 def make_eval_step(model_cfg, frontend_fn: Optional[Callable] = None) -> Callable:
     """-> ``eval_step(model, wav) -> probs``: the eval forward (crop
-    chunking engaged) under ``torch.inference_mode``."""
+    chunking engaged) under ``torch.inference_mode``. On an FSDP-placed
+    model it raises a ``ValueError`` (``models.forward``): its eval forward
+    is ``parallel.fsdp_forward``."""
 
     def eval_step(model, wav):
         return models.apply(model_cfg, model, wav, frontend_fn=frontend_fn)
