@@ -2116,8 +2116,9 @@ SED = {"model": "uit_xs", "model_args": {"target_length": 102, "pooling": "dm"},
 
 class StrongClipDataset:
     """SED windows of in-memory eventful clips: data/hdf5.py's
-    strong_window over arrays instead of HDF5 datasets; index-pure windows
-    when deterministic."""
+    StrongFramewiseHDF5Dataset over arrays instead of HDF5 datasets
+    (``draw`` on the loader's iterating thread, ``fetch`` in its pool);
+    index-pure windows when deterministic."""
 
     def __init__(self, clips, events, n_segments, seg_seconds, seed, deterministic):
         import random
@@ -2129,13 +2130,22 @@ class StrongClipDataset:
     def __len__(self):
         return len(self.clips)
 
-    def __getitem__(self, i):
-        from uit_mobile_tpu_torch.data.hdf5 import strong_window, strong_window_rng
+    def draw(self, i):
+        from uit_mobile_tpu_torch.data.hdf5 import draw_start
 
-        rng = strong_window_rng(i) if self.det else self.rng
-        data, target = strong_window(rng, self.clips[i], self.events[i], SR, SR, self.n_seg,
+        return None if self.det else draw_start(self.rng, self.clips[i].shape[-1], SR)
+
+    def fetch(self, i, drawn=None):
+        from uit_mobile_tpu_torch.data.hdf5 import draw_start, strong_window, strong_window_rng
+
+        if self.det:
+            drawn = draw_start(strong_window_rng(i), self.clips[i].shape[-1], SR)
+        data, target = strong_window(drawn, self.clips[i], self.events[i], SR, SR, self.n_seg,
                                      self.seg_s, 527, 0.5)
         return data, target, f"sed_{i}"
+
+    def __getitem__(self, i):
+        return self.fetch(i, self.draw(i))
 
 
 def phase_sed(info) -> dict:
@@ -2441,10 +2451,14 @@ def phase_pretrain(info) -> dict:
 # exact path's B=4, exported by cli.export --artifact --kernel --verify
 EXPORTS = (("serving", 256, "int16", "fast", "tfb_fast"),
            ("exact", 4, "float32", "exact", "row_exact"))
+# the exported uit_xs's depth: torch.export traces on the host, about in
+# proportion to the blocks (73 s of tracing at depth 12 on the H100's host)
+EXPORT_DEPTH = 2
 
 
-def phase_export(cfg, cpu_model, info) -> dict:
-    """The deployable artifact of uit_xs (ckpt/artifact.py) on the card: each
+def phase_export(info) -> dict:
+    """The deployable artifact of uit_xs at depth EXPORT_DEPTH, full width
+    (ckpt/artifact.py) on the card: each
     of EXPORTS exported with the kernel at a fixed batch (the exact one by
     cli.export --artifact --kernel --verify from the seed-1234 checkpoint),
     written, reloaded from its file and called (counts set to 0 just before
@@ -2462,11 +2476,18 @@ def phase_export(cfg, cpu_model, info) -> dict:
     from uit_mobile_tpu_torch.ops.graphs import calls_to_capture
     from uit_mobile_tpu_torch.serve import ServiceConfig, TaggingService
 
+    from uit_mobile_tpu_torch import models
+    from uit_mobile_tpu_torch.ckpt import save_checkpoint
+
+    cfg = models.get_model_config("uit_xs", outputdim=537, target_length=102,
+                                  depth=EXPORT_DEPTH)
+    cpu_model = models.build(cfg, torch.Generator().manual_seed(1234), device="cpu")
     rng = np.random.default_rng(30)
     gpu_model = copy.deepcopy(cpu_model).cuda().eval()
     counts = {k: 0 for k in launches}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    npz = OUT_DIR / "uit_xs_seed1234.npz"
+    npz = OUT_DIR / f"uit_xs_depth{EXPORT_DEPTH}_seed1234.npz"
+    save_checkpoint(npz, cpu_model, cfg)
     for name, B, dtype, precision, variant in EXPORTS:
         path = OUT_DIR / f"uit_xs_{name}.uitx"
         t0 = time.perf_counter()
@@ -2514,7 +2535,8 @@ def phase_export(cfg, cpu_model, info) -> dict:
         card = (got - fwd(x)).abs().max().item()
         cpu = float(np.abs(got.cpu().numpy()
                            - cpu_reference(cfg, cpu_model, wav, precision, "per_sample")).max())
-        rec = {"phase": "export", "artifact": name, "B": B, "input": dtype,
+        rec = {"phase": "export", "artifact": name, "depth": EXPORT_DEPTH, "B": B,
+               "input": dtype,
                "precision": precision, "launches": run,
                "exported_by": "cli.export --verify" if name == "exact" else "export_serving",
                "export_s": export_s, "load_s": load_s,
@@ -2574,6 +2596,9 @@ def phase_export(cfg, cpu_model, info) -> dict:
 # --------------------------------------------------------------------- MoE
 
 MOE_B = 32  # clips of 10 s (target_length 1012: 252 tokens a clip)
+# the depth of the MoE step held against the CPU: the CPU's three steps
+# took 49 s at depth 12 on the H100's host; the card's paths keep depth 12
+MOE_PARITY_DEPTH = 2
 
 
 def moe_batch(seed: int):
@@ -2706,10 +2731,12 @@ def phase_moe(info) -> dict:
               path; profiled, moe_mlp's share of the busy time;
       train - 5 make_moe_train_step steps (B=32 x 10 s, AdamW, the exact
               kernel), timed and profiled (moe_mlp's share), peak memory;
-              one step from the same weights held against the CPU with the
+              one step at depth MOE_PARITY_DEPTH held against the CPU with the
               frontend (frontend_gate) and the step after it gated apart,
               as the SED phase does, the tokens whose experts differ and
-              the experts' ReLU inputs whose sign differs counted;
+              the experts' ReLU inputs whose sign differs counted; the
+              timed depth-12 step's first loss against the CPU's forward
+              on the card's mel;
       adafactor - 3 recipe steps through the Trainer with optimizer
               Adafactor, one step held against the CPU (train_parity).
     -> {path: launch counts}."""
@@ -2781,6 +2808,21 @@ def phase_moe(info) -> dict:
     check("init_bn.mean" in moved and f"{last}.router.kernel" in moved
           and f"{last}.fc2.kernel" in moved,
           f"moe train: moved {len(moved)} tensors")
+    # the timed depth-12 step's first loss against the CPU's train-mode
+    # forward from the same weights on the card's mel (the step's gradients
+    # and update are held below at depth MOE_PARITY_DEPTH)
+    from uit_mobile_tpu_torch.train.steps import make_loss
+
+    card_mel12 = fe(x).cpu()
+    with torch.no_grad():
+        probs12, aux12, _ = moe.forward_with_aux(cfg, fresh("cpu")[0], torch.from_numpy(pcm),
+                                                 train=True, frontend_fn=lambda w: card_mel12)
+    loss12_cpu = (make_loss("BCELoss")(probs12, torch.from_numpy(target))
+                  + cfg.router_aux_weight * aux12).item()
+    loss12_rel_err = abs(losses[0] - loss12_cpu) / abs(loss12_cpu)
+    check(loss12_rel_err <= 1e-4,
+          f"moe train: the depth-{cfg.base.depth} step's first loss {losses[0]} against the "
+          f"CPU's {loss12_cpu} on the card's mel (1e-4 relative)")
     step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
     # the span reads the host's ranges, which a graph replay has not
     eager_ms = time_ms(lambda: eager_step(step, {"wav": x, "target": t}), warmup=1, iters=5)
@@ -2790,6 +2832,15 @@ def phase_moe(info) -> dict:
     # the frontend), and through the card's mel and the card's expert ReLU
     # signs (the step after the frontend but for the ReLUs whose input the
     # two devices' sums put on different sides of 0)
+    # (at depth MOE_PARITY_DEPTH, full width: the CPU's three steps)
+    pcfg = models.get_model_config("uit_xs_moe", outputdim=537, target_length=1012,
+                                   depth=MOE_PARITY_DEPTH)
+    pinit = module_to_numpy(models.build(pcfg, torch.Generator().manual_seed(40), "cpu"))
+
+    def pfresh(dev):
+        m = module_from_numpy(pcfg, *pinit, device=dev).train()
+        return m, build_optimizer("AdamW", 1e-3, weight_decay=5e-8).init(m)
+
     pcm1, target1 = moe_batch(43)
     batch = (torch.from_numpy(pcm1), torch.from_numpy(target1))
     frontend = frontend_gate(fe, batch[0].cuda(), "exact", "bft")
@@ -2798,7 +2849,7 @@ def phase_moe(info) -> dict:
     for run, dev, run_fe in (("cuda", "cuda", fe), ("cpu", "cpu", fe),
                              ("cpu_card_mel", "cpu", lambda w: card_mel),
                              ("cpu_card_mel_card_relu", "cpu", lambda w: card_mel)):
-        m, o = fresh(dev)
+        m, o = pfresh(dev)
         grads = step_grads(o)
         routes[run] = []
         masks = [v > 0 for v in relu_in["cuda"]] if run.endswith("card_relu") else None
@@ -2806,7 +2857,7 @@ def phase_moe(info) -> dict:
                     expert_relu(moe, record=relu_in.get(run), masks=masks))
         t0 = time.perf_counter()
         try:
-            r = make_moe_train_step(cfg, m, o, frontend_fn=run_fe)(*(v.to(dev) for v in batch))
+            r = make_moe_train_step(pcfg, m, o, frontend_fn=run_fe)(*(v.to(dev) for v in batch))
             runs[run] = (r["total_loss"].item(), r["grad_norm"].item(),
                          {k: v.detach().cpu() for k, v in m.named_parameters()}, grads)
         finally:
@@ -2817,22 +2868,25 @@ def phase_moe(info) -> dict:
     def flips(a, b):  # tokens whose chosen experts differ, summed over the blocks
         return int(sum((x != y).any(-1).sum() for x, y in zip(routes[a], routes[b])))
 
-    whole = step_agreement(runs, fresh)
-    after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), fresh)
-    masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), fresh)
+    whole = step_agreement(runs, pfresh)
+    after = step_agreement(dict(runs, cpu=runs["cpu_card_mel"]), pfresh)
+    masked = step_agreement(dict(runs, cpu=runs["cpu_card_mel_card_relu"]), pfresh)
     rec = {"phase": "moe", "path": "train", "B": MOE_B, "steps": 5, "optimizer": "AdamW",
            "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
            "clips_per_s": MOE_B * 1e3 / step_ms, "eager_step_ms": eager_ms,
            "profiled": "the eager body", "peak_memory_bytes": peak, **prof,
            "frontend": frontend, "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": after,
            "step_vs_cpu_on_card_mel_and_relu_signs": masked,
+           "first_loss_vs_cpu_on_card_mel": {"depth": cfg.base.depth, "loss_gpu": losses[0],
+                                             "loss_cpu": loss12_cpu,
+                                             "loss_rel_err": loss12_rel_err},
            "relu_card_vs_cpu_on_card_mel": relu_flips(relu_in["cuda"], relu_in["cpu_card_mel"]),
            "routing_decisions": int(sum(r.shape[0] * r.shape[1] for r in routes["cuda"])),
            "tokens_routed_differently_vs_cpu_plain": flips("cuda", "cpu"),
            "tokens_routed_differently_vs_cpu_on_card_mel": flips("cuda", "cpu_card_mel"),
            "tokens_routed_differently_vs_cpu_on_card_mel_and_relu_signs":
                flips("cuda", "cpu_card_mel_card_relu"),
-           "parity_run_s": run_s, "card": info["nvidia_smi"]}
+           "parity_depth": MOE_PARITY_DEPTH, "parity_run_s": run_s, "card": info["nvidia_smi"]}
     emit(rec)
     # After the frontend the routing must be identical. Every gate of
     # step_agreement holds once the CPU takes the card's ReLU signs; without
@@ -3871,16 +3925,19 @@ def npz_arrays(path: Path) -> dict:
 
 def trainer_log(path: Path) -> dict:
     """A Trainer's train.log -> the step ms of each epoch (1000 / it/s), the
-    mel kernel launches and the graph dispatch (calls, keys, replays of the
-    step and the validation) the process logged at its end, and the text."""
+    mel kernel launches, the graph dispatch (calls, keys, replays of the
+    step and the validation) and the state digest the process logged at its
+    end, and the text. A resumed run appends to its stopped run's log: the
+    last lines are the resumed process's."""
     text = path.read_text()
     its = [float(x) for x in re.findall(r"Epoch \d+\s+loss \S+ \(([\d.]+) it/s\)", text)]
     launched = re.findall(r"mel kernel launches: (\{.*\})", text)
     dispatch = re.findall(r"graph dispatch: (\{.*\})", text)
-    check(bool(its) and bool(launched) and bool(dispatch),
-          f"{path}: no epoch, launch or dispatch line")
+    digest = re.findall(r"state digest: (\w+)", text)
+    check(bool(its) and bool(launched) and bool(dispatch) and bool(digest),
+          f"{path}: no epoch, launch, dispatch or digest line")
     return {"epoch_step_ms": [1000.0 / x for x in its], "launches": json.loads(launched[-1]),
-            "dispatch": json.loads(dispatch[-1]), "log": text}
+            "dispatch": json.loads(dispatch[-1]), "digest": digest[-1], "log": text}
 
 
 def replayed(dispatch: dict, names=("step", "validation")) -> bool:
@@ -3910,6 +3967,40 @@ def run_with_deadline(argv: list, deadline: float) -> tuple:
         except ProcessLookupError:
             pass
     return proc.returncode, out
+
+
+def run_together(jobs: dict, deadline: float) -> dict:
+    """Run ``jobs`` ({name: (argv, extra env)}) at once, each in its own
+    process group with its output in ``<name>.out`` under OUT_DIR; at the
+    deadline kill every group. -> {name: (exit code, output, wall s)}."""
+    import os
+    import signal
+
+    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    t0, procs = time.perf_counter(), {}
+    for name, (argv, env) in jobs.items():
+        out = open(OUT_DIR / f"{name}.out", "w")
+        procs[name] = (subprocess.Popen(argv, stdout=out, stderr=subprocess.STDOUT, text=True,
+                                        cwd=REPO, start_new_session=True,
+                                        env=dict(os.environ, **env)), out)
+    done = {}
+    try:
+        for name, (proc, out) in procs.items():
+            try:
+                proc.wait(timeout=max(1.0, deadline - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+            done[name] = (proc.returncode, time.perf_counter() - t0)
+    finally:
+        for proc, out in procs.values():
+            try:  # nothing of a group outlives the call
+                os.killpg(proc.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            out.close()
+    return {name: (code, (OUT_DIR / f"{name}.out").read_text(), wall)
+            for name, (code, wall) in done.items()}
 
 
 def spawn_ranks(argvs: list, deadline: float) -> list:
@@ -4010,23 +4101,42 @@ def launch_vs_single(work: Path, n: int, info) -> dict:
     the ranks for lock-step: the step and the validation replays on every
     rank, the same dispatch line, epoch losses and validation scores on
     every rank, rank 0's launches equal to one process's, every rank gone
-    before the deadline. -> the record."""
+    before the deadline; and ``cli.launch n`` runs again, bitwise its first
+    run: last.npz, and every rank's state digest. At one rank
+    ``cli.launch 1`` runs while the ``repeat`` record's three runs share the
+    card (``repeat_runs``), and the single process is held bitwise its
+    rerun. -> the record."""
     from uit_mobile_tpu_torch.data.synthworld import build_world
 
     config = dict(RECIPE, epochs=3, epoch_length=8, valid_every=1, num_workers=1,
                   **build_world(work / "world", seed=42, n_train=64, n_eval=32, store="npz"))
     cfg_path = work / "recipe.yaml"
     cfg_path.write_text(json.dumps(config))  # JSON is YAML
-    runs = {}
-    for name, argv in (("single", ["uit_mobile_tpu_torch.cli.train", "train"]),
-                       ("launched", ["uit_mobile_tpu_torch.cli.launch", str(n), "train"])):
+
+    def argv(name, *extra, launcher=False):
+        return [sys.executable, "-m",
+                *(["uit_mobile_tpu_torch.cli.launch", str(n)] if launcher
+                  else ["uit_mobile_tpu_torch.cli.train"]),
+                "train", str(cfg_path), "--device", "cuda", "--outputdir", str(work / name),
+                *extra]
+
+    runs, together = {}, {}
+    # one rank: the launched run shares the card with the repeat record's
+    # three runs; n ranks: cli.launch n twice, one after the other
+    for name in ("single", "launched") if n == 1 else ("single", "launched", "launched_again"):
         t0 = time.perf_counter()
-        code, out = run_with_deadline(
-            [sys.executable, "-m", *argv, str(cfg_path), "--device", "cuda",
-             "--outputdir", str(work / name)], PARALLEL_DEADLINE_S)
-        check(code == 0, f"{' '.join(argv)} exited {code}:\n{out[-4000:]}")
-        runs[name] = dict(trainer_log(work / name / "train.log"),
-                          wall_s=time.perf_counter() - t0)
+        if name == "launched" and n == 1:
+            together = run_together(
+                {"launched": (argv(name, launcher=True), {}), "again": (argv("again"), {}),
+                 "workers_2": (argv("workers_2", "--num_workers", "2"), {}),
+                 "stopped": (argv("resumed"), {"UIT_FAULT_EPOCH": "2"})}, PARALLEL_DEADLINE_S)
+            code, out, wall = together[name]  # waited for first: its own wall time
+        else:
+            code, out = run_with_deadline(argv(name, launcher=name != "single"),
+                                          PARALLEL_DEADLINE_S)
+            wall = time.perf_counter() - t0
+        check(code == 0, f"{name} exited {code}:\n{out[-4000:]}")
+        runs[name] = dict(trainer_log(work / name / "train.log"), wall_s=wall)
     single, launched = runs["single"], runs["launched"]
     check(f"multi-host: process 0/{n}" in launched["log"]
           and f"data-parallel over {n} devices" in launched["log"]
@@ -4041,40 +4151,55 @@ def launch_vs_single(work: Path, n: int, info) -> dict:
     rec = {"phase": "parallel" if n == 1 else "model_parallel", "path": path,
            "bitwise_last_npz": bitwise,
            "largest_gap": max(gaps.values()), "largest_gap_array": max(gaps, key=gaps.get),
-           "single_wall_s": single["wall_s"], "launch_wall_s": launched["wall_s"],
+           "single_wall_s": single["wall_s"],
            "single_launches": single["launches"], "rank0_launches": launched["launches"],
            "single_epoch_step_ms": single["epoch_step_ms"],
-           f"world{n}_epoch_step_ms": launched["epoch_step_ms"],
-           f"world{n}_over_single_last_epoch": (launched["epoch_step_ms"][-1]
-                                                / single["epoch_step_ms"][-1]),
            "step_ms_from": "the Trainer's log: 1000 / it/s of each epoch (host clock, one "
                            "sync an epoch, the loader included; the first epoch holds the "
                            "warm-up and capture)",
            "single_dispatch": single["dispatch"], f"world{n}_dispatch": launched["dispatch"],
            "card": info["nvidia_smi"]}
+    if n == 1:  # the rank ran beside three cli.train processes, the single one alone
+        rec.update(launch_wall_s_card_shared=launched["wall_s"],
+                   world1_epoch_step_ms_card_shared=launched["epoch_step_ms"])
+    else:
+        rec.update({"launch_wall_s": launched["wall_s"],
+                    f"world{n}_epoch_step_ms": launched["epoch_step_ms"],
+                    f"world{n}_over_single_last_epoch": (launched["epoch_step_ms"][-1]
+                                                         / single["epoch_step_ms"][-1])})
     if n == 1:
-        if not bitwise:  # is one process even bitwise with itself?
-            code, out = run_with_deadline(
-                [sys.executable, "-m", "uit_mobile_tpu_torch.cli.train", "train",
-                 str(cfg_path), "--device", "cuda", "--outputdir", str(work / "again")],
-                PARALLEL_DEADLINE_S)
-            check(code == 0, f"cli.train again exited {code}:\n{out[-4000:]}")
-            rerun = npz_arrays(work / "again" / "last.npz")
-            rec["single_rerun_bitwise"] = all(np.array_equal(rerun[k], want[k]) for k in want)
+        reruns = repeat_runs(work, argv, together, want, single, info)
+        rec["single_rerun_bitwise"] = reruns["again_bitwise_last_npz"]
+        rec["launch_shared_the_card_with"] = ["again", "workers_2", "stopped"]
+        rec["digests_equal"] = launched["digest"] == single["digest"]
         emit(rec)
         check(rec["largest_gap"] <= 1e-3 and launched["launches"]["row_exact"] > 0
               and launched["launches"] == single["launches"],
               f"cli.launch 1 against one process: {rec}")
-        check(bitwise and replayed(launched["dispatch"]) and replayed(single["dispatch"])
+        check(bitwise and rec["digests_equal"] and rec["single_rerun_bitwise"]
+              and replayed(launched["dispatch"]) and replayed(single["dispatch"])
               and launched["dispatch"] == single["dispatch"],
               f"cli.launch 1: the NCCL rank's step and validation not replays as one "
-              f"process's, or last.npz not bitwise: {rec}")
+              f"process's, or last.npz not bitwise, or cli.train not bitwise its rerun: {rec}")
+        rec["repeat"] = reruns
         return rec
-    logs = [launched["log"]] + [(work / "launched" / f"train.rank{r}.log").read_text()
-                                for r in range(1, n)]
+
+    def rank_logs(name):
+        return [runs[name]["log"]] + [(work / name / f"train.rank{r}.log").read_text()
+                                      for r in range(1, n)]
 
     def lines(text, pattern):
         return [m.group(1) for m in re.finditer(pattern, text)]
+
+    logs = rank_logs("launched")
+    digests = [lines(t, r"state digest: (\w+)")[-1:] for t in logs]
+    again = npz_arrays(work / "launched_again" / "last.npz")
+    rec.update(rerun_bitwise_last_npz=again.keys() == got.keys()
+               and all(np.array_equal(again[k], got[k]) for k in got),
+               digest_by_rank=digests,
+               rerun_digest_by_rank=[lines(t, r"state digest: (\w+)")[-1:]
+                                     for t in rank_logs("launched_again")],
+               rerun_wall_s=runs["launched_again"]["wall_s"])
 
     losses = [lines(t, r"(Epoch \d+\s+loss \S+)") for t in logs]
     scores = [lines(t, r"Validation Results - Epoch : (\S+ .*)") for t in logs]
@@ -4094,6 +4219,63 @@ def launch_vs_single(work: Path, n: int, info) -> dict:
           and launched["launches"] == single["launches"],
           f"cli.launch {n}: the NCCL ranks not in lock-step, not replaying as one process, "
           f"or last.npz not the single process's arrays: {rec}")
+    check(rec["rerun_bitwise_last_npz"] and all(len(d) == 1 for d in digests)
+          and rec["rerun_digest_by_rank"] == digests,
+          f"cli.launch {n} run again: last.npz or a rank's state not bitwise its first run: "
+          f"{rec}")
+    return rec
+
+
+def repeat_runs(work: Path, argv, runs: dict, want: dict, single: dict, info) -> dict:
+    """The ``repeat`` record: launch_vs_single's recipe (3 epochs of 8
+    steps, ``num_workers: 1``) run again three ways (``runs``, which shared
+    the card at once with ``cli.launch 1``): ``cli.train`` again;
+    ``cli.train`` at ``num_workers: 2`` (the default); ``cli.train``
+    stopped after epoch 2 (the fault drill, ``UIT_FAULT_EPOCH=2``), then
+    resumed here with ``--resume auto`` to epoch 3 in its run directory.
+    Each last.npz and the state digest each process logs at its end are
+    held bitwise the first one-worker run's (``want``, ``single``); each
+    process launched ``row_exact``, the rerun and the two-worker run as
+    often as the first. -> the record."""
+    t0 = time.perf_counter()
+    for name in ("again", "workers_2"):
+        check(runs[name][0] == 0, f"cli.train {name} exited {runs[name][0]}:\n"
+                                  f"{runs[name][1][-4000:]}")
+    code, out, _ = runs["stopped"]
+    check(code != 0 and "injected fault after epoch 2" in out
+          and (work / "resumed" / "last.npz").exists(),
+          f"cli.train with UIT_FAULT_EPOCH=2 did not stop after epoch 2 (exit {code}):\n"
+          f"{out[-4000:]}")
+    code, out = run_with_deadline(argv("resumed", "--resume", "auto"), PARALLEL_DEADLINE_S)
+    check(code == 0, f"cli.train --resume auto exited {code}:\n{out[-4000:]}")
+    logs = {name: trainer_log(work / name / "train.log")
+            for name in ("again", "workers_2", "resumed")}
+    rec = {"phase": "parallel", "path": "repeat",
+           "wall_s": {"together": max(r[2] for r in runs.values()),
+                      "resumed": time.perf_counter() - t0},
+           "resumed_at_epoch": re.findall(r"resumed from \S+ at epoch (\d+)",
+                                          logs["resumed"]["log"])}
+    for name in ("again", "workers_2", "resumed"):
+        got = npz_arrays(work / name / "last.npz")
+        rec[f"{name}_bitwise_last_npz"] = (got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want))
+        rec[f"{name}_largest_gap"] = max(float(np.abs(got[k].astype(np.float64) - want[k]).max())
+                                         if k in got and got[k].shape == want[k].shape
+                                         else float("inf")
+                                         for k in want)
+        rec[f"{name}_digest_equal"] = logs[name]["digest"] == single["digest"]
+    rec["launches_by_process"] = {"single": single["launches"],
+                                  **{name: logs[name]["launches"] for name in logs}}
+    rec.update(concurrent="cli.launch 1, the rerun, the two-worker run and the stopped run "
+                          "shared the card at once", card=info["nvidia_smi"])
+    emit(rec)
+    check(rec["resumed_at_epoch"] == ["3"]
+          and all(rec[f"{name}_bitwise_last_npz"] and rec[f"{name}_digest_equal"]
+                  for name in logs)
+          and all(v["row_exact"] > 0 for v in rec["launches_by_process"].values())
+          and logs["again"]["launches"] == logs["workers_2"]["launches"] == single["launches"],
+          f"the recipe's rerun, two-worker run or resumed run not bitwise the one-worker "
+          f"run, or a process without row_exact: {rec}")
     return rec
 
 
@@ -4102,7 +4284,9 @@ def phase_parallel(info) -> dict:
     (a) the recipe for three short epochs through ``cli.launch 1`` (the
         real cli.train as one NCCL rank) against ``cli.train`` in one
         process, on the same files and seed: last.npz bitwise, or the
-        largest gap printed; launches and step times from their logs;
+        largest gap printed; launches and step times from their logs; the
+        ``repeat`` record: ``cli.train`` again, at two workers, and
+        stopped after epoch 2 and resumed, each bitwise the first run;
     (b) two ranks sharing the card over gloo: one recipe step (B=32, 16 a
         rank, row_exact in student and teacher) and one frontier step
         (B=1024, 512 a rank, tfb_fast in both) against the single-process
@@ -4138,6 +4322,8 @@ def phase_parallel(info) -> dict:
     rec = launch_vs_single(work, 1, info)
     counts["cli_train_single"] = rec["single_launches"]
     counts["launch_1_nccl_rank0"] = rec["rank0_launches"]
+    for name in ("again", "workers_2", "resumed"):
+        counts[f"repeat_{name}"] = rec["repeat"]["launches_by_process"][name]
 
     # (b, c) two ranks sharing the card over gloo
     t0 = time.perf_counter()
@@ -5100,7 +5286,8 @@ def mp_cards(argv) -> int:
     (mp_ckpt_check); then the recipe's Trainer
     through ``cli.launch 4`` (launch_vs_single: three epochs with
     validation and checkpoints, every rank's step and validation replays,
-    the ranks in lock-step); the same lines, then the kernels' launches on
+    the ranks in lock-step), run twice, bitwise on every rank; the same
+    lines, then the kernels' launches on
     these routes and the last line. Exits non-zero without four cards."""
     import tempfile
 
@@ -5177,7 +5364,7 @@ def main() -> int:
     psl_cache_counts, offline_counts = timed("psl_cache", phase_psl_cache, info)
     sed_counts = timed("sed", phase_sed, info)
     pretrain_counts = timed("pretrain", phase_pretrain, info)
-    export_counts = timed("export", phase_export, cfg, cpu_model, info)
+    export_counts = timed("export", phase_export, info)
     moe_counts = timed("moe", phase_moe, info)
     eval_counts = timed("eval", phase_eval, recipe_npz, OUT_DIR / "uit_xs_seed1234.npz", info)
     stream_counts = timed("stream", phase_stream, cfg, cpu_model, info)

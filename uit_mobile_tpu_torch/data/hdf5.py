@@ -63,6 +63,12 @@ class WeakHDF5Dataset:
         self._num_classes = num_classes
         self._dtype = np.int16 if dtype == "int16" else np.float32
         self._local = threading.local()  # per-thread h5 handle cache
+        # the columns an item reads, as lists: a row lookup of a DataFrame
+        # costs tens of us, which the iterating thread would pay every draw
+        self._fnames = _column(self._dataframe, "filename")
+        self._paths = _column(self._dataframe, "hdf5path")
+        self._labels = _column(self._dataframe, "labels")
+        self._lengths = np.full(len(self._dataframe), -1, dtype=np.int64)  # -1: not read yet
 
     def __len__(self) -> int:
         return len(self._dataframe)
@@ -86,30 +92,84 @@ class WeakHDF5Dataset:
         try:
             return self._file(hdf5path)[fname]
         except KeyError:
-            where = "the in-memory store" if isinstance(hdf5path, Mapping) else hdf5path
-            raise KeyError(
-                f"waveform key {fname!r} not found in {where} — check the manifest's "
-                f"filename column against the HDF5 keys (a basename=True/False mismatch "
-                f"drops or mangles paths)") from None
+            raise _missing(hdf5path, fname) from None
 
-    def _read(self, hdf5path: str, fname: str) -> np.ndarray:
-        return _convert(self._node(hdf5path, fname)[:], self._dtype)
+    def _clip_length(self, index: int) -> int:
+        """Item ``index``'s clip length in samples, read (``_length``) the
+        first time it is asked for and kept: a clip's length does not
+        change between passes."""
+        n = int(self._lengths[index])
+        if n < 0:
+            n = self._lengths[index] = self._length(self._paths[index], self._fnames[index])
+        return n
+
+    def _length(self, hdf5path, fname: str) -> int:
+        """The clip's sample count, from its header alone: an ``.npz``
+        member's array header, an HDF5 dataset's shape, an array's."""
+        f = self._file(hdf5path)
+        if not hasattr(f, "zip"):  # an HDF5 file or an in-memory store
+            return self._node(hdf5path, fname).shape[-1]
+        try:  # an .npz store: indexing it would read the samples
+            fp = f.zip.open(fname + ".npy")
+        except KeyError:
+            raise _missing(hdf5path, fname) from None
+        with fp:
+            version = np.lib.format.read_magic(fp)
+            read = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                    else np.lib.format.read_array_header_2_0)
+            return read(fp)[0][-1]
+
+    def draw(self, index: int):
+        """Item ``index``'s random draws, made before it is read.
+        ``DataLoader`` calls this on its iterating thread in sampler order,
+        so the draws never depend on which pool thread reads first. None:
+        this dataset draws nothing."""
+        return None
+
+    def fetch(self, index: int, drawn=None):
+        """Item ``index`` at its draws (``draw``) -> (waveform, multihot
+        target, filename); reads and converts only."""
+        fname = self._fnames[index]
+        target = multihot(self._labels[index], self._num_classes)
+        return self._read(self._paths[index], fname, drawn), target, fname
 
     def __getitem__(self, index: int):
-        row = self._dataframe.iloc[index]
-        target = multihot(row["labels"], self._num_classes)
-        return self._read(row["hdf5path"], row["filename"]), target, row["filename"]
+        return self.fetch(index, self.draw(index))
+
+    def _read(self, hdf5path: str, fname: str, drawn=None) -> np.ndarray:
+        return _convert(self._node(hdf5path, fname)[:], self._dtype)
 
 
-def _crop_or_pad(rng: _random.Random, n: int, L: int, read):
-    """A random L-sample crop of an n-sample clip, or the clip zero-padded
-    at a random offset; ``read(lo, hi)`` reads samples [lo, hi)."""
+def _column(frame, name: str) -> Optional[list]:
+    """A manifest column as a list; None where the manifest lacks it."""
+    if isinstance(frame, _Rows):
+        return [r[name] for r in frame.iloc] if all(name in r for r in frame.iloc) else None
+    return frame[name].tolist() if name in frame.columns else None
+
+
+def _missing(hdf5path, fname: str) -> KeyError:
+    where = "the in-memory store" if isinstance(hdf5path, Mapping) else hdf5path
+    return KeyError(f"waveform key {fname!r} not found in {where} — check the manifest's "
+                    f"filename column against the HDF5 keys (a basename=True/False mismatch "
+                    f"drops or mangles paths)")
+
+
+def draw_start(rng: _random.Random, n: int, L: int) -> int:
+    """The one draw of a random L-sample window of an n-sample clip: the
+    crop's start (n > L), else the zero pad's offset (0 when n == L)."""
     if n > L:
-        start = rng.randint(0, n - L - 1)
+        return rng.randint(0, n - L - 1)
+    return rng.randint(0, L - n - 1) if L > n else 0
+
+
+def place(start: int, n: int, L: int, read) -> np.ndarray:
+    """The window ``draw_start`` drew as ``start``: samples [start, start +
+    L) of a longer clip, else the clip zero-padded at offset ``start``;
+    ``read(lo, hi)`` reads samples [lo, hi)."""
+    if n > L:
         return read(start, start + L)
     loaded = read(0, n)
     data = np.zeros(L, dtype=loaded.dtype)
-    start = rng.randint(0, L - n - 1) if L > n else 0
     data[start:start + n] = loaded
     return data
 
@@ -125,11 +185,13 @@ class WeakRandomCropHDF5Dataset(WeakHDF5Dataset):
         self.chunk_length = int(chunk_length * sample_rate)
         self._rng = rng or _random.Random()
 
-    def _read(self, hdf5path: str, fname: str) -> np.ndarray:
+    def draw(self, index: int) -> int:
+        return draw_start(self._rng, self._clip_length(index), self.chunk_length)
+
+    def _read(self, hdf5path: str, fname: str, drawn=None) -> np.ndarray:
         node = self._node(hdf5path, fname)
-        data = _crop_or_pad(self._rng, node.shape[-1], self.chunk_length,
-                            lambda lo, hi: node[lo:hi])
-        return _convert(data, self._dtype)
+        return _convert(place(drawn, node.shape[-1], self.chunk_length,
+                              lambda lo, hi: node[lo:hi]), self._dtype)
 
 
 class WeakChunkedHDF5Dataset(WeakHDF5Dataset):
@@ -144,46 +206,52 @@ class WeakChunkedHDF5Dataset(WeakHDF5Dataset):
         self._sr = sample_rate
         self._fixed = int(fixed_length * sample_rate) if fixed_length else None
         self._rng = rng or _random.Random()
+        self._from = _column(self._dataframe, "from")
+        self._to = _column(self._dataframe, "to")
 
-    def __getitem__(self, index: int):
-        row = self._dataframe.iloc[index]
-        target = multihot(row["labels"], self._num_classes)
-        node = self._node(row["hdf5path"], row["filename"])
-        hi = min(int(float(row["to"]) * self._sr), node.shape[-1])
-        lo = min(max(int(float(row["from"]) * self._sr), 0), hi)
+    def _interval(self, index: int, n: int) -> tuple[int, int]:
+        """[lo, hi) samples of item ``index``'s interval within its n-sample clip."""
+        start, end = self._from[index], self._to[index]
+        hi = min(int(float(end) * self._sr), n)
+        lo = min(max(int(float(start) * self._sr), 0), hi)
         if lo >= hi:
-            raise ValueError(f"{row['filename']}: event interval [{row['from']}, {row['to']})s "
-                             f"lies outside the {node.shape[-1]}-sample clip — fix the "
-                             f"manifest row")
+            raise ValueError(f"{self._fnames[index]}: event interval [{start}, {end})s "
+                             f"lies outside the {n}-sample clip — fix the manifest row")
+        return lo, hi
+
+    def draw(self, index: int):
+        if self._fixed is None:
+            return None
+        lo, hi = self._interval(index, self._clip_length(index))
+        return draw_start(self._rng, hi - lo, self._fixed)
+
+    def fetch(self, index: int, drawn=None):
+        fname = self._fnames[index]
+        target = multihot(self._labels[index], self._num_classes)
+        node = self._node(self._paths[index], fname)
+        lo, hi = self._interval(index, node.shape[-1])
         if self._fixed is None:
             data = node[lo:hi]
         else:
-            data = _crop_or_pad(self._rng, hi - lo, self._fixed,
-                                lambda a, b: node[lo + a:lo + b])
-        return _convert(data, self._dtype), target, row["filename"]
+            data = place(drawn, hi - lo, self._fixed, lambda a, b: node[lo + a:lo + b])
+        return _convert(data, self._dtype), target, fname
 
 
-def strong_window(rng: _random.Random, node, events, chunk: int, sample_rate: int,
+def strong_window(start: int, node, events, chunk: int, sample_rate: int,
                   n_segments: int, seg_seconds: float, num_classes: int,
                   min_overlap: float):
     """One SED training window of a clip (``node``: an array or h5py
-    dataset of n samples): a random ``chunk``-sample crop (long clip) or a
-    random-offset zero pad (short clip), and its (n_segments, num_classes)
-    targets, the clip's (class, onset_s, offset_s) events moved into window
-    time and rasterized onto segments of ``seg_seconds``
-    (evaluate.metrics.segment_events_to_targets) -> (data, target)."""
+    dataset of n samples) at the window ``draw_start`` drew as ``start``:
+    a ``chunk``-sample crop (long clip) or a zero pad (short clip), and its
+    (n_segments, num_classes) targets, the clip's (class, onset_s,
+    offset_s) events moved into window time and rasterized onto segments
+    of ``seg_seconds`` (evaluate.metrics.segment_events_to_targets) ->
+    (data, target)."""
     from ..evaluate.metrics import segment_events_to_targets
 
-    n, L = node.shape[-1], chunk
-    if n > L:
-        ws = rng.randint(0, n - L - 1)
-        data, off = node[ws:ws + L], 0
-    else:
-        loaded = node[:]
-        data = np.zeros(L, dtype=loaded.dtype)
-        off = rng.randint(0, L - n - 1) if L > n else 0
-        data[off:off + n] = loaded
-        ws = 0
+    n = node.shape[-1]
+    data = place(start, n, chunk, lambda lo, hi: node[lo:hi])
+    ws, off = (start, 0) if n > chunk else (0, start)
     shift = (off - ws) / sample_rate
     moved = [(c, on + shift, end + shift) for c, on, end in events]
     times = np.asarray([[k * seg_seconds, (k + 1) * seg_seconds] for k in range(n_segments)],
@@ -195,7 +263,7 @@ def strong_window_rng(index: int) -> _random.Random:
     """The window stream of item ``index`` in deterministic (evaluation)
     mode: a function of the index only, so threaded loaders score the same
     windows every epoch."""
-    return _random.Random(0x5ED0 + index)
+    return _random.Random(0x5ED0 + int(index))
 
 
 class StrongFramewiseHDF5Dataset(WeakHDF5Dataset):
@@ -224,13 +292,19 @@ class StrongFramewiseHDF5Dataset(WeakHDF5Dataset):
         self._rng = rng or _random.Random()
         self._det = deterministic
 
-    def __getitem__(self, index: int):
-        row = self._dataframe.iloc[index]
-        rng = strong_window_rng(index) if self._det else self._rng
-        data, target = strong_window(rng, self._node(row["hdf5path"], row["filename"]),
-                                     self._events[index], self._chunk, self._sr, self._n_seg,
-                                     self._seg_s, self._num_classes, self._min_ov)
-        return _convert(data, self._dtype), target, row["filename"]
+    def draw(self, index: int):
+        if self._det:  # the item's own stream, drawn where it is read
+            return None
+        return draw_start(self._rng, self._clip_length(index), self._chunk)
+
+    def fetch(self, index: int, drawn=None):
+        fname = self._fnames[index]
+        node = self._node(self._paths[index], fname)
+        if self._det:
+            drawn = draw_start(strong_window_rng(index), node.shape[-1], self._chunk)
+        data, target = strong_window(drawn, node, self._events[index], self._chunk, self._sr,
+                                     self._n_seg, self._seg_s, self._num_classes, self._min_ov)
+        return _convert(data, self._dtype), target, fname
 
 
 class UnlabeledRandomChunkedHDF5Dataset(WeakRandomCropHDF5Dataset):
@@ -244,10 +318,10 @@ class UnlabeledRandomChunkedHDF5Dataset(WeakRandomCropHDF5Dataset):
             df["labels"] = [[] for _ in range(len(df))]
         super().__init__(df, chunk_length, num_classes, sample_rate, rng)
 
-    def __getitem__(self, index: int):
-        row = self._dataframe.iloc[index]
-        data = self._read(row["hdf5path"], row["filename"])
-        return data, np.zeros(self._num_classes, np.float32), row["filename"]
+    def fetch(self, index: int, drawn=None):
+        fname = self._fnames[index]
+        data = self._read(self._paths[index], fname, drawn)
+        return data, np.zeros(self._num_classes, np.float32), fname
 
 
 # ----------------------------------------------------------------- batching
@@ -349,7 +423,10 @@ class SequentialSampler:
 class DataLoader:
     """Map-style loader: sampler -> thread-pool fetch -> collate, a few
     batches in flight. Threads carry the h5py reads (libhdf5 releases the
-    GIL) and the batches land in this process's memory."""
+    GIL) and the batches land in this process's memory. The items' random
+    draws are made on the iterating thread in sampler order, before their
+    fetch goes to the pool, so a batch's bits are the same at any
+    ``num_workers``."""
 
     def __init__(self, dataset, batch_size: int, sampler=None, shuffle: bool = False,
                  num_workers: int = 2, drop_last: bool = False, seed=None,
@@ -367,19 +444,43 @@ class DataLoader:
         n = len(self.sampler)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def _load(self, idxs):
-        return self.collate_fn([self.dataset[i] for i in idxs])
+    def _draws(self, idxs):
+        """The items' draws (``WeakHDF5Dataset.draw``), made on this thread
+        in sampler order: what a one-worker pool draws, at any
+        ``num_workers``. None for a dataset without ``draw``, whose items
+        the pool reads by index."""
+        draw = getattr(self.dataset, "draw", None)
+        return None if draw is None else [draw(i) for i in idxs]
+
+    def _load(self, idxs, draws):
+        if draws is None:
+            return self.collate_fn([self.dataset[i] for i in idxs])
+        return self.collate_fn([self.dataset.fetch(i, d) for i, d in zip(idxs, draws)])
 
     def __iter__(self):
+        return self.iterate()
+
+    def iterate(self, skip: int = 0):
+        """One pass of the sampler. ``skip``: start ``skip`` batches in,
+        their draws made and nothing of them read, as a resumed run goes
+        on from where it stopped."""
         idxs = list(iter(self.sampler))
         batches = [idxs[i: i + self.batch_size] for i in range(0, len(idxs), self.batch_size)]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
+        for b in batches[:skip]:
+            self._draws(b)
+        batches = batches[skip:]
+        if not batches:
+            return
         with ThreadPoolExecutor(self.num_workers) as pool:
-            pending = [pool.submit(self._load, b) for b in batches[:3]]
+            def submit(b):
+                return pool.submit(self._load, b, self._draws(b))
+
+            pending = [submit(b) for b in batches[:3]]
             for b in batches[3:]:
                 fut = pending.pop(0)
-                pending.append(pool.submit(self._load, b))
+                pending.append(submit(b))
                 yield fut.result()
             for fut in pending:
                 yield fut.result()
@@ -396,6 +497,21 @@ class MultiDataLoader:
     def __len__(self) -> int:
         return min(len(dl) for dl in self.loaders.values())
 
+    def skip(self, n: int) -> None:
+        """Start the stream ``n`` batches in, as a run that had taken them
+        goes on: each child's sampler passes and draws advance
+        (``DataLoader.iterate``), and nothing is read. A skipped item costs
+        its draw; its clip's length is read once (``_clip_length``)."""
+        for key, loader in self.loaders.items():
+            per_pass = len(loader)
+            if per_pass == 0:
+                raise _empty_child(key)
+            full, rest = divmod(n, per_pass)
+            for _ in range(full):
+                for _ in loader.iterate(skip=per_pass):
+                    pass
+            self._iters[key] = loader.iterate(skip=rest)
+
     def __iter__(self):
         while True:
             out = {}
@@ -407,11 +523,13 @@ class MultiDataLoader:
                     try:
                         out[key] = next(self._iters[key])
                     except StopIteration:
-                        raise ValueError(
-                            f"MultiDataLoader child '{key}' yields zero batches (dataset "
-                            f"smaller than batch_size with drop_last, or an empty "
-                            f"manifest)") from None
+                        raise _empty_child(key) from None
             yield out
+
+
+def _empty_child(key: str) -> ValueError:
+    return ValueError(f"MultiDataLoader child '{key}' yields zero batches (dataset smaller "
+                      f"than batch_size with drop_last, or an empty manifest)")
 
 
 def to_device(batch, device: torch.device):

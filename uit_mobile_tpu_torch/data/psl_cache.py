@@ -342,8 +342,13 @@ class PSLCacheReader:
             files[si] = h5py.File(src, "r")
         return files[si]
 
-    def row(self, fname: str, n: int, rng):
-        """(grid start, cached probabilities row) of one clip of n samples."""
+    def draw(self, n: int, rng) -> int:
+        """The grid index of a random crop of a clip of n samples."""
+        return rng.randrange(len(cache_starts(n, self.chunk_length, self.grid)))
+
+    def row(self, fname: str, n: int, gi: int):
+        """(grid start, cached probabilities row) of crop ``gi`` (``draw``)
+        of one clip of n samples."""
         si = self._clip_source.get(fname)
         if si is None:
             names = [self._name(i) for i in range(len(self.sources))]
@@ -356,16 +361,16 @@ class PSLCacheReader:
                 f"PSL cache entry for {fname!r} has {node.shape[0]} crop rows but the clip's "
                 f"length ({n} samples) implies {len(starts)} on grid {self.grid} — the audio "
                 f"changed since the cache was built; rebuild it")
-        gi = rng.randrange(len(starts))
         return starts[gi], np.asarray(node[gi], dtype=np.float32)
 
 
 class PSLCachedRandomCropHDF5Dataset(WeakRandomCropHDF5Dataset):
     """Random grid-aligned crop + cached teacher target: index -> (wav
     crop, target with ``target[:classes]`` = the cached teacher row of the
-    drawn crop, filename). The grid index is drawn from the same per-dataset
-    ``random.Random`` the online crop dataset uses. ``cache_path``: a file,
-    a glob, a PSLCache or a list of shards (PSLCacheReader)."""
+    drawn crop, filename). The grid index is drawn (``draw``) from the
+    same per-dataset ``random.Random`` the online crop dataset uses.
+    ``cache_path``: a file, a glob, a PSLCache or a list of shards
+    (PSLCacheReader)."""
 
     def __init__(self, data_frame, chunk_length: float, num_classes: int, cache_path,
                  sample_rate: int = 16000, rng=None, dtype: str = "float32"):
@@ -373,13 +378,15 @@ class PSLCachedRandomCropHDF5Dataset(WeakRandomCropHDF5Dataset):
                          sample_rate=sample_rate, rng=rng, dtype=dtype)
         self.reader = PSLCacheReader(cache_path, self.chunk_length, num_classes)
 
-    def __getitem__(self, index: int):
-        row = self._dataframe.iloc[index]
-        fname = row["filename"]
-        target = multihot(row["labels"], self._num_classes)
-        node = self._node(row["hdf5path"], fname)
+    def draw(self, index: int) -> int:
+        return self.reader.draw(self._clip_length(index), self._rng)
+
+    def fetch(self, index: int, drawn=None):
+        fname = self._fnames[index]
+        target = multihot(self._labels[index], self._num_classes)
+        node = self._node(self._paths[index], fname)
         n, L = node.shape[-1], self.chunk_length
-        start, probs = self.reader.row(fname, n, self._rng)
+        start, probs = self.reader.row(fname, n, drawn)
         data = node[start:start + L] if n > L else _apply_start(node[:], L, start)
         target[: self.reader.classes] = probs
         return _convert(data, self._dtype), target, fname

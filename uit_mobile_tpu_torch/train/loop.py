@@ -8,7 +8,10 @@ every ``valid_every`` epochs on the eval forward, the top ``n_saved``
 checkpoints ``best_model_<step>_mAP=<score>.npz``, early stopping after
 ``early_stop`` evaluations without gain, the resumable ``last.npz``, and at
 the end ``averaged.npz``, the mean of the kept checkpoints, in the JAX
-package's npz format. Both the student and the teacher take the fused mel
+package's npz format. A run resumed from ``last.npz`` goes on with the
+data stream and the generator where they stood, so it ends bitwise where
+the run without the stop ends (the JAX loop restarts both). Both the
+student and the teacher take the fused mel
 kernel through ``ops.mel.make_frontend_fn`` (on a CUDA device the kernel
 launches; a CPU device takes its plain version): the student in its
 ``mel_layout`` at ``frontend_precision``, the teacher through
@@ -128,6 +131,18 @@ def validation_forward(forward, rows):
     scores every clip outside ``sharded``: the graph holds no collective),
     its eager body under gloo ``rows``, whose steps are eager too."""
     return forward if rows is None or capturable(rows.group) else forward.eager
+
+
+def state_digest(model, optimizer) -> str:
+    """sha1 of the bits of the model's parameters and buffers and the
+    optimizer's state on this rank: two runs that end with one digest end
+    bitwise alike (the Trainer logs it on every rank)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for t in [*model.parameters(), *model.buffers(), *optimizer.state_leaves()]:
+        h.update(t.detach().cpu().reshape(-1).contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def dispatch_summary(fns: dict) -> dict:
@@ -441,6 +456,15 @@ class Trainer:
         best_score = float(extra.get("best_score", -np.inf))
         bad_evals = int(extra.get("bad_evals", 0))
         step_count = int(extra.get("step", 0))
+        if resume:
+            # go on as the run that wrote last.npz would have: its data
+            # stream past the batches it took, its generator where it was
+            t0 = time.time()
+            self.train_loader.skip(step_count)
+            log.info(f"data stream skipped {step_count} batches in {time.time() - t0:.2f} s")
+            if "generator" in extra:
+                self.generator.set_state(
+                    torch.frombuffer(bytearray.fromhex(extra["generator"]), dtype=torch.uint8))
         saved = sorted(((float(s), Path(p)) for s, p in extra.get("saved", [])
                         if Path(p).exists()), key=lambda x: -x[0])
         patience, n_saved = c.get("early_stop", 10), c.get("n_saved", 4)
@@ -505,7 +529,8 @@ class Trainer:
                             self.outputdir / "last.npz", model, opt, cfg,
                             extra={"epoch": epoch, "step": step_count, score_name: score,
                                    "best_score": best_score, "bad_evals": bad_evals,
-                                   "saved": [[s, str(p)] for s, p in saved]})
+                                   "saved": [[s, str(p)] for s, p in saved],
+                                   "generator": self.generator.get_state().numpy().tobytes().hex()})
                 self._fault_drill(epoch)
         finally:
             train_iter.close()
@@ -530,10 +555,12 @@ class Trainer:
             if self.is_main:
                 save_checkpoint(output_model, model, cfg, named_params=find_ema_params(opt),
                                 extra={"step": step_count, "run_config": self.run_config})
-        # which kernels this process's run went through, and how it dispatched
+        # which kernels this process's run went through, how it dispatched,
+        # and the bits it ended with
         log.info(f"mel kernel launches: {json.dumps(mel_launches)}")
         log.info("graph dispatch: " + json.dumps(dispatch_summary(
             {"step": self.train_step, "k_step": self.multi_step, "validation": self.eval_fwd})))
+        log.info(f"state digest: {state_digest(model, opt)}")
         log.info(f"Results can be found at {self.outputdir}")
         log.info(f"Final model is at {output_model}")
         return output_model
