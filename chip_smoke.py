@@ -1745,9 +1745,12 @@ def profile_steps(step, n: int = 5, spans: dict | None = None) -> dict:
     over n more: the device's busy time a step (the union of its kernels',
     memcpys' and memsets' intervals), its idle share of the untraced steps'
     time, the kernels launched a step, and the busy time by kind of kernel.
-    ``spans`` {name: device_us(events)} (moe_mlp_span's) adds each span's
-    device ms a step and its share of the busy time. None where the trace
-    holds no device event."""
+    ``spans`` {name: device_us(events)} (profile_moe's) adds each span's
+    device ms a step and its share of the busy time. ``host_spans_ms``: the
+    host ms a step inside each program span (utils/profiling.py:span), on
+    a replay the host's side of the step (``uit.step.plan``,
+    ``uit.graph.stage``, ``uit.graph.replay``, ``uit.graph.outputs``). None
+    where the trace holds no device event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1765,8 +1768,8 @@ def profile_steps(step, n: int = 5, spans: dict | None = None) -> dict:
         for _ in range(n):
             step()
         torch.cuda.synchronize()
-    # a span's record_function range also shows on the device's timeline
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in spans]
+    # the program's spans are function ranges: none shows on the device's timeline
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
         return {"device_busy_ms": None, "device_idle_share": None, "kernels_per_step": None}
     busy = union_us([(e.time_range.start, e.time_range.end) for e in dev])
@@ -1789,6 +1792,11 @@ def profile_steps(step, n: int = 5, spans: dict | None = None) -> dict:
            "device_idle_share": max(0.0, 1.0 - busy_ms / untraced_ms),
            "kernels_per_step": len(dev) / n,
            "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+    host: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CPU and e.name.startswith("uit."):
+            host[e.name] = host.get(e.name, 0.0) + (e.time_range.end - e.time_range.start) / n / 1e3
+    out["host_spans_ms"] = dict(sorted(host.items()))
     for name, device_us in spans.items():
         out[f"{name}_device_ms"] = device_us(prof.events()) / n / 1e3
         out[f"{name}_share_of_busy"] = out[f"{name}_device_ms"] / busy_ms
@@ -2664,61 +2672,36 @@ def relu_flips(a: list, b: list) -> dict:
             "relu_max_abs_input": max(x.abs().max().item() for x in a)}
 
 
-def moe_mlp_span(moe_mod):
-    """Wrap models/moe.py's moe_mlp (block_forward looks it up at each call)
-    in a record_function range, and note the autograd nodes of each call
-    (those between its outputs and its input, by name and sequence number)
-    -> (restore, device_us): device_us(profiler events) is the device's busy
-    time inside the ranges' device-side intervals (the forward) plus the
-    device time of those nodes (their backward). The forward is read on the
-    device's timeline: the ranges' device_time_total, summed over the CPU
-    op tree, read up to 6.5 % over the kernels inside them on the H100."""
-    from torch.autograd import DeviceType
+def profile_moe(step, graphs) -> dict:
+    """profile_steps over 3 replays of ``step`` (``graphs``: its
+    ``GraphedFn``), the device time of each program span a replay read from
+    the graph's capture marks (utils/profiling.py:graph_span_ms):
+    ``spans_ms`` (every span, inclusive, and 'unspanned'), ``spans_matched``
+    (the share of the replays' device time whose op matched its node by
+    name), the routed MLP's ms (``uit.moe.mlp`` and
+    ``uit.moe.mlp.backward``) and its share of the busy time, and the
+    top-level spans' ms with 'unspanned' over the busy time; gated on the
+    matched share and on the replay's host spans (``host_spans_ms``)."""
+    from uit_mobile_tpu_torch.utils.profiling import graph_span_ms, top_spans
 
-    orig, nodes = moe_mod.moe_mlp, set()
+    n, read, top = 3, {}, sorted(top_spans(graphs))
 
-    def wrapped(cfg, p, x):
-        with torch.profiler.record_function("moe_mlp"):
-            y, aux = orig(cfg, p, x)
-        key = lambda fn: (fn.name(), fn._sequence_nr())  # noqa: E731
-        todo, seen = [y.grad_fn, aux.grad_fn], set()
-        stop = None if x.grad_fn is None else key(x.grad_fn)
-        while todo:
-            fn = todo.pop()
-            if fn is None or key(fn) == stop or key(fn) in seen:
-                continue
-            seen.add(key(fn))
-            if "AccumulateGrad" not in fn.name():
-                nodes.add(key(fn))
-            todo.extend(f for f, _ in fn.next_functions)
-        return y, aux
+    def routed_mlp_us(events) -> float:  # over the n replays, as profile_steps reads it
+        ms, matched = graph_span_ms(events, graphs)
+        read.update(spans_ms=ms, spans_matched=matched)
+        return n * 1e3 * (ms.get("uit.moe.mlp", 0.0) + ms.get("uit.moe.mlp.backward", 0.0))
 
-    def device_us(events) -> float:
-        ranges, kernels = [], []
-        for e in events:
-            if e.device_type == DeviceType.CUDA:
-                (ranges if e.name == "moe_mlp" else kernels).append(
-                    (e.time_range.start, e.time_range.end))
-        forward = union_us([(max(a, s), min(b, t)) for a, b in kernels for s, t in ranges
-                            if min(b, t) > max(a, s)])
-        return forward + sum(e.device_time_total for e in events
-                             if e.device_type == DeviceType.CPU
-                             and (e.name, e.sequence_nr) in nodes)
-
-    moe_mod.moe_mlp = wrapped
-    return (lambda: setattr(moe_mod, "moe_mlp", orig)), device_us
-
-
-def profile_moe(moe_mod, step) -> dict:
-    """profile_steps over 3 steps with moe_mlp's span: its device time a
-    step and its share of the device's busy time."""
-    restore, device_us = moe_mlp_span(moe_mod)
-    try:
-        prof = profile_steps(step, n=3, spans={"moe_mlp": device_us})
-    finally:
-        restore()
-    share = prof.get("moe_mlp_share_of_busy")
-    check(share is None or 0.0 < share <= 1.0, f"moe_mlp's share of the busy time: {share}")
+    prof = profile_steps(step, n=n, spans={"routed_mlp": routed_mlp_us})
+    prof.update(read, top_spans=top)
+    if prof["device_busy_ms"]:
+        whole = sum(read["spans_ms"].get(s, 0.0) for s in top + ["unspanned"])
+        prof["top_spans_over_busy"] = whole / prof["device_busy_ms"]
+    share, matched = prof.get("routed_mlp_share_of_busy"), read.get("spans_matched", 0.0)
+    check(matched >= 0.99 and (share is None or 0.0 < share <= 1.0),
+          f"the replays' spans: matched {matched}, routed MLP's share of the busy time {share}")
+    host = prof.get("host_spans_ms", {})
+    check(all(host.get(f"uit.graph.{s}", 0.0) > 0.0 for s in ("stage", "replay", "outputs")),
+          f"the replays' host spans: {host}")
     return prof
 
 
@@ -2728,9 +2711,10 @@ def phase_moe(info) -> dict:
     just before each path and read just after:
       serve - make_forward_fn with the kernel at B=32 x 10 s int16 exact
               (row_exact through 'tfb_to_bft'), within 1e-3 of the CPU plain
-              path; profiled, moe_mlp's share of the busy time;
+              path; its replays profiled, each program span's device time
+              (profile_moe: the routed MLP's share of the busy time);
       train - 5 make_moe_train_step steps (B=32 x 10 s, AdamW, the exact
-              kernel), timed and profiled (moe_mlp's share), peak memory;
+              kernel), timed, its replays profiled (profile_moe), peak memory;
               one step at depth MOE_PARITY_DEPTH held against the CPU with the
               frontend (frontend_gate) and the step after it gated apart,
               as the SED phase does, the tokens whose experts differ and
@@ -2766,7 +2750,7 @@ def phase_moe(info) -> dict:
     serve_drift = float(np.abs(probs.cpu().numpy() - want).max())
     forward_ms = time_ms(lambda: fwd(x), warmup=1, iters=5)
 
-    def eager():  # the span reads the host's ranges, which a graph replay has not
+    def eager():
         with torch.inference_mode():
             return fwd.graphs.fn(x)
 
@@ -2774,8 +2758,8 @@ def phase_moe(info) -> dict:
     rec = {"phase": "moe", "path": "serve", "B": MOE_B, "seconds": 10, "input": "int16",
            "precision": "exact", "launches": counts["serve"], "max_abs_drift_vs_cpu": serve_drift,
            "forward_ms": forward_ms, "clips_per_s": MOE_B * 1e3 / forward_ms,
-           "eager_forward_ms": eager_ms, "profiled": "the eager body",
-           **profile_moe(moe, eager), "card": info["nvidia_smi"]}
+           "eager_forward_ms": eager_ms, "profiled": "the replays",
+           **profile_moe(lambda: fwd(x), fwd.graphs), "card": info["nvidia_smi"]}
     emit(rec)
     check(probs.shape == (MOE_B, 537) and serve_drift <= 1e-3,
           f"moe serve: {tuple(probs.shape)}, drift {serve_drift} from the CPU plain path")
@@ -2824,9 +2808,8 @@ def phase_moe(info) -> dict:
           f"moe train: the depth-{cfg.base.depth} step's first loss {losses[0]} against the "
           f"CPU's {loss12_cpu} on the card's mel (1e-4 relative)")
     step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
-    # the span reads the host's ranges, which a graph replay has not
     eager_ms = time_ms(lambda: eager_step(step, {"wav": x, "target": t}), warmup=1, iters=5)
-    prof = profile_moe(moe, lambda: eager_step(step, {"wav": x, "target": t}))
+    prof = profile_moe(lambda: step(x, t), step.graphs)
     # one step on the card against the CPU, from the same weights: through
     # the plain mel (the whole step), through the card's mel (the step after
     # the frontend), and through the card's mel and the card's expert ReLU
@@ -2874,7 +2857,7 @@ def phase_moe(info) -> dict:
     rec = {"phase": "moe", "path": "train", "B": MOE_B, "steps": 5, "optimizer": "AdamW",
            "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
            "clips_per_s": MOE_B * 1e3 / step_ms, "eager_step_ms": eager_ms,
-           "profiled": "the eager body", "peak_memory_bytes": peak, **prof,
+           "profiled": "the replays", "peak_memory_bytes": peak, **prof,
            "frontend": frontend, "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": after,
            "step_vs_cpu_on_card_mel_and_relu_signs": masked,
            "first_loss_vs_cpu_on_card_mel": {"depth": cfg.base.depth, "loss_gpu": losses[0],

@@ -47,6 +47,7 @@ from torch import nn
 
 from ..parallel.collectives import copy_to, reduce_from
 from ..parallel.rows import current as current_rows
+from ..utils.profiling import span, spanning
 from . import uit
 from .common import ACTIVATIONS, batch_norm_train, layer_norm, trunc_normal
 
@@ -206,7 +207,39 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
     group's tokens before it, and this rank fills its own tokens' slots
     (the others' stay empty); f and P are the global batch's. With ``p.ep``
     this rank holds experts [first, first + its banks) only and runs them,
-    and one all-reduce over the 'expert' group sums the combine."""
+    and one all-reduce over the 'expert' group sums the combine.
+
+    Its spans (``utils/profiling.py:span``): ``uit.moe.mlp`` around the
+    forward, holding ``uit.moe.route`` (router, softmax, top-k, the slot
+    loop that builds combine and dispatch), ``uit.moe.dispatch`` (the
+    ``expert_in`` einsum), ``uit.moe.experts`` (fc1, activation, fc2) and
+    ``uit.moe.combine`` (the ``y`` einsum); and ``uit.moe.mlp.backward``,
+    opened by a grad hook on the outputs and closed by one on ``x``,
+    registered only while a span records anything (the block's ``x`` feeds
+    this MLP alone, so the backward between the two is the MLP's)."""
+    with span("moe.mlp"):
+        y, aux = _moe_mlp(cfg, p, x)
+    if spanning() and torch.is_grad_enabled() and x.requires_grad:
+        backward, opened = span("moe.mlp.backward"), []
+
+        def open_(grad):  # the first of the outputs' gradients to arrive
+            if not opened:
+                opened.append(backward.open())
+
+        def close(grad):
+            if opened:
+                opened.clear()
+                backward.close()
+
+        for out in (y, aux):
+            if out.requires_grad:
+                out.register_hook(open_)
+        x.register_hook(close)
+    return y, aux
+
+
+def _moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
+    """``moe_mlp``'s forward, its four inner spans."""
     B, N, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
     cdt = uit.compute_dtype(cfg.base)
@@ -215,54 +248,58 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
     S = _group_size(cfg, B * world, N)
     C = max(1, min(int(math.ceil(k * S / E * cfg.capacity_factor)), k * S))
 
-    gates = torch.softmax(torch.einsum("td,de->te", x.reshape(B * N, D).float(),
-                                       p.router.kernel), dim=-1)
-    topv, topi = _top_k(gates, k)  # (T, k)
-    topv = topv / topv.sum(dim=-1, keepdim=True)
-    xt = x.reshape(B * N, D)
-    if p.ep is not None:  # x and the combine weights reach every rank's banks
-        xt, topv = copy_to(xt, p.ep.group), copy_to(topv, p.ep.group)
-    all_topi, first = topi, 0
-    if world > 1:  # every token's choices in the global order, over any group of Rows
-        spread = torch.zeros((world, B * N, k), dtype=topi.dtype, device=topi.device)
-        spread[rows.rank] = topi
-        all_topi, first = rows.all_reduce(spread).reshape(-1, k), rows.rank * B * N
-    # the groups holding this rank's tokens, the others' tokens zero rows
-    g0, g1 = first // S, -(-(first + B * N) // S)
-    pad = (0, 0, first - g0 * S, g1 * S - first - B * N)
+    with span("moe.route"):
+        gates = torch.softmax(torch.einsum("td,de->te", x.reshape(B * N, D).float(),
+                                           p.router.kernel), dim=-1)
+        topv, topi = _top_k(gates, k)  # (T, k)
+        topv = topv / topv.sum(dim=-1, keepdim=True)
+        xt = x.reshape(B * N, D)
+        if p.ep is not None:  # x and the combine weights reach every rank's banks
+            xt, topv = copy_to(xt, p.ep.group), copy_to(topv, p.ep.group)
+        all_topi, first = topi, 0
+        if world > 1:  # every token's choices in the global order, over any group of Rows
+            spread = torch.zeros((world, B * N, k), dtype=topi.dtype, device=topi.device)
+            spread[rows.rank] = topi
+            all_topi, first = rows.all_reduce(spread).reshape(-1, k), rows.rank * B * N
+        # the groups holding this rank's tokens, the others' tokens zero rows
+        g0, g1 = first // S, -(-(first + B * N) // S)
+        pad = (0, 0, first - g0 * S, g1 * S - first - B * N)
 
-    def fill(t):
-        return F.pad(t, pad) if pad[2] or pad[3] else t
+        def fill(t):
+            return F.pad(t, pad) if pad[2] or pad[3] else t
 
-    xt = fill(xt).reshape(g1 - g0, S, D)
-    topv = fill(topv).reshape(g1 - g0, S, k)
-    topi = all_topi[g0 * S:g1 * S].reshape(g1 - g0, S, k)
+        xt = fill(xt).reshape(g1 - g0, S, D)
+        topv = fill(topv).reshape(g1 - g0, S, k)
+        topi = all_topi[g0 * S:g1 * S].reshape(g1 - g0, S, k)
 
-    experts = torch.arange(E, device=x.device)
-    slots = torch.arange(C, device=x.device, dtype=torch.float32)
-    counts = torch.zeros(g1 - g0, E, device=x.device)
-    combine = torch.zeros(g1 - g0, S, E, C, device=x.device)
-    for j in range(k):
-        oh = (topi[:, :, j, None] == experts).float()  # (G, S, E)
-        # slot each token would take in expert e: tokens before it in the
-        # group this round + slots consumed by earlier rounds
-        pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
-        keep = oh * (pos < C)
-        slot = (pos[..., None] == slots).float()  # zeros past the capacity
-        combine = combine + topv[:, :, j, None, None] * keep[..., None] * slot
-        counts = counts + oh.sum(dim=1)
-    dispatch = (combine > 0).float()
-    if p.ep is not None:  # this rank's banks
-        local = slice(p.ep.first, p.ep.first + p.fc1.kernel.shape[0])
-        dispatch, combine = dispatch[:, :, local], combine[:, :, local]
+        experts = torch.arange(E, device=x.device)
+        slots = torch.arange(C, device=x.device, dtype=torch.float32)
+        counts = torch.zeros(g1 - g0, E, device=x.device)
+        combine = torch.zeros(g1 - g0, S, E, C, device=x.device)
+        for j in range(k):
+            oh = (topi[:, :, j, None] == experts).float()  # (G, S, E)
+            # slot each token would take in expert e: tokens before it in the
+            # group this round + slots consumed by earlier rounds
+            pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
+            keep = oh * (pos < C)
+            slot = (pos[..., None] == slots).float()  # zeros past the capacity
+            combine = combine + topv[:, :, j, None, None] * keep[..., None] * slot
+            counts = counts + oh.sum(dim=1)
+        dispatch = (combine > 0).float()
+        if p.ep is not None:  # this rank's banks
+            local = slice(p.ep.first, p.ep.first + p.fc1.kernel.shape[0])
+            dispatch, combine = dispatch[:, :, local], combine[:, :, local]
 
-    expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xt.to(cdt))
-    h = ACTIVATIONS[cfg.base.act](
-        torch.einsum("egcd,edh->egch", expert_in, p.fc1.kernel.to(cdt))
-        + p.fc1.bias.to(cdt)[:, None, None, :])
-    out_e = (torch.einsum("egch,ehd->egcd", h, p.fc2.kernel.to(cdt))
-             + p.fc2.bias.to(cdt)[:, None, None, :])
-    y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), out_e)
+    with span("moe.dispatch"):
+        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xt.to(cdt))
+    with span("moe.experts"):
+        h = ACTIVATIONS[cfg.base.act](
+            torch.einsum("egcd,edh->egch", expert_in, p.fc1.kernel.to(cdt))
+            + p.fc1.bias.to(cdt)[:, None, None, :])
+        out_e = (torch.einsum("egch,ehd->egcd", h, p.fc2.kernel.to(cdt))
+                 + p.fc2.bias.to(cdt)[:, None, None, :])
+    with span("moe.combine"):
+        y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), out_e)
     if p.ep is not None:
         y = reduce_from(y, p.ep.group)
     y = y.reshape(-1, D)[pad[2]:pad[2] + B * N]

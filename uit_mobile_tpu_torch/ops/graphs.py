@@ -27,6 +27,14 @@ others), replayed with one host call.
 - The mel kernel's launch counters (``ops/mel.py:launches``) count kernel
   executions: a capture records its launches apart (nothing runs then),
   and each replay adds them to the counters.
+- The program's spans (``utils/profiling.py:span``) that run inside a
+  capture leave their marks on the graph (``_Graph.marks``: name, node
+  count at enter and at exit), and the graph's own ``cudaGraph_t`` is kept
+  (``keep_graph``) to be listed at the first ask (``_Graph.device_nodes``):
+  ``profiling.graph_span_ms`` reads both against a trace of replays. A
+  replay runs inside the spans ``uit.graph.stage`` (the input copies),
+  ``uit.graph.replay`` (the fence and the launch) and ``uit.graph.outputs``
+  (the clones and the fence after them).
 - A failed capture raises. Nothing falls back to eager at run time. With
   ``agree`` (a program of several ranks whose collectives the graph holds:
   ``parallel.collectives.capture_agreement``) the ranks exchange whether
@@ -51,6 +59,7 @@ from typing import Callable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+from ..utils import profiling
 from . import mel as _mel
 
 # eager calls of a key before its capture
@@ -103,7 +112,9 @@ class _Graph:
     """One captured graph and its static buffers."""
 
     def __init__(self):
-        self.graph = torch.cuda.CUDAGraph()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        self.marks: list = []    # the spans' capture marks: [name, enter, exit]
+        self._nodes = None       # profiling.graph_nodes of the graph, once asked
         self.inputs: list = []   # static input leaves (tensors the graph reads)
         self.outputs: list = []  # static output leaves
         self.out_spec = None
@@ -111,6 +122,13 @@ class _Graph:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self.replays = 0
+
+    def device_nodes(self) -> list:
+        """[(position, kind, name)] of the graph's kernel, memcpy and memset
+        nodes (``profiling.graph_nodes``), listed at the first ask."""
+        if self._nodes is None:
+            self._nodes = profiling.graph_nodes(self.graph.raw_cuda_graph())
+        return self._nodes
 
 
 class GraphedFn:
@@ -172,7 +190,8 @@ class GraphedFn:
                 with torch.cuda.stream(card.side):
                     g.graph.capture_begin(pool=card.pool, capture_error_mode="thread_local")
                     try:
-                        out = self.fn(*args)
+                        with profiling.capture_marks(card.side, g.marks):
+                            out = self.fn(*args)
                     except BaseException:
                         try:
                             g.graph.capture_end()
@@ -180,6 +199,7 @@ class GraphedFn:
                             pass  # the capture was already invalid; the first error says why
                         raise
                     g.graph.capture_end()
+                    g.graph.instantiate()
             except Exception as e:  # noqa: BLE001 - raised below, on every rank with agree
                 failed = e
             finally:
@@ -198,18 +218,21 @@ class GraphedFn:
         return g
 
     def _replay(self, g: _Graph, leaves):
-        for buf, x in zip(g.inputs, leaves):
-            if isinstance(buf, torch.Tensor) and buf is not x:
-                buf.copy_(x)
+        with profiling.span("graph.stage"):
+            for buf, x in zip(g.inputs, leaves):
+                if isinstance(buf, torch.Tensor) and buf is not x:
+                    buf.copy_(x)
         card, cur = _card(self.device), torch.cuda.current_stream(self.device)
         with card.replay_lock:  # one pool: replays never overlap on the device
-            if card.fence is not None:
-                cur.wait_event(card.fence)
-            g.graph.replay()
-            # out of the pool before another graph's replay may reuse it
-            out = [x.clone() if isinstance(x, torch.Tensor) else x for x in g.outputs]
-            card.fence = torch.cuda.Event()
-            card.fence.record(cur)
+            with profiling.span("graph.replay"):
+                if card.fence is not None:
+                    cur.wait_event(card.fence)
+                g.graph.replay()
+            with profiling.span("graph.outputs"):
+                # out of the pool before another graph's replay may reuse it
+                out = [x.clone() if isinstance(x, torch.Tensor) else x for x in g.outputs]
+                card.fence = torch.cuda.Event()
+                card.fence.record(cur)
         g.replays += 1
         with _mel._launches_lock:
             for k, v in g.launches.items():

@@ -36,6 +36,7 @@ from ..parallel.collectives import capturable, capture_agreement
 from ..parallel.rows import Rows, global_sum, sharded
 from ..parallel.rows import current as current_rows
 from ..utils.device import device_constant
+from ..utils.profiling import span
 
 # ------------------------------------------------------------------- losses
 
@@ -598,13 +599,15 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     whole tensors) of an FSDP placement's step (``parallel/fsdp.py``): the
     gradients of its sharded parameters are taken at the whole tensors the
     forward read and reduce-scattered to this rank's shards; the others
-    are averaged over the rows' group as ever."""
+    are averaged over the rows' group as ever. Spans: the backward is
+    ``uit.backward``, the norm and the update ``uit.optim.update``."""
     shards, whole = gathered or (None, [])
     at = shards.index if shards is not None else []  # the sharded parameters' positions
     inputs = list(optimizer.params)
     for i, t in zip(at, whole):
         inputs[i] = t
-    grads = list(torch.autograd.grad(loss, inputs, materialize_grads=True))
+    with span("backward"):
+        grads = list(torch.autograd.grad(loss, inputs, materialize_grads=True))
     if at:
         for i, g in zip(at, shards.reduce_scatter([grads[i] for i in at])):
             grads[i] = g
@@ -613,14 +616,16 @@ def update_from_loss(model, optimizer: Optimizer, loss: torch.Tensor, new_state,
     if rows is not None and rest:
         for i, g in zip(rest, _group_mean([grads[i] for i in rest], rows)):
             grads[i] = g
-    gnorm = global_norm(grads, shard_groups(model, optimizer.names))
-    if max_grad_norm is not None:
-        grads = torch._foreach_mul(grads, torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
-    models.load_state(model, new_state)
-    if plan is None:
-        optimizer.update(list(grads))
-    else:
-        optimizer.device_update(grads, *plan)
+    with span("optim.update"):
+        gnorm = global_norm(grads, shard_groups(model, optimizer.names))
+        if max_grad_norm is not None:
+            grads = torch._foreach_mul(grads,
+                                       torch.clamp(max_grad_norm / (gnorm + 1e-6), max=1.0))
+        models.load_state(model, new_state)
+        if plan is None:
+            optimizer.update(list(grads))
+        else:
+            optimizer.device_update(grads, *plan)
     return gnorm
 
 
@@ -749,7 +754,15 @@ def _data_shards(model, optimizer: Optimizer, rows):
 def _placed_forward(shards, optimizer: Optimizer, fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` -> (its result, ``update_from_loss``'s
     ``gathered``): on an FSDP placement (``shards``) the forward reads the
-    whole tensors of one all-gather of the shards."""
+    whole tensors of one all-gather of the shards. A ``frontend_fn`` among
+    the keywords runs inside the span ``uit.frontend``."""
+    frontend = kwargs.get("frontend_fn")
+    if frontend is not None:
+        def spanned(wav):
+            with span("frontend"):
+                return frontend(wav)
+
+        kwargs["frontend_fn"] = spanned
     if shards is None:
         return fn(*args, **kwargs), None
     whole = shards.gather(optimizer.params)
@@ -792,7 +805,8 @@ def dispatch_step(step: Callable, optimizer: Optimizer, rows) -> Callable:
            if _graphable(optimizer, rows) else body)
 
     def train_step(batch, generator: Optional[torch.Generator] = None) -> dict:
-        (kind,) = optimizer.plan(1)
+        with span("step.plan"):
+            (kind,) = optimizer.plan(1)
         return run(batch, generator, kind)
 
     train_step.device_step, train_step.optimizer, train_step.rows = step, optimizer, rows
@@ -893,7 +907,9 @@ def make_multi_step(train_step: Callable) -> Callable:
 
     def multi(batches: dict, generator: Optional[torch.Generator] = None) -> dict:
         K = next(iter(_leaves(batches))).shape[0]
-        return run(batches, generator, optimizer.plan(K))
+        with span("step.plan"):
+            kinds = optimizer.plan(K)
+        return run(batches, generator, kinds)
 
     multi.body, multi.graphs = body, None if run is body else run
     return multi
