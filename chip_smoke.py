@@ -105,7 +105,8 @@ The rest of training runs after the train phase:
   moe       - uit_xs_moe at full width (8 experts, top-2, target_length 1012)
               served at B=32 x 10 s int16 exact (row_exact, 1e-3 of the CPU),
               5 make_moe_train_step steps (AdamW) with step ms, kernels a
-              step, idle share, peak memory and the routed MLP's share; one
+              step, idle share, peak memory, the routed MLP's share and each
+              block's routing_stats (kept and filled shares); one
               step against the CPU (frontend and the step after it gated
               apart, tokens routed differently counted); 3 recipe steps with
               optimizer Adafactor through the Trainer, one step against the
@@ -2657,6 +2658,26 @@ def expert_relu(moe_mod, record: list | None = None, masks: list | None = None):
     return lambda: table.__setitem__("relu", relu)
 
 
+def block_routing(moe_mod, cfg, model, wav, frontend_fn) -> list:
+    """models/moe.py:routing_stats of each block's MLP input in one
+    train-mode forward of ``wav`` without gradients (moe_mod.moe_mlp
+    wrapped to keep its inputs), outside any timed or profiled step:
+    [{'block', 'kept_share', 'filled_share'}], in block order."""
+    inputs, orig = [], moe_mod.moe_mlp
+
+    def recorded(cfg_, p, x):
+        inputs.append((p, x))
+        return orig(cfg_, p, x)
+
+    moe_mod.moe_mlp = recorded
+    try:
+        with torch.no_grad():
+            moe_mod.forward_with_aux(cfg, model, wav, train=True, frontend_fn=frontend_fn)
+    finally:
+        moe_mod.moe_mlp = orig
+    return [{"block": i, **moe_mod.routing_stats(cfg, p, x)} for i, (p, x) in enumerate(inputs)]
+
+
 def relu_flips(a: list, b: list) -> dict:
     """The experts' ReLU inputs of two runs (one tensor a block) -> how many
     fall on different sides of 0, the largest |input| among those on either
@@ -2714,7 +2735,8 @@ def phase_moe(info) -> dict:
               path; its replays profiled, each program span's device time
               (profile_moe: the routed MLP's share of the busy time);
       train - 5 make_moe_train_step steps (B=32 x 10 s, AdamW, the exact
-              kernel), timed, its replays profiled (profile_moe), peak memory;
+              kernel), timed, its replays profiled (profile_moe), peak memory,
+              each block's routing_stats (block_routing) on the timed batch;
               one step at depth MOE_PARITY_DEPTH held against the CPU with the
               frontend (frontend_gate) and the step after it gated apart,
               as the SED phase does, the tokens whose experts differ and
@@ -2810,6 +2832,10 @@ def phase_moe(info) -> dict:
     step_ms = time_ms(lambda: step(x, t), warmup=1, iters=5)
     eager_ms = time_ms(lambda: eager_step(step, {"wav": x, "target": t}), warmup=1, iters=5)
     prof = profile_moe(lambda: step(x, t), step.graphs)
+    routing = block_routing(moe, cfg, model, x, fe)
+    print("moe train: routing_stats a block (kept_share, filled_share): "
+          + ", ".join(f"{r['block']}: {r['kept_share']:.4f} {r['filled_share']:.4f}"
+                      for r in routing), flush=True)
     # one step on the card against the CPU, from the same weights: through
     # the plain mel (the whole step), through the card's mel (the step after
     # the frontend), and through the card's mel and the card's expert ReLU
@@ -2858,6 +2884,7 @@ def phase_moe(info) -> dict:
            "launches": counts["train"], "losses": losses, "wall_s": wall, "step_ms": step_ms,
            "clips_per_s": MOE_B * 1e3 / step_ms, "eager_step_ms": eager_ms,
            "profiled": "the replays", "peak_memory_bytes": peak, **prof,
+           "routing_stats": routing,
            "frontend": frontend, "step_vs_cpu_plain": whole, "step_vs_cpu_on_card_mel": after,
            "step_vs_cpu_on_card_mel_and_relu_signs": masked,
            "first_loss_vs_cpu_on_card_mel": {"depth": cfg.base.depth, "loss_gpu": losses[0],

@@ -12,6 +12,8 @@ nodes listed by libcuda, and three replays traced.
 - Eager under the profiler, the backward's span, opened and closed by
   hooks on autograd's device thread, lies inside ``uit.backward`` once a
   block.
+- Two runs of the step from one seed and one state end on bitwise-equal
+  parameters, and so does a run of eager steps.
 
 Every test here is marked ``gpu`` and skips without a CUDA GPU. The file
 imports neither jax nor the JAX package:
@@ -138,3 +140,28 @@ def test_eager_backward_span_on_the_device_thread(cuda):
     assert len(inner) == DEPTH
     assert all(backward.start <= r.start and r.end <= backward.end for r in inner)
     assert sum(e.name == "uit.moe.mlp" for e in spans) == DEPTH
+
+
+@pytest.mark.gpu
+def test_moe_step_repeats_bitwise(cuda):
+    """Two runs of the small MoE step from one seed and one starting state
+    (each its eager first call, the capture, then replays: four steps) end
+    with bitwise-equal parameters, the routed MLP's dispatch and combine
+    being gathers with no atomic sum; a run of four eager steps ends on the
+    same parameters."""
+
+    def run(graphed):
+        step, wav, target = _step(cuda)
+        for _ in range(4):
+            if graphed:
+                step(wav, target)
+            else:
+                (kind,) = step.optimizer.plan(1)
+                step.device_step({"wav": wav, "target": target}, None, kind,
+                                 step.optimizer.scalars(1)[0])
+        torch.cuda.synchronize()
+        return [p.detach().clone() for p in step.optimizer.params]
+
+    first, second, eager = run(True), run(True), run(False)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert all(torch.equal(a, b) for a, b in zip(first, eager))

@@ -11,35 +11,40 @@ Parameters mirror the JAX pytree key for key: a block holds
 ``moe.fc1.bias`` (E, H), ``moe.fc2.kernel`` (E, H, D) and ``moe.fc2.bias``
 (E, D) in place of ``mlp``, so ``ckpt/convert.py`` carries them as they are.
 
-Routing is the JAX package's formulation: two einsums against dense
-one-hot dispatch/combine tensors of static shape (G groups of S tokens, E
-experts, C slots), no sorting of tokens and no ragged shapes; the expert
-computation is one batched (E, G*C, D) x (E, D, H) product. JAX computes
-these einsums outside any Pallas kernel, and so does the port (plain
-``torch.einsum``). Three points where PyTorch differs are handled here:
+Routing places each token the way the JAX package's dense one-hot
+formulation does (G groups of S tokens, E experts, C slots an expert a
+group; slots filled round by round, top-1 choices first, and in token order
+within a round; a choice past C dropped), but moves tokens through integer
+slot maps in place of the (G, S, E, C) dispatch and combine tensors:
+``slot_of`` (each token's choice -> its slot in the (E, G, C) bank) and
+``choice_of`` (each slot -> the token's choice filling it). Dispatch
+gathers the tokens' rows into the bank and combine gathers each token's k
+expert outputs back, each an autograd function whose backward is a gather
+through the other map (no atomics, so a step repeats bitwise). The expert
+computation is one batched (E, G*C, D) x (E, D, H) product, empty slots
+zero rows, as the dense form has it. Two points where PyTorch differs from
+JAX are handled here:
 
-- the slot one-hot is built by comparing against ``arange(C)``, which
-  gives a row of zeros where a token's slot is past the capacity, as
-  ``jax.nn.one_hot`` does (``torch.nn.functional.one_hot`` raises there);
 - ``_top_k`` breaks ties toward the lower expert index, as
   ``jax.lax.top_k`` does (a stable descending sort; ``torch.topk`` on CUDA
   promises no order among equal values);
-- the router softmax, top-k and the combine bookkeeping stay float32 under
-  ``compute_dtype='bfloat16'``; the expert products run in the compute dtype.
+- the router softmax, top-k and the combine weights stay float32 under
+  ``compute_dtype='bfloat16'`` until combine, which casts the weights to
+  the compute dtype as the dense form's ``combine`` is cast; the expert
+  products run in the compute dtype.
 
-Memory: the float32 ``combine`` tensor is (G, S, E, C) per block. At full
-width with 10 s clips (target_length 1012: 252 tokens a clip) the auto
-group is gcd(B, 8) clips = 2,016 tokens and C = 1,008 (8 experts, top-2,
-capacity 2.0), so combine is 65 MB a group, 260 MB a block at B=32; a
-train step keeps one for each of the 12 blocks for the backward pass. That
-is the formulation's own cost, kept as the JAX package has it.
+Memory: a block keeps for its backward the expert bank's inputs and
+outputs, O(E*G*C*D) (C is about k*S/E times the capacity factor, so a few
+times the tokens' own rows), and the maps, O(k*G*S) integers. No tensor
+of G*S*E*C elements is made, forward or backward: at B=32 clips of 10 s
+and full width one would be 252 MB a block in float32.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -192,9 +197,9 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
     combine weights renormalized over the selected experts and a fixed
     per-expert capacity C:
 
-        expert_in  = dispatch^T x          (E, G, C, D)
-        expert_out = fc2(act(fc1(expert_in)))
-        y          = combine . expert_out  (G, S, D)
+        expert_in[e, (g, c)] = x[token in slot c of expert e, group g]  (E, G*C, D)
+        expert_out           = fc2(act(fc1(expert_in)))
+        y[t]                 = sum_j w[t, j] * expert_out[slot of t's j-th choice]
 
     aux = E * sum_e f_e * P_e (Switch load balancing: f = fraction of tokens
     whose top-1 choice is e, P = mean router probability of e).
@@ -211,9 +216,9 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
 
     Its spans (``utils/profiling.py:span``): ``uit.moe.mlp`` around the
     forward, holding ``uit.moe.route`` (router, softmax, top-k, the slot
-    loop that builds combine and dispatch), ``uit.moe.dispatch`` (the
-    ``expert_in`` einsum), ``uit.moe.experts`` (fc1, activation, fc2) and
-    ``uit.moe.combine`` (the ``y`` einsum); and ``uit.moe.mlp.backward``,
+    maps), ``uit.moe.dispatch`` (the gather of ``expert_in``),
+    ``uit.moe.experts`` (fc1, activation, fc2) and ``uit.moe.combine`` (the
+    gather and weighted sum of ``y``); and ``uit.moe.mlp.backward``,
     opened by a grad hook on the outputs and closed by one on ``x``,
     registered only while a span records anything (the block's ``x`` feeds
     this MLP alone, so the backward between the two is the MLP's)."""
@@ -238,76 +243,173 @@ def moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
     return y, aux
 
 
-def _moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
-    """``moe_mlp``'s forward, its four inner spans."""
+class _Routes(NamedTuple):
+    """One block's routing (``_route``): the rows of the groups holding this
+    rank's tokens (``xt`` (G*S, D), their combine weights ``w`` (G*S, k),
+    another rank's tokens zero rows and zero weights), the slot maps over
+    them (``_slot_maps``), ``row0``: this rank's first row in them, and the
+    load-balancing loss ``aux``."""
+
+    xt: torch.Tensor
+    w: torch.Tensor
+    slot_of: torch.Tensor
+    choice_of: torch.Tensor
+    row0: int
+    aux: torch.Tensor
+
+
+def _slot_maps(topi: torch.Tensor, live: torch.Tensor, n_experts: int, capacity: int,
+               first: int, n_local: int):
+    """(G, S, k) choices -> (slot_of, choice_of), int32.
+
+    A choice's slot in its expert is the number of that expert's choices
+    before it, round by round (every token's j-th choice before any (j+1)-th)
+    and in token order within a round: the dense form's per-round cumsum
+    plus the slots earlier rounds took, here one cumsum over the (j, s)
+    order. It is placed iff its slot is under ``capacity``, it is ``live``
+    (weight > 0: the dense form's ``dispatch = combine > 0``) and its
+    expert is one of [first, first + n_local). ``slot_of`` (G*S, k): the
+    flat index into the (n_local, G, capacity) bank, or the bank's size
+    where not placed. ``choice_of`` (bank): the flat choice t*k + j filling
+    each slot (``// k``: its token), or G*S*k where empty. A slot takes at
+    most one choice, so one scatter with unique indices writes
+    ``choice_of``: each unplaced choice to a place of its own past the bank."""
+    G, S, k = topi.shape
+    dev = topi.device
+    order = topi.transpose(1, 2).reshape(G, 1, k * S)
+    onehot = (order == torch.arange(n_experts, device=dev)[:, None]).int()  # (G, E, k*S)
+    before = torch.cumsum(onehot, dim=-1, dtype=torch.int32) - onehot
+    pos = before.gather(1, order).reshape(G, k, S).transpose(1, 2)  # (G, S, k)
+    local = topi - first
+    placed = live & (pos < capacity) & (local >= 0) & (local < n_local)
+    bank, n = n_local * G * capacity, G * S * k
+    flat = (local * G + torch.arange(G, device=dev)[:, None, None]) * capacity + pos
+    choices = torch.arange(n, device=dev)
+    dest = torch.where(placed, flat, bank).reshape(n)
+    choice_of = torch.full((bank + n,), n, dtype=torch.int64, device=dev)
+    choice_of.scatter_(0, torch.where(dest < bank, dest, bank + choices), choices)
+    return dest.reshape(G * S, k).int(), choice_of[:bank].int()
+
+
+def _rows(t: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """t's rows at ``index``, a zero row where it equals len(t)."""
+    return F.pad(t, (0, 0, 0, 1)).index_select(0, index.reshape(-1))
+
+
+class _Dispatch(torch.autograd.Function):
+    """The bank's rows, x[token of each slot] (a zero row where empty); the
+    backward is the transpose, through ``slot_of``: grad_x[t] = sum_j
+    grad[slot_of[t, j]]."""
+
+    @staticmethod
+    def forward(ctx, x, slot_of, choice_of):
+        ctx.save_for_backward(slot_of)
+        return _rows(x, torch.div(choice_of, slot_of.shape[1], rounding_mode="floor"))
+
+    @staticmethod
+    def backward(ctx, grad):
+        (slot_of,) = ctx.saved_tensors
+        T, k = slot_of.shape
+        return _rows(grad, slot_of).reshape(T, k, -1).sum(dim=1), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y[t] = sum_j w[t, j] * out[slot_of[t, j]] (a dropped choice adds 0),
+    summed in float32 and cast to out's dtype; the backward gathers through
+    ``choice_of``: grad_out[s] = w(s) * grad_y[token of s] (0 where empty),
+    and grad_w[t, j] = <grad_y[t], out[slot_of[t, j]]>."""
+
+    @staticmethod
+    def forward(ctx, out, w, slot_of, choice_of):
+        ctx.save_for_backward(out, w, slot_of, choice_of)
+        T, k = slot_of.shape
+        picked = _rows(out, slot_of).reshape(T, k, -1).float()
+        return (w.float()[..., None] * picked).sum(dim=1).to(out.dtype)
+
+    @staticmethod
+    def backward(ctx, grad):
+        out, w, slot_of, choice_of = ctx.saved_tensors
+        T, k = slot_of.shape
+        g = grad.float()
+        picked = _rows(out, slot_of).reshape(T, k, -1).float()
+        grad_w = (picked * g[:, None]).sum(dim=-1).to(w.dtype)
+        scaled = (w.float()[..., None] * g[:, None]).to(out.dtype).reshape(T * k, -1)
+        return _rows(scaled, choice_of), grad_w, None, None
+
+
+def _route(cfg: MoEUITConfig, p: MoE, x: torch.Tensor) -> _Routes:
+    """``moe_mlp``'s routing: router, float32 softmax, top-k (renormalized
+    weights), the groups holding this rank's tokens and their slot maps."""
     B, N, D = x.shape
     E, k = cfg.n_experts, cfg.top_k
-    cdt = uit.compute_dtype(cfg.base)
     rows = current_rows()
     world = 1 if rows is None else rows.world
     S = _group_size(cfg, B * world, N)
     C = max(1, min(int(math.ceil(k * S / E * cfg.capacity_factor)), k * S))
 
+    gates = torch.softmax(torch.einsum("td,de->te", x.reshape(B * N, D).float(),
+                                       p.router.kernel), dim=-1)
+    topv, topi = _top_k(gates, k)  # (T, k)
+    topv = topv / topv.sum(dim=-1, keepdim=True)
+    xt = x.reshape(B * N, D)
+    if p.ep is not None:  # x and the combine weights reach every rank's banks
+        xt, topv = copy_to(xt, p.ep.group), copy_to(topv, p.ep.group)
+    all_topi, first = topi, 0
+    if world > 1:  # every token's choices in the global order, over any group of Rows
+        spread = torch.zeros((world, B * N, k), dtype=topi.dtype, device=topi.device)
+        spread[rows.rank] = topi
+        all_topi, first = rows.all_reduce(spread).reshape(-1, k), rows.rank * B * N
+    # the groups holding this rank's tokens, the others' tokens zero rows
+    g0, g1 = first // S, -(-(first + B * N) // S)
+    pad = (0, 0, first - g0 * S, g1 * S - first - B * N)
+
+    def fill(t):
+        return F.pad(t, pad) if pad[2] or pad[3] else t
+
+    xt, w = fill(xt), fill(topv)
+    topi = all_topi[g0 * S:g1 * S].reshape(g1 - g0, S, k)
+    slot_of, choice_of = _slot_maps(topi, w.detach().reshape(g1 - g0, S, k) > 0, E, C,
+                                    0 if p.ep is None else p.ep.first, p.fc1.kernel.shape[0])
+    f = (all_topi[:, 0, None] == torch.arange(E, device=x.device)).float().mean(dim=0)
+    P = gates.mean(dim=0) if rows is None else rows.mean(gates.mean(dim=0))
+    return _Routes(xt, w, slot_of, choice_of, pad[2], E * torch.sum(f * P))
+
+
+def _moe_mlp(cfg: MoEUITConfig, p: MoE, x: torch.Tensor):
+    """``moe_mlp``'s forward, its four inner spans."""
+    B, N, D = x.shape
+    cdt = uit.compute_dtype(cfg.base)
     with span("moe.route"):
-        gates = torch.softmax(torch.einsum("td,de->te", x.reshape(B * N, D).float(),
-                                           p.router.kernel), dim=-1)
-        topv, topi = _top_k(gates, k)  # (T, k)
-        topv = topv / topv.sum(dim=-1, keepdim=True)
-        xt = x.reshape(B * N, D)
-        if p.ep is not None:  # x and the combine weights reach every rank's banks
-            xt, topv = copy_to(xt, p.ep.group), copy_to(topv, p.ep.group)
-        all_topi, first = topi, 0
-        if world > 1:  # every token's choices in the global order, over any group of Rows
-            spread = torch.zeros((world, B * N, k), dtype=topi.dtype, device=topi.device)
-            spread[rows.rank] = topi
-            all_topi, first = rows.all_reduce(spread).reshape(-1, k), rows.rank * B * N
-        # the groups holding this rank's tokens, the others' tokens zero rows
-        g0, g1 = first // S, -(-(first + B * N) // S)
-        pad = (0, 0, first - g0 * S, g1 * S - first - B * N)
-
-        def fill(t):
-            return F.pad(t, pad) if pad[2] or pad[3] else t
-
-        xt = fill(xt).reshape(g1 - g0, S, D)
-        topv = fill(topv).reshape(g1 - g0, S, k)
-        topi = all_topi[g0 * S:g1 * S].reshape(g1 - g0, S, k)
-
-        experts = torch.arange(E, device=x.device)
-        slots = torch.arange(C, device=x.device, dtype=torch.float32)
-        counts = torch.zeros(g1 - g0, E, device=x.device)
-        combine = torch.zeros(g1 - g0, S, E, C, device=x.device)
-        for j in range(k):
-            oh = (topi[:, :, j, None] == experts).float()  # (G, S, E)
-            # slot each token would take in expert e: tokens before it in the
-            # group this round + slots consumed by earlier rounds
-            pos = torch.cumsum(oh, dim=1) - oh + counts[:, None, :]
-            keep = oh * (pos < C)
-            slot = (pos[..., None] == slots).float()  # zeros past the capacity
-            combine = combine + topv[:, :, j, None, None] * keep[..., None] * slot
-            counts = counts + oh.sum(dim=1)
-        dispatch = (combine > 0).float()
-        if p.ep is not None:  # this rank's banks
-            local = slice(p.ep.first, p.ep.first + p.fc1.kernel.shape[0])
-            dispatch, combine = dispatch[:, :, local], combine[:, :, local]
-
+        r = _route(cfg, p, x)
     with span("moe.dispatch"):
-        expert_in = torch.einsum("gsec,gsd->egcd", dispatch.to(cdt), xt.to(cdt))
+        expert_in = _Dispatch.apply(r.xt.to(cdt), r.slot_of, r.choice_of).reshape(
+            p.fc1.kernel.shape[0], -1, D)  # (E, G*C, D)
     with span("moe.experts"):
         h = ACTIVATIONS[cfg.base.act](
-            torch.einsum("egcd,edh->egch", expert_in, p.fc1.kernel.to(cdt))
-            + p.fc1.bias.to(cdt)[:, None, None, :])
-        out_e = (torch.einsum("egch,ehd->egcd", h, p.fc2.kernel.to(cdt))
-                 + p.fc2.bias.to(cdt)[:, None, None, :])
+            torch.einsum("ecd,edh->ech", expert_in, p.fc1.kernel.to(cdt))
+            + p.fc1.bias.to(cdt)[:, None, :])
+        out_e = (torch.einsum("ech,ehd->ecd", h, p.fc2.kernel.to(cdt))
+                 + p.fc2.bias.to(cdt)[:, None, :])
     with span("moe.combine"):
-        y = torch.einsum("gsec,egcd->gsd", combine.to(cdt), out_e)
+        y = _Combine.apply(out_e.reshape(-1, D), r.w.to(cdt), r.slot_of, r.choice_of)
     if p.ep is not None:
         y = reduce_from(y, p.ep.group)
-    y = y.reshape(-1, D)[pad[2]:pad[2] + B * N]
+    y = y[r.row0:r.row0 + B * N]
+    return y.reshape(B, N, D).to(x.dtype), r.aux
 
-    f = (all_topi[:, 0, None] == experts).float().mean(dim=0)
-    P = gates.mean(dim=0) if rows is None else rows.mean(gates.mean(dim=0))
-    aux = E * torch.sum(f * P)
-    return y.reshape(B, N, D).to(x.dtype), aux
+
+@torch.no_grad()
+def routing_stats(cfg: MoEUITConfig, p: MoE, x: torch.Tensor) -> dict:
+    """How often one block's routing places a token, for its input x (B, N,
+    D), read on the host (outside any step): ``kept_share``, the placed
+    (token, choice) pairs over k * B * N, and ``filled_share``, the filled
+    slots over the bank's (n_local * G * C); this rank's own under expert
+    parallelism or ``Rows``."""
+    r = _route(cfg, p, x)
+    bank = r.choice_of.numel()
+    placed = int((r.slot_of < bank).sum())
+    return {"kept_share": placed / (cfg.top_k * x.shape[0] * x.shape[1]),
+            "filled_share": placed / bank}
 
 
 # ------------------------------------------------------------------- forward

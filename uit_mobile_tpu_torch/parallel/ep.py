@@ -120,7 +120,7 @@ def make_moe_train_step(cfg, model, optimizer, *, frontend_fn: Optional[Callable
     optimizer kind on the card (one process, or a mesh on NCCL: the
     combine's and the routing's collectives in the graph), eager on the CPU
     and on gloo. The capacity and the drop-path rates are Python values of the
-    config, and the routing (a stable sort, one-hot slots) reads no device
+    config, and the routing (a stable sort, integer slot maps) reads no device
     value on the host. ``make_multi_step`` takes the step, its batches
     ``{'wav', 'target'}``."""
     from ..models import moe
